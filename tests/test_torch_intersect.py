@@ -28,10 +28,11 @@ from cuda_raytracer_tpu_torch.ops import intersect as PI
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
-    """Run torch single-threaded here: with its CPU thread pool, a chunk
-    of a large elementwise op has been seen to round differently in
-    about one process in fifty (a 128-ray block of t values off by
-    ~1e-5), never with one thread; these tests compare to the bit."""
+    """Run torch single-threaded here: with its CPU thread pool, the
+    chunk of a large elementwise op that one worker thread computes has
+    been seen to round differently in an occasional process (a block of
+    rays' t off in the last bits, amplified by cancellation), never with
+    one thread; these tests compare to the bit."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
