@@ -148,7 +148,8 @@ def dfs_trace_cuda(payload, node_rows, prim_rows, meta, width: int,
     )
     if err != 0:
         raise RuntimeError(f"packet_dfs kernel launch failed: cuda error {err}")
-    launches += 1
+    if n:  # the C side launches nothing for an empty batch
+        launches += 1
     return out
 
 
