@@ -15,8 +15,10 @@ prints one JSON line per kernel and, last, the device line.  Phases:
 3. the slice at full size: the fast preset with traversal_rr="dfs",
    800x600, depth 4, NEE 1x1.0 per depth — run A is bench.py's
    configuration and procedural scene (Cornell box with spheres, 2
-   frames of 32 spp), run B terrain n=121 (1 frame of 32 spp); each
-   kernel's launch count must equal traces per frame x frames;
+   frames of 32 spp), run B terrain n=121 seen from above so it fills
+   the frame (1 frame of 32 spp); each kernel's launch count must equal
+   traces per frame x frames; then the kernel against its plain version
+   on the runs' own 15,360,000-lane traces;
 4. the same small frame on the card and on the CPU, per pixel.
 
 Needs one CUDA card; exits non-zero (and prints no result) without one,
@@ -39,16 +41,25 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 #: float32 FLOP/s outside the tensor cores
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
-#: float operations per child box test and per prim test, counted from
-#: ops/csrc/packet_dfs.cu (subtractions, products, min/max, compares)
+#: float operations the traversal needs, counted from ops/intersect.py's
+#: packed_prim_test and the slab test (adds, products, divisions, sqrt,
+#: min/max, compares): per non-empty child box, per triangle test, per
+#: sphere test (a prim is tested by its own type only; pads cost
+#: nothing), and per ray (the three reciprocals of d)
 BOX_FLOPS = 25
-PRIM_FLOPS = 72
+TRI_FLOPS = 38
+SPH_FLOPS = 37
+RAY_FLOPS = 3
 
 #: the main path's device (the script checks there is a card)
 DEVICE = "cuda"
 N_RAYS = 262_144
 WIDTH, HEIGHT = 800, 600
 PIXEL_RTOL, PIXEL_ATOL, MAX_BAD = 1e-4, 1e-5, 0.01
+#: camera (origin, look-at) of run A (bench.py's fallback viewpoint) and
+#: of run B (above the terrain, which then fills the frame)
+VIEW_A = ([0, 0.75, 2.5], [0, 0.75, 0])
+VIEW_B = ([0, 1.3, 1.3], [0, 0, 0])
 
 
 def fail(msg: str) -> None:
@@ -142,7 +153,6 @@ def terrain_ray_set(dev):
     d = torch.cat([d_c, torch.as_tensor(d_r, dtype=torch.float32,
                                          device=dev)])
     valid = torch.arange(N_RAYS, device=dev) < n_cam + n_rnd
-    closest = packet_dfs.make_payload(o, d, valid)
 
     # shadow rays: camera hits of the closest set toward the light
     res = packet_dfs.trace_closest_packets(scene, o, d, valid)
@@ -152,48 +162,51 @@ def terrain_ray_set(dev):
     o_s, d_s, max_t, _, _ = S.nee_shadow_rays(
         scene, hit, torch.ones_like(o), 0, u, 1.0
     )
-    shadow = packet_dfs.make_payload(o_s, d_s, hit.valid, max_t)
-    return scene, closest, shadow, max_t
+    return scene, (o, d, valid, None), (o_s, d_s, hit.valid, max_t)
 
 
 def _plain_chunked(args, chunk, stats):
-    """The plain version over column chunks of the payload (rays are
-    independent, so the result is the same; it bounds the plain
-    version's [N, 64] stack and leaf temporaries at main-path sizes)."""
+    """The plain version over chunks of the rays (rays are independent,
+    so the result is the same; it bounds the plain version's [N, 64]
+    stack and leaf temporaries at main-path sizes)."""
     import torch
 
     from cuda_raytracer_tpu_torch.ops import packet_dfs
 
-    payload, rest = args[0], args[1:]
-    return torch.cat([
-        packet_dfs.dfs_trace_plain(payload[:, i:i + chunk].contiguous(),
-                                   *rest, stats=stats)
-        for i in range(0, payload.shape[1], chunk)
-    ], dim=1)
+    rays, tables = args[:4], args[4:]
+    parts = [
+        packet_dfs.dfs_trace_plain(
+            *(None if x is None else x[i:i + chunk] for x in rays),
+            *tables, stats=stats)
+        for i in range(0, rays[0].shape[0], chunk)
+    ]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]),
+            sum(p[2] for p in parts))
 
 
-def measure_kernel(label, scene, payload, do_kill, max_t=None,
-                   chunk=1 << 20):
-    """The kernel against its plain version on one payload (hit/miss,
-    prim and t bit-equal, shadow decisions equal, dropped == 0), then
-    kernel time (CUDA events), plain time (host clock) and the bound
-    from this payload's bytes and the work the plain version counted."""
+def measure_kernel(label, scene, rays, chunk=1 << 20):
+    """The kernel against its plain version on one ray set (o, d, valid,
+    t_limit): hit/miss, prim and t bit-equal, shadow decisions equal,
+    dropped == 0.  Then kernel time (CUDA events), plain time (host
+    clock) and the bound from these rays' bytes and the work this data
+    needs, as the plain version counted it."""
     import torch
 
     from cuda_raytracer_tpu_torch.ops import packet_dfs
 
     b = scene.bvh
-    args = (payload, b.dfs_node_rows, b.dfs_prim_rows, b.node_meta,
-            b.width, do_kill, 1e-3)
-    got = packet_dfs.dfs_trace_cuda(*args)
+    rays = tuple(None if x is None else x.contiguous() for x in rays)
+    args = (*rays, b.dfs_node_rows, b.dfs_prim_rows, b.node_meta, b.width,
+            1e-3)
+    max_t = rays[3]
+    tk, pk, dropped = packet_dfs.dfs_trace_cuda(*args)
     stats = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    want = _plain_chunked(args, chunk, stats)
+    tp, pp, dropped_plain = _plain_chunked(args, chunk, stats)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    pk, pp = got[1], want[1]
-    tk, tp = got[0], want[0]
     hm = int(((pk < 0) != (pp < 0)).sum())
     prim_bad = int((pk != pp).sum())
     t_bad = int((tk.view(torch.int32) != tp.view(torch.int32)).sum())
@@ -202,53 +215,53 @@ def measure_kernel(label, scene, payload, do_kill, max_t=None,
     ulp = ((tk.view(torch.int32).long() - tp.view(torch.int32).long())
            .abs()[both])
     max_ulp = int(ulp.max()) if ulp.numel() else 0
-    dropped = int(got[3].sum())
-    visits = int(got[2].sum())
-    n = payload.shape[1]
+    dropped, dropped_plain = int(dropped), int(dropped_plain)
+    n = rays[0].shape[0]
     print(f"[kernel] {label}: {n} rays, hit/miss mismatches {hm}, prim "
           f"mismatches {prim_bad}, t bit mismatches {t_bad}, max ulp gap "
-          f"{max_ulp}, max |dt| {err}, dropped {dropped}, hits "
-          f"{int((pk >= 0).sum())}")
+          f"{max_ulp}, max |dt| {err}, dropped {dropped} (plain "
+          f"{dropped_plain}), hits {int((pk >= 0).sum())}")
     check(hm == 0 and prim_bad == 0 and t_bad == 0,
           f"{label}: kernel disagrees with its plain version")
-    check(dropped == 0, f"{label}: kernel dropped rays")
-    check(visits == stats["visits"], f"{label}: visit counts differ")
+    check(dropped == 0 and dropped_plain == 0, f"{label}: dropped rays")
     if max_t is not None:
         eps = 1e-3
-        t_k = torch.where(pk >= 0, tk, float("inf"))
-        t_p = torch.where(pp >= 0, tp, float("inf"))
-        dec_bad = int(((t_k > max_t - eps) != (t_p > max_t - eps)).sum())
+        dec_bad = int(((tk > max_t - eps) != (tp > max_t - eps)).sum())
         print(f"[kernel] {label}: shadow decisions differing: {dec_bad}")
         check(dec_bad == 0, f"{label}: shadow decisions differ")
 
     ms = cuda_time_ms(lambda: packet_dfs.dfs_trace_cuda(*args), 5)
-    nbytes = (payload.numel() * 4 + 4 * n * 4 + b.dfs_node_rows.numel() * 4
-              + b.dfs_prim_rows.numel() * 4 + b.node_meta.numel() * 4)
-    flops = (visits * b.width * BOX_FLOPS + stats["groups"] * 8 * PRIM_FLOPS
-             + 3 * n)
+    # each input read once, each output (t, prim, dropped) written once
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in args[:7] if x is not None) + 8 * n + 8
+    flops = (stats["boxes"] * BOX_FLOPS + stats["tris"] * TRI_FLOPS
+             + stats["spheres"] * SPH_FLOPS + n * RAY_FLOPS)
     bytes_ms = nbytes / HBM_BPS * 1e3
     ops_ms = flops / F32_FLOPS * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     print(f"[kernel] {label}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
-          f"bound {bound_ms:.5f} ms (bytes {nbytes} -> {bytes_ms:.5f} ms; "
-          f"{flops} flops from {visits} visits and {stats['groups']} "
-          f"group tests -> {ops_ms:.5f} ms)")
+          f"bound {bound_ms:.5f} ms, {bound_ms / ms:.3f} of it reached "
+          f"(bytes {nbytes} -> {bytes_ms:.5f} ms; {flops} flops from "
+          f"{stats['visits']} visits, {stats['boxes']} box tests, "
+          f"{stats['tris']} triangle and {stats['spheres']} sphere tests "
+          f"-> {ops_ms:.5f} ms)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes" if bytes_ms > ops_ms else "operations",
                 max_abs_err=err)
 
 
 def phase_kernel(dev):
-    scene, closest, shadow, max_t = terrain_ray_set(dev)
-    a = measure_kernel("terrain closest-hit", scene, closest, False)
-    b = measure_kernel("terrain shadow", scene, shadow, True, max_t)
+    scene, closest, shadow = terrain_ray_set(dev)
+    a = measure_kernel("terrain closest-hit", scene, closest)
+    b = measure_kernel("terrain shadow", scene, shadow)
     return max(a["max_abs_err"], b["max_abs_err"])
 
 
 def run_slice(label, scene_fn, frames, viewpoint=None):
     """Drive the main path (warm-up frame, then ``frames`` counted
-    frames).  Returns (launches, renderer, the launch arguments of the
-    warm-up frame's first closest-hit and first shadow trace)."""
+    frames).  Returns (launches, renderer, the rays (o, d, valid,
+    t_limit) of the warm-up frame's first closest-hit trace, under True,
+    and first shadow trace, under False)."""
     import numpy as np
     import torch
 
@@ -268,7 +281,7 @@ def run_slice(label, scene_fn, frames, viewpoint=None):
     launch = packet_dfs.dfs_trace_cuda
 
     def keep(*args):
-        seen.setdefault(args[5], args)  # keyed by do_kill
+        seen.setdefault(args[3] is None, args[:4])  # closest-hit or shadow
         return launch(*args)
 
     packet_dfs.dfs_trace_cuda = keep
@@ -310,22 +323,24 @@ def run_slice(label, scene_fn, frames, viewpoint=None):
 
 
 def phase_slice():
-    """Runs A and B; then the kernel against its plain version on run
-    A's own traces (the main path's shapes), whose numbers are the
-    kernel line's."""
+    """Runs A and B; then the kernel against its plain version on the
+    runs' own traces (the main path's shapes).  Run A's camera trace
+    gives the kernel line's numbers; run B's descends a deep tree."""
     from cuda_raytracer_tpu_torch.models.cornell import cornell_box_scene
     from cuda_raytracer_tpu_torch.models.terrain import terrain_scene
 
-    launches_a, r, seen = run_slice(
+    launches_a, ra, seen_a = run_slice(
         "A cornell", lambda: cornell_box_scene(with_spheres=True), 2,
-        viewpoint=([0, 0.75, 2.5], [0, 0.75, 0]),
+        viewpoint=VIEW_A,
     )
-    run_slice("B terrain", lambda: terrain_scene(n=121), 1)
-    main = measure_kernel("run A camera trace", r.scene, seen[False][0],
-                          False)
-    shadow = seen[True][0]  # row 7 is tub0 = the light distance
-    measure_kernel("run A first shadow trace", r.scene, shadow, True,
-                   shadow[7])
+    _, rb, seen_b = run_slice(
+        "B terrain", lambda: terrain_scene(n=121), 1,
+        viewpoint=VIEW_B,
+    )
+    main = measure_kernel("run A camera trace", ra.scene, seen_a[True])
+    measure_kernel("run A first shadow trace", ra.scene, seen_a[False])
+    measure_kernel("run B camera trace", rb.scene, seen_b[True],
+                   chunk=1 << 18)
     return launches_a, main
 
 
@@ -345,7 +360,7 @@ def phase_cpu_vs_cuda():
     for dev in (DEVICE, "cpu"):
         r = WavefrontRenderer(cfg, camera_mode="collada", device=dev)
         r.load_static_scene(cornell_box_scene(with_spheres=True))
-        r.set_viewpoint([0, 0.75, 2.5], [0, 0.75, 0])
+        r.set_viewpoint(*VIEW_A)
         for _ in range(frames):
             r.render()
         imgs.append(r.get_raw_image())

@@ -18,23 +18,23 @@
 //     against the job's best, then strict < against tub to update;
 //   * shadow mode (do_kill): tub starts at min(t_limit, 1e30); after a leaf
 //     job the ray stops once prim >= 0 and best_t < tub0 - kill_eps.
-// Invalid lanes (tub0 < 0) never traverse.  A ray cut off by MAX_VISITS
-// or by an overflow of its stack (never written past) is flagged
-// truncated, and the wrapper counts it as dropped.
+// Invalid lanes never traverse.  A ray cut off by MAX_VISITS or by an
+// overflow of its stack (never written past) adds one to *dropped.
 //
 // The leaf test is packed_prim_test of ops/intersect.py line for line.
 // Build with -fmad=false and without --use_fast_math: IEEE division and
 // sqrt, no FMA contraction, so it rounds as the plain PyTorch version.
 //
-// Bound on the H100: per ray it reads the 32-byte payload once and writes
-// 16 bytes; the node rows (32 B per child) and prim groups (512 B per
-// group) are re-read per visit from L2/L1, where the tables of a
-// bunny-class scene (a few MB) stay resident.  So the work is ALU and
-// latency: a box test is ~30 flops per child, a prim test ~40 per prim,
-// with divergent control flow between the threads of a warp.  The design
-// keeps the tables in compact rows (one 32-byte sector per child, 64-byte
-// prim records read as float4) and everything per ray in registers and
-// local memory; warp-coherent packets in shared memory are later work.
+// Bound on the H100: per ray it reads o, d (24 B), valid (1 B) and, for
+// shadow rays, t_limit (4 B), and writes t and prim (8 B); the node rows
+// (32 B per child) and prim groups (512 B per group) are re-read per visit
+// from L2/L1, where the tables of a bunny-class scene (a few MB) stay
+// resident.  So the work is ALU and latency: a box test is 25 flops per
+// child, a prim test 37-38 per prim, with divergent control flow between the
+// threads of a warp.  The design keeps the tables in compact rows (one
+// 32-byte sector per child, 64-byte prim records read as float4) and
+// everything per ray in registers and local memory; warp-coherent packets
+// in shared memory are later work.
 
 #include <cuda_runtime.h>
 
@@ -86,21 +86,27 @@ __device__ __forceinline__ bool packed_prim_test(
   return ((is_sph && ok_sph) || ((!is_sph) && ok_tri)) && not_pad;
 }
 
-// payload [8, n]: o.xyz, d.xyz, pad, tub0.  nodes [8*Nd, 8] as float4
-// pairs: (mnx mny mnz mxx) (mxy mxz grp0 ngroups).  prims [8*G, 16] as
-// float4 quads.  meta [4*Nd].  out [4, n]: t, prim, visits, truncated.
+// o, d [n, 3]; valid [n]; t_limit [n] or null (closest-hit mode).  nodes
+// [8*Nd, 8] as float4 pairs: (mnx mny mnz mxx) (mxy mxz grp0 ngroups).
+// prims [8*G, 16] as float4 quads.  meta [4*Nd].  t [n] (inf on a miss),
+// prim [n] (-1 on a miss), dropped: one counter.
 __global__ void __launch_bounds__(128)
-dfs_kernel(const float* __restrict__ payload,
+dfs_kernel(const float* __restrict__ o, const float* __restrict__ d,
+           const bool* __restrict__ valid, const float* __restrict__ t_limit,
            const float4* __restrict__ nodes,
            const float4* __restrict__ prims,
-           const int* __restrict__ meta, float* __restrict__ out, int n,
-           int width, int do_kill, float kill_eps) {
+           const int* __restrict__ meta, float* __restrict__ t_out,
+           int* __restrict__ prim_out,
+           unsigned long long* __restrict__ dropped, int n, int width,
+           float kill_eps) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const float o_x = payload[i], o_y = payload[n + i], o_z = payload[2 * n + i];
-  const float d_x = payload[3 * n + i], d_y = payload[4 * n + i],
-              d_z = payload[5 * n + i];
-  const float tub0 = payload[7 * n + i];
+  const float o_x = o[3 * i], o_y = o[3 * i + 1], o_z = o[3 * i + 2];
+  const float d_x = d[3 * i], d_y = d[3 * i + 1], d_z = d[3 * i + 2];
+  const bool do_kill = t_limit != nullptr;
+  const float tub0 =
+      !valid[i] ? -1.0f : (do_kill ? nan_min(t_limit[i], T_NO_LIMIT)
+                                   : T_NO_LIMIT);
   const float inv_x = 1.0f / d_x, inv_y = 1.0f / d_y, inv_z = 1.0f / d_z;
   const float kill_lim = tub0 - kill_eps;
 
@@ -178,24 +184,26 @@ dfs_kernel(const float* __restrict__ payload,
     ++visits;
   }
 
-  out[i] = prim >= 0.0f ? best_t : T_NO_LIMIT;
-  out[n + i] = prim;
-  out[2 * n + i] = (float)visits;
-  const bool truncated =
-      (overflow || (sp > 0 && visits >= MAX_VISITS)) && tub >= 0.0f;
-  out[3 * n + i] = truncated ? 1.0f : 0.0f;
+  t_out[i] = prim >= 0.0f ? best_t : __int_as_float(0x7f800000);
+  prim_out[i] = (int)prim;
+  if ((overflow || (sp > 0 && visits >= MAX_VISITS)) && tub >= 0.0f)
+    atomicAdd(dropped, 1ull);
 }
 
-extern "C" int packet_dfs_trace(const void* payload, const void* nodes,
-                                const void* prims, const void* meta,
-                                void* out, int n, int width, int do_kill,
-                                float kill_eps, void* stream) {
+extern "C" int packet_dfs_trace(const void* o, const void* d,
+                                const void* valid, const void* t_limit,
+                                const void* nodes, const void* prims,
+                                const void* meta, void* t_out,
+                                void* prim_out, void* dropped, int n,
+                                int width, float kill_eps, void* stream) {
   if (n > 0) {
     const int block = 128;
     const int grid = (n + block - 1) / block;
     dfs_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        (const float*)payload, (const float4*)nodes, (const float4*)prims,
-        (const int*)meta, (float*)out, n, width, do_kill, kill_eps);
+        (const float*)o, (const float*)d, (const bool*)valid,
+        (const float*)t_limit, (const float4*)nodes, (const float4*)prims,
+        (const int*)meta, (float*)t_out, (int*)prim_out,
+        (unsigned long long*)dropped, n, width, kill_eps);
   }
   return (int)cudaGetLastError();
 }

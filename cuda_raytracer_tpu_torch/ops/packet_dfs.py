@@ -9,13 +9,16 @@ node stack.  Both return the closest hit and, for shadow rays, the same
 pass/fail decision; the .cu file's header lists the semantics kept.
 
 * ``trace_closest_packets`` — the wrapper (the JAX function's name and
-  contract): builds the [8, N] payload, launches the kernel for CUDA
-  tensors or runs the plain version for CPU tensors, and maps misses to
-  t = inf, prim = -1.
+  contract): launches the kernel for CUDA tensors or runs the plain
+  version for CPU tensors.
 * ``dfs_trace_cuda`` — the kernel's launch; ``launches`` counts it.
 * ``dfs_trace_plain`` — the same per-ray DFS as vectorized torch ops (a
   [N, STACK_CAP] stack, one pop per live ray per step), in the kernel's
   visit order and op order, so the two agree bit for bit.
+
+Both take the rays as they come (o, d [N, 3], valid [N], t_limit [N] or
+None) and return (t [N] f32, inf on a miss; prim [N] int32, -1 on a
+miss; dropped, a 0-d int64 count).
 
 The kernel builds at first use with nvcc into ``_build/`` beside the
 package (see ``_load_library``).
@@ -95,81 +98,96 @@ def _load_library():
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
     fn = lib.packet_dfs_trace
-    fn.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p,
+    fn.argtypes = [ctypes.c_void_p] * 10 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     _lib = lib
     return lib
 
 
-def _check_tables(payload, node_rows, prim_rows, meta, width):
+def _check_inputs(o, d, valid, t_limit, node_rows, prim_rows, meta,
+                  width):
     if not 1 <= width <= 8:
         raise ValueError(f"packet-DFS supports tree_width <= 8, got {width}")
-    for name, x, dt, cols in (
-        ("payload", payload, torch.float32, None),
-        ("node_rows", node_rows, torch.float32, 8),
-        ("prim_rows", prim_rows, torch.float32, 16),
-        ("meta", meta, torch.int32, None),
+    n = o.shape[0]
+    for name, x, dt, shape in (
+        ("o", o, torch.float32, (n, 3)),
+        ("d", d, torch.float32, (n, 3)),
+        ("valid", valid, torch.bool, (n,)),
+        ("t_limit", t_limit, torch.float32, (n,)),
+        ("node_rows", node_rows, torch.float32, (node_rows.shape[0], 8)),
+        ("prim_rows", prim_rows, torch.float32, (prim_rows.shape[0], 16)),
+        ("meta", meta, torch.int32, (node_rows.shape[0] // 2,)),
     ):
+        if x is None:
+            continue
         if x.dtype != dt:
             raise TypeError(f"{name}: dtype {x.dtype}, want {dt}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(x.shape)}, want {shape}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if x.device != payload.device:
-            raise ValueError(f"{name} on {x.device}, payload on "
-                             f"{payload.device}")
-        if cols is not None and (x.dim() != 2 or x.shape[1] != cols):
-            raise ValueError(f"{name}: shape {tuple(x.shape)}, want [*, {cols}]")
-    if payload.dim() != 2 or payload.shape[0] != 8:
-        raise ValueError(f"payload: shape {tuple(payload.shape)}, want [8, N]")
-    if node_rows.shape[0] % 8 or meta.shape != (node_rows.shape[0] // 2,):
-        raise ValueError("node_rows / meta disagree on the node count")
+        if x.device != o.device:
+            raise ValueError(f"{name} on {x.device}, o on {o.device}")
+    if node_rows.shape[0] % 8:
+        raise ValueError("node_rows must hold whole 8-slot nodes")
     if prim_rows.shape[0] % 8:
         raise ValueError("prim_rows must hold whole 8-prim groups")
 
 
-def dfs_trace_cuda(payload, node_rows, prim_rows, meta, width: int,
-                   do_kill: bool, kill_eps: float) -> torch.Tensor:
-    """Launch the kernel on the current stream; returns out [4, N]
-    (t, prim, visits, truncated)."""
+def dfs_trace_cuda(o, d, valid, t_limit, node_rows, prim_rows, meta,
+                   width: int, kill_eps: float):
+    """Launch the kernel on the current stream; returns (t, prim,
+    dropped).  ``t_limit`` None is a closest-hit trace, else a shadow
+    trace."""
     global launches
-    _check_tables(payload, node_rows, prim_rows, meta, width)
-    if payload.device.type != "cuda":
+    _check_inputs(o, d, valid, t_limit, node_rows, prim_rows, meta, width)
+    if o.device.type != "cuda":
         raise ValueError("dfs_trace_cuda needs CUDA tensors")
     lib = _load_library()
-    n = payload.shape[1]
-    out = torch.empty((4, n), dtype=torch.float32, device=payload.device)
+    n = o.shape[0]
+    t = torch.empty((n,), dtype=torch.float32, device=o.device)
+    prim = torch.empty((n,), dtype=torch.int32, device=o.device)
+    dropped = torch.zeros((), dtype=torch.int64, device=o.device)
     err = lib.packet_dfs_trace(
-        payload.data_ptr(), node_rows.data_ptr(), prim_rows.data_ptr(),
-        meta.data_ptr(), out.data_ptr(), n, width, int(do_kill),
-        float(kill_eps), torch.cuda.current_stream(payload.device).cuda_stream,
+        o.data_ptr(), d.data_ptr(), valid.data_ptr(),
+        None if t_limit is None else t_limit.data_ptr(),
+        node_rows.data_ptr(), prim_rows.data_ptr(), meta.data_ptr(),
+        t.data_ptr(), prim.data_ptr(), dropped.data_ptr(), n, width,
+        float(kill_eps), torch.cuda.current_stream(o.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"packet_dfs kernel launch failed: cuda error {err}")
     if n:  # the C side launches nothing for an empty batch
         launches += 1
-    return out
+    return t, prim, dropped
 
 
-def dfs_trace_plain(payload, node_rows, prim_rows, meta, width: int,
-                    do_kill: bool, kill_eps: float,
-                    stats: dict = None) -> torch.Tensor:
+def dfs_trace_plain(o, d, valid, t_limit, node_rows, prim_rows, meta,
+                    width: int, kill_eps: float, stats: dict = None):
     """The kernel's per-ray DFS in plain torch ops (any device).
 
     Each step pops one node for every ray still traversing, slab-tests
     its W children, pushes the hit inner children in reverse slot order
     and folds the hit leaf children's prim groups in slot order, exactly
-    as the kernel's loop body does.  Returns out [4, N] like the kernel.
-    ``stats``, if given, gets the work done: node visits and 8-prim
-    group tests (the counts a roofline bound needs).
+    as the kernel's loop body does.  Returns (t, prim, dropped) like the
+    kernel.  ``stats``, if given, gets the work this data needs (the
+    counts a roofline bound needs): node ``visits``, ``boxes`` (tests of
+    non-empty child slots), and prim tests by type, ``tris`` and
+    ``spheres`` (pad slots are no test).
     """
-    _check_tables(payload, node_rows, prim_rows, meta, width)
+    _check_inputs(o, d, valid, t_limit, node_rows, prim_rows, meta, width)
     W = width
-    dev = payload.device
-    n = payload.shape[1]
-    o_x, o_y, o_z, d_x, d_y, d_z, _, tub0 = payload
+    dev = o.device
+    n = o.shape[0]
+    do_kill = t_limit is not None
+    o_x, o_y, o_z = o.unbind(1)
+    d_x, d_y, d_z = d.unbind(1)
+    tub0 = (torch.clamp_max(t_limit, T_NO_LIMIT) if do_kill
+            else torch.full((n,), T_NO_LIMIT, dtype=torch.float32,
+                            device=dev))
+    tub0 = torch.where(valid, tub0, -1.0)
     inv_x, inv_y, inv_z = 1.0 / d_x, 1.0 / d_y, 1.0 / d_z
     kill_lim = tub0 - kill_eps
 
@@ -193,6 +211,9 @@ def dfs_trace_plain(payload, node_rows, prim_rows, meta, width: int,
         spa = sp[idx] - 1
         node = stack[idx, spa]
         blk = rows[node]  # [A, W, 8]
+        if stats is not None:
+            _count(stats, "visits", idx.numel())
+            _count(stats, "boxes", (blk[..., 0] <= blk[..., 3]).sum())
         ox, oy, oz = o_x[idx, None], o_y[idx, None], o_z[idx, None]
         ix, iy, iz = inv_x[idx, None], inv_y[idx, None], inv_z[idx, None]
         t0x = (blk[..., 0] - ox) * ix
@@ -230,9 +251,11 @@ def dfs_trace_plain(payload, node_rows, prim_rows, meta, width: int,
         if ja.numel() and int(ngr.max()) > 0:
             g = torch.arange(int(ngr.max()), device=dev)
             gv = g[None, :] < ngr[:, None]  # [J, Gmax]
-            if stats is not None:
-                stats["groups"] = stats.get("groups", 0) + int(ngr.sum())
             rec = groups[torch.where(gv, grp0[:, None] + g, 0)]  # [J,Gm,8,16]
+            if stats is not None:
+                ptype = torch.where(gv[..., None], rec[..., 12], -1.0)
+                _count(stats, "tris", ((ptype > -0.5) & (ptype <= 0.5)).sum())
+                _count(stats, "spheres", (ptype > 0.5).sum())
             r = idx[ja]
             ok, t = packed_prim_test(
                 o_x[r, None, None], o_y[r, None, None], o_z[r, None, None],
@@ -264,33 +287,14 @@ def dfs_trace_plain(payload, node_rows, prim_rows, meta, width: int,
                     ta = torch.where((pa >= 0.0) & (ba < kl), -1.0, ta)
             prim[idx], best[idx], tub[idx] = pa, ba, ta
         visits[idx] += 1
-        if stats is not None:
-            stats["visits"] = stats.get("visits", 0) + idx.numel()
 
     truncated = (overflow | ((sp > 0) & (visits >= MAX_VISITS))) & (tub >= 0.0)
-    return torch.stack([
-        torch.where(prim >= 0.0, best, T_NO_LIMIT),
-        prim,
-        visits.float(),
-        truncated.float(),
-    ])
+    return (torch.where(prim >= 0.0, best, float("inf")),
+            prim.to(torch.int32), truncated.sum())
 
 
-def make_payload(o, d, valid, t_limit=None):
-    """The kernel's [8, N] payload: o.xyz, d.xyz, pad, tub0 — invalid
-    lanes get tub0 = -1 (and sane o/d so no lane computes inf*0)."""
-    n = o.shape[0]
-    vm = valid[:, None]
-    o_sane = torch.where(vm, o.float(), 2e30)
-    d_sane = torch.where(vm, d.float(), 1.0)
-    if t_limit is None:
-        tub = torch.full((n,), T_NO_LIMIT, dtype=torch.float32,
-                         device=o.device)
-    else:
-        tub = torch.clamp_max(t_limit.float(), T_NO_LIMIT)
-    tub = torch.where(valid, tub, -1.0)
-    zero = torch.zeros((1, n), dtype=torch.float32, device=o.device)
-    return torch.cat([o_sane.T, d_sane.T, zero, tub[None]]).contiguous()
+def _count(stats, key, k):
+    stats[key] = stats.get(key, 0) + int(k)
 
 
 def trace_closest_packets(
@@ -318,23 +322,13 @@ def trace_closest_packets(
     """
     del packet_size
     bvh = scene.bvh
-    if bvh.width > 8:
-        raise ValueError(
-            f"packet-DFS supports tree_width <= 8 (one 8-row node "
-            f"block); got {bvh.width}"
-        )
-    payload = make_payload(o, d, valid, t_limit)
-    tables = (payload, bvh.dfs_node_rows, bvh.dfs_prim_rows, bvh.node_meta,
-              bvh.width, t_limit is not None, kill_eps)
-    if payload.device.type == "cuda":
-        out = dfs_trace_cuda(*tables)
-    elif payload.device.type == "cpu":
-        out = dfs_trace_plain(*tables)
-    else:
-        raise ValueError(f"no packet-DFS path for device {payload.device}")
-    prim = out[1].to(torch.int32)
-    return WaveTraceResult(
-        t=torch.where(prim >= 0, out[0], float("inf")),
-        prim=prim,
-        dropped=out[3].sum().long(),
-    )
+    args = (o.float().contiguous(), d.float().contiguous(),
+            valid.bool().contiguous(),
+            None if t_limit is None else t_limit.float().contiguous(),
+            bvh.dfs_node_rows, bvh.dfs_prim_rows, bvh.node_meta, bvh.width,
+            kill_eps)
+    if o.device.type == "cuda":
+        return WaveTraceResult(*dfs_trace_cuda(*args))
+    if o.device.type == "cpu":
+        return WaveTraceResult(*dfs_trace_plain(*args))
+    raise ValueError(f"no packet-DFS path for device {o.device}")

@@ -235,9 +235,29 @@ def test_cuda_tensors_never_take_plain_path(monkeypatch):
     assert calls == ["plain"]
     assert pdfs.launches == launches  # the plain version is no launch
 
-    payload = pdfs.make_payload(torch.from_numpy(o), torch.from_numpy(d),
-                                torch.from_numpy(valid))
     b = ours.bvh
     with pytest.raises(ValueError, match="CUDA"):
-        real_cuda(payload, b.dfs_node_rows, b.dfs_prim_rows, b.node_meta,
-                  b.width, False, 1e-3)
+        real_cuda(torch.from_numpy(o), torch.from_numpy(d),
+                  torch.from_numpy(valid), None, b.dfs_node_rows,
+                  b.dfs_prim_rows, b.node_meta, b.width, 1e-3)
+
+
+def test_work_counts_root_leaf():
+    """The plain version's work counts (what chip_smoke.py's bound reads)
+    on a one-leaf tree of 12 triangles and 2 spheres: per live ray one
+    visit, one box test (the leaf's slot only) and one test per prim of
+    its own type; pad slots and invalid lanes cost nothing."""
+    ours, _ = flatten_scene(cornell_box_scene(with_spheres=True),
+                            tree_width=4, max_leaf_size=32, device="cpu")
+    assert ours.bvh.root_is_leaf
+    o, d = random_rays(256, seed=4, origin_box=0.9)
+    valid = np.arange(len(o)) % 4 != 0
+    b = ours.bvh
+    stats = {}
+    pdfs.dfs_trace_plain(torch.from_numpy(o), torch.from_numpy(d),
+                         torch.from_numpy(valid), None, b.dfs_node_rows,
+                         b.dfs_prim_rows, b.node_meta, b.width, 1e-3,
+                         stats=stats)
+    live = int(valid.sum())
+    assert stats == {"visits": live, "boxes": live, "tris": 12 * live,
+                     "spheres": 2 * live}

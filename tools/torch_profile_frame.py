@@ -1,16 +1,15 @@
 #!/usr/bin/env python3
 """Where a frame of the PyTorch port goes on the GPU.
 
-    python3 tools/torch_profile_frame.py [--scene cornell|terrain] [--trace PATH]
+    python3 tools/torch_profile_frame.py [--scene cornell|terrain]
 
-Runs chip_smoke.py's run-A configuration (the fast preset with
-traversal_rr="dfs", 800x600, 32 spp per frame, depth 4, NEE 1x1.0) on one
-card: a warm-up frame, then one frame with every bounce-loop stage timed
+Runs chip_smoke.py's run-A (cornell) or run-B (terrain) configuration
+(the fast preset with traversal_rr="dfs", 800x600, 32 spp per frame,
+depth 4, NEE 1x1.0) on one card: a warm-up frame, then one frame with every bounce-loop stage timed
 by CUDA events around it (trace, shade_hit, nee_prep, nee_accum,
 scatter, plus raygen and film), then one frame under torch.profiler for
 device time by kernel name and the device's busy share of the frame.
-Prints the card's name and power limit first; with --trace, writes the
-profiler's chrome trace there.
+Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -29,7 +28,6 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", choices=("cornell", "terrain"),
                     default="cornell")
-    ap.add_argument("--trace", help="write the chrome trace to this file")
     args = ap.parse_args()
 
     import torch
@@ -47,9 +45,10 @@ def main() -> int:
                           device="cuda")
     if args.scene == "cornell":
         r.load_static_scene(cornell_box_scene(with_spheres=True))
-        r.set_viewpoint([0, 0.75, 2.5], [0, 0.75, 0])
+        r.set_viewpoint(*cs.VIEW_A)
     else:
         r.load_static_scene(terrain_scene(n=121))
+        r.set_viewpoint(*cs.VIEW_B)
     r.render()  # warm-up
     torch.cuda.synchronize()
 
@@ -105,8 +104,6 @@ def main() -> int:
     for e in rows[:25]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms "
               f"{e.count:6d}x  {e.key[:90]}")
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
     return 0
 
 
