@@ -21,20 +21,17 @@ None) and return (t [N] f32, inf on a miss; prim [N] int32, -1 on a
 miss; dropped, a 0-d int64 count).
 
 The kernel builds at first use with nvcc into ``_build/`` beside the
-package (see ``_load_library``).
+package (ops/_build.py).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from typing import NamedTuple
 
 import torch
 
+from ._build import load_library
 from .intersect import packed_prim_test
 
 #: the JAX package's packet size; accepted by the wrapper and ignored
@@ -51,10 +48,6 @@ MAX_VISITS = 1 << 20
 #: kernel launches since the count was last set to 0
 launches = 0
 
-_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-_BUILD = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build"
-)
 _lib = None
 
 
@@ -64,46 +57,24 @@ class WaveTraceResult(NamedTuple):
     dropped: torch.Tensor  # 0-d int64: live rays cut off (visit cap/stack)
 
 
-def nvcc_command(src: str, out: str):
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    return [
-        nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-        f"-DSTACK_CAP={STACK_CAP}", "-o", out, src,
-    ]
-
-
 def _load_library():
-    """Build ops/csrc/packet_dfs.cu (once per source and flags) and load
-    it.  Raises if nvcc fails; there is no fallback."""
+    """Build ops/csrc/packet_dfs.cu at first use and load it.  Raises if
+    nvcc fails; there is no fallback."""
     global _lib
-    if _lib is not None:
-        return _lib
-    src = os.path.join(_CSRC, "packet_dfs.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(nvcc_command("", "")).encode()
-        ).hexdigest()[:16]
-    so = os.path.join(_BUILD, f"packet_dfs_{digest}.so")
-    if not os.path.exists(so):
-        os.makedirs(_BUILD, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.run(
-            nvcc_command(src, tmp), capture_output=True, text=True
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed building {src}:\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(so)
-    fn = lib.packet_dfs_trace
-    fn.argtypes = [ctypes.c_void_p] * 10 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+    if _lib is None:
+        lib = load_library("packet_dfs", build_defines())
+        fn = lib.packet_dfs_trace
+        fn.argtypes = [ctypes.c_void_p] * 10 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def build_defines():
+    """The -D flags this module's kernel is built with."""
+    return (f"STACK_CAP={STACK_CAP}",)
 
 
 def _check_inputs(o, d, valid, t_limit, node_rows, prim_rows, meta,

@@ -103,6 +103,22 @@ class FlatBVH:
         """prim_groups as one 16-field row per prim ([8*G, 16] view)."""
         return self.prim_groups.view(-1, 16)
 
+    @functools.cached_property
+    def wf_node_rows(self) -> torch.Tensor:
+        """The columns of node_packed the wavefront kernels read (child
+        mins [3W], maxes [3W], outlets [W]), contiguous, rows padded to
+        32 or 64 floats ([N, 32] for W <= 4)."""
+        cols = 32 if 7 * self.width <= 32 else 64
+        return self.node_packed[:, :cols].contiguous()
+
+    @functools.cached_property
+    def wf_levels(self):
+        """wf_sched as per-level device tensors (ops/wavefront2.py)."""
+        from ..ops.wavefront2 import level_tables
+
+        return level_tables(self.wf_sched, self.width,
+                            self.node_packed.device)
+
     def to(self, device) -> "FlatBVH":
         return dataclasses.replace(
             self,
@@ -162,6 +178,13 @@ class FlatScene:
     @property
     def num_prims(self) -> int:
         return self.v0.shape[0]
+
+    @functools.cached_property
+    def wf_prim_rows(self) -> torch.Tensor:
+        """Columns 9:25 of prim_packed, contiguous ([P + pad, 16]): the
+        intersection fields the wavefront pack kernel reads as four
+        float4, [type g.xyz | g.w T1.xyz | T1.w T2.xyz | T2.w 0 0 0]."""
+        return self.prim_packed[:, 9:25].contiguous()
 
     def to(self, device) -> "FlatScene":
         kw = {f.name: _to(getattr(self, f.name), device)

@@ -30,7 +30,8 @@ def _modules():
 
 def test_modules_import_without_jax():
     mods = _modules()
-    assert "cuda_raytracer_tpu_torch.ops.packet_dfs" in mods
+    for name in ("_build", "packet_dfs", "partition", "wavefront2"):
+        assert f"cuda_raytracer_tpu_torch.ops.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -2,14 +2,19 @@
 """Where a frame of the PyTorch port goes on the GPU.
 
     python3 tools/torch_profile_frame.py [--scene cornell|terrain]
+                                         [--traversal-rr pallas|dfs]
 
 Runs chip_smoke.py's run-A (cornell) or run-B (terrain) configuration
-(the fast preset with traversal_rr="dfs", 800x600, 32 spp per frame,
-depth 4, NEE 1x1.0) on one card: a warm-up frame, then one frame with every bounce-loop stage timed
-by CUDA events around it (trace, shade_hit, nee_prep, nee_accum,
-scatter, plus raygen and film), then one frame under torch.profiler for
-device time by kernel name and the device's busy share of the frame.
-Prints the card's name and power limit first.
+(the fast preset as shipped, or with the roulette depths through
+packet-DFS; 800x600, 32 spp per frame, depth 4, NEE 1x1.0) on one card:
+a warm-up frame, then one frame with every bounce-loop stage timed by
+CUDA events around it (trace, shade_hit, nee_prep, nee_accum, scatter,
+plus raygen and film) and, inside the wavefront traces, the payload
+build, the partition, the count and pack kernels, the region arithmetic
+between them and the decode of the hit keys (the merge), with the live
+entries the partition found per trace; then one frame under
+torch.profiler for device time by kernel name and the device's busy
+share of the frame.  Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", choices=("cornell", "terrain"),
                     default="cornell")
+    ap.add_argument("--traversal-rr", choices=("pallas", "dfs"),
+                    default="pallas")
     args = ap.parse_args()
 
     import torch
@@ -38,11 +45,12 @@ def main() -> int:
     import chip_smoke as cs
     from cuda_raytracer_tpu_torch.models.cornell import cornell_box_scene
     from cuda_raytracer_tpu_torch.models.terrain import terrain_scene
+    from cuda_raytracer_tpu_torch.ops import wavefront2 as wf
     from cuda_raytracer_tpu_torch.render.engine import WavefrontRenderer
 
-    print(f"card: {cs.smi_line()}")
-    r = WavefrontRenderer(cs.fast_config(), camera_mode="collada",
-                          device="cuda")
+    print(f"card: {cs.smi_line()}; traversal_rr={args.traversal_rr!r}")
+    r = WavefrontRenderer(cs.fast_config(traversal_rr=args.traversal_rr),
+                          camera_mode="collada", device="cuda")
     if args.scene == "cornell":
         r.load_static_scene(cornell_box_scene(with_spheres=True))
         r.set_viewpoint(*cs.VIEW_A)
@@ -69,10 +77,31 @@ def main() -> int:
     r._stages = {k: timed(k, v) for k, v in r._stages.items()}
     r._raygen = timed("raygen", r._raygen)
     r._film = timed("film", r._film)
+    # inside the wavefront traces (these rows are part of the trace rows)
+    live = []
+    parts = {"make_payload": "payload build",
+             "compact_live_payload": "partition", "count_level": "count",
+             "plan_regions": "regions (torch)", "pack_level": "pack",
+             "decode_keys": "merge (decode keys)"}
+    for fn, label in parts.items():
+        setattr(wf, fn, timed("  wavefront: " + label, getattr(wf, fn)))
+    compact = wf.compact_live_payload
+
+    def compact_and_note(payload):
+        out = compact(payload)
+        live.append((payload.shape[0], out[1]))
+        return out
+
+    wf.compact_live_payload = compact_and_note
     t0 = time.perf_counter()
     r.render()
     torch.cuda.synchronize()
     frame_ms = (time.perf_counter() - t0) * 1e3
+    if live:
+        print("[live] entries the partition kept, per wavefront trace in "
+              "frame order (depth 2 closest-hit, depth 2 shadow, depth 3 "
+              "closest-hit, depth 3 shadow): "
+              + ", ".join(f"{int(k)} of {n}" for n, k in live))
     total = 0.0
     print(f"[stages] one frame, {frame_ms:.1f} ms on the host clock:")
     for name, evs in sorted(events.items(),
