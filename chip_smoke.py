@@ -518,7 +518,11 @@ def measure_wavefront(label, scene, rays):
     sums = dict(count_ms=0.0, pack_ms=0.0, count_plain=0.0, pack_plain=0.0)
     for lvl, lv in enumerate(bvh.wf_levels):
         total = int(seg_base[-1])
-        tables = _nbytes(seg_base, lv.seg_node, lv.child)
+        # the level's schedule and the table rows it refers to, once each:
+        # one node row per segment, 64 B per prim of its leaf children
+        tables = (_nbytes(seg_base, lv.seg_node, lv.child)
+                  + lv.num_segs * node_rows.shape[1] * 4)
+        leaf_prims = int(lv.child[lv.child[:, 0] == 2, 2].sum())
         row = dict(level=lvl, entries=total)
         if lv.has_inner:
             counts = wf.count_cuda(queue, seg_base, lv, node_rows, W, bound)
@@ -533,7 +537,7 @@ def measure_wavefront(label, scene, rays):
             row["count_ms"] = cuda_time_ms(
                 lambda: wf.count_cuda(queue, seg_base, lv, node_rows, W,
                                       bound), 5)
-            # entries and tables read once, counts written once
+            # entries, schedule and node rows read once, counts written
             row["count_bound"] = _bound(
                 total * 32 + tables + counts.numel() * 4,
                 cstats.get("boxes", 0) * BOX_FLOPS + total * RAY_FLOPS)
@@ -584,9 +588,10 @@ def measure_wavefront(label, scene, rays):
             pack(wf.pack_cuda, scratch, out_k, keys_k)
 
         row["pack_ms"] = cuda_time_ms(timed_pack, 5)
-        # entries and tables read once; survivors and hit keys written
+        # entries, schedule, node and prim rows read once; survivors, hit
+        # keys and region cursors written
         row["pack_bound"] = _bound(
-            total * 32 + tables + _nbytes(route)
+            total * 32 + tables + _nbytes(route, cursor0) + leaf_prims * 64
             + pstats.get("survivors", 0) * 32 + pstats.get("hits", 0) * 8,
             pstats.get("boxes", 0) * BOX_FLOPS
             + pstats.get("tris", 0) * TRI_FLOPS
