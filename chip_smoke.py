@@ -10,12 +10,13 @@ prints one JSON line for the kernels and, last, the device line.  Phases:
 
 1. set-up: the card's name and power limit, nvcc's version, the build of
    packet_dfs.cu, partition.cu and wavefront2.cu (one nvcc each, started
-   together);
+   together) and what ptxas reports for each kernel (registers, spills,
+   shared memory);
 2. the packet-DFS kernel against its plain version on 262,144 rays of
    terrain n=121 (28,800 tris): hit/miss, prim and t bit-equal, shadow
    decisions equal, dropped == 0; kernel, plain and bound times; and the
-   partition, count and pack kernels and the whole wavefront trace on the
-   same rays, as in phase 3;
+   partition kernel (ray form and payload form), the count and pack
+   kernels and the whole wavefront trace on the same rays, as in phase 3;
 3. the main path at full size: the fast preset as shipped (packet-DFS at
    depths 0-1, the compacted wavefront at the roulette depths 2-3),
    800x600, depth 4, NEE 1x1.0 per depth — run A is bench.py's
@@ -23,13 +24,14 @@ prints one JSON line for the kernels and, last, the device line.  Phases:
    leaf: 2 frames of 32 spp), run B terrain n=121 seen from above so it
    fills the frame (1 frame of 32 spp; six wavefront levels); the launch
    counts of all four kernels must equal what the scene's schedule
-   gives.  Then run B once more with traversal_rr="dfs" (every trace
-   through packet-DFS), for the two frame times side by side.  Then
-   every kernel against its plain version on the runs' own traces: the
-   DFS kernel on 15,360,000-lane traces; the partition, and the count
-   and pack kernels level by level, on run B's depth-2 closest-hit and
-   shadow traces; and the whole wavefront trace against the DFS kernel
-   on the same rays;
+   gives (the payload form of the partition is off the main path: 0).
+   Then run B once more with traversal_rr="dfs" (every trace through
+   packet-DFS), for the two frame times side by side.  Then every kernel
+   against its plain version on the runs' own traces: the DFS kernel on
+   15,360,000-lane traces; both partition forms, and the count and pack
+   kernels level by level, on run B's depth-2 closest-hit and shadow
+   traces; and the whole wavefront trace against the DFS kernel on the
+   same rays;
 4. the same small frames on the card and on the CPU, per pixel: the
    Cornell box, and terrain n=8 under max_leaf_size=4 (three levels).
 
@@ -120,10 +122,14 @@ def fast_config(**over):
 #: the kernels: name -> (module of its wrapper, its launch counter there)
 COUNTERS = {
     "packet_dfs": ("packet_dfs", "launches"),
+    "partition_rays": ("partition", "ray_launches"),
     "partition": ("partition", "launches"),
     "wf2_count": ("wavefront2", "count_launches"),
     "wf2_pack": ("wavefront2", "pack_launches"),
 }
+#: kernels the main path does not launch (the partition's payload form,
+#: kept for whole-depth compaction); held on the card all the same
+OFF_PATH = ("partition",)
 
 
 def _ops_module(name):
@@ -160,6 +166,10 @@ def phase_setup():
     print(f"[setup] packet_dfs.cu, partition.cu and wavefront2.cu built "
           f"(one nvcc each, in parallel) and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
+    for name, defines in (("packet_dfs", packet_dfs.build_defines()),
+                          ("partition", ()), ("wavefront2", ())):
+        for line in _build.ptxas_report(name, defines):
+            print(f"[setup] ptxas, {name}.cu: {line}")
 
 
 def terrain_ray_set(dev):
@@ -241,7 +251,7 @@ def measure_kernel(label, scene, rays, chunk=1 << 20):
     b = scene.bvh
     rays = tuple(None if x is None else x.contiguous() for x in rays)
     args = (*rays, b.dfs_node_rows, b.dfs_prim_rows, b.node_meta, b.width,
-            1e-3)
+            1e-3, packet_dfs.stack_entries(b))
     max_t = rays[3]
     tk, pk, dropped = packet_dfs.dfs_trace_cuda(*args)
     stats = {}
@@ -285,7 +295,8 @@ def measure_kernel(label, scene, rays, chunk=1 << 20):
     print(f"[kernel] {label}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
           f"bound {bound_ms:.5f} ms, {bound_ms / ms:.3f} of it reached "
           f"(bytes {nbytes} -> {bytes_ms:.5f} ms; {flops} flops from "
-          f"{stats['visits']} visits, {stats['boxes']} box tests, "
+          f"{stats['visits']} visits ({stats['visits'] / n:.3f} per ray, "
+          f"stack {args[-1]}), {stats['boxes']} box tests, "
           f"{stats['tris']} triangle and {stats['spheres']} sphere tests "
           f"-> {ops_ms:.5f} ms)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -335,7 +346,8 @@ def expected_launches(r, frames):
         if kind in ("dfs", "auto"):
             want["packet_dfs"] += traces
         else:
-            want["partition"] += traces if rr and cfg.compact_secondary else 0
+            want["partition_rays"] += (traces if rr and cfg.compact_secondary
+                                       else 0)
             want["wf2_pack"] += traces * n_pack
             want["wf2_count"] += traces * n_count
     return {k: v * frames for k, v in want.items()}
@@ -444,39 +456,64 @@ def _nbytes(*tensors):
 
 
 def measure_partition(label, rays):
-    """The partition kernel against its plain version on the payload of
-    one captured trace: n_live equal, the packed payload equal to the
-    bit (live prefix and dead tail).  Times of the kernel, the plain
-    version and the one PyTorch call that computes the same function
-    (boolean-mask indexing; used nowhere in the port)."""
+    """Both forms of the partition kernel against their plain versions on
+    one captured trace's rays: n_live equal, the live prefix equal to the
+    bit (past it both leave entries undefined).  Payload form: on
+    make_payload's [N, 8] payload, timed beside the one PyTorch call that
+    computes the same function (boolean-mask indexing; used nowhere in
+    the port).  Ray form: on the rays, timed beside what it replaces on
+    the main path, make_payload and the payload form.  Returns
+    {"payload": row, "rays": row}."""
     import torch
 
     from cuda_raytracer_tpu_torch.ops import partition
     from cuda_raytracer_tpu_torch.ops import wavefront2 as wf
 
+    rays = tuple(None if x is None else x.contiguous() for x in rays)
     payload = wf.make_payload(*rays)
     n, rows = payload.shape
-    out_k, n_k = partition.partition_cuda(payload)
-    (out_p, n_p), plain_ms = _host_ms(
-        lambda: partition.partition_plain(payload))
-    n_live = int(n_k)
-    bad = int((out_k.view(torch.int32) != out_p.view(torch.int32)).sum())
-    err = float((out_k[:n_live] - out_p[:n_live]).abs().max()) if n_live \
-        else 0.0
-    print(f"[kernel] partition, {label}: {n} entries of {rows} floats, "
-          f"n_live {n_live} (plain {int(n_p)}), {bad} words differ")
-    check(n_live == int(n_p) and bad == 0,
-          f"partition, {label}: kernel disagrees with its plain version")
-    ms = cuda_time_ms(lambda: partition.partition_cuda(payload), 10)
-    library_ms = cuda_time_ms(lambda: payload[payload[:, 7] >= 0.0], 10)
-    # every entry read once, every live entry and n_live written once
-    b = _bound((n + n_live) * rows * 4 + 4, 0)
-    print(f"[kernel] partition, {label}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.2f} ms, boolean-mask call {library_ms:.4f} ms, bound "
-          f"{b['bound_ms']:.5f} ms (bytes), {b['bound_ms'] / ms:.3f} of it "
-          f"reached")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                max_abs_err=err, n_live=n_live, **b)
+    out = {}
+    for form, launch, plain, inputs in (
+        ("payload", partition.partition_cuda, partition.partition_plain,
+         (payload,)),
+        ("rays", partition.partition_rays_cuda, partition.compact_rays_plain,
+         rays),
+    ):
+        q_k, n_k = launch(*inputs)
+        (q_p, n_p), plain_ms = _host_ms(lambda: plain(*inputs))
+        k = int(n_k)
+        bad = int((q_k[:k].view(torch.int32)
+                   != q_p[:k].view(torch.int32)).sum())
+        print(f"[kernel] partition ({form}), {label}: {n} entries, n_live "
+              f"{k} (plain {int(n_p)}), {bad} words of the live prefix "
+              f"differ")
+        check(k == int(n_p) and bad == 0,
+              f"partition ({form}), {label}: kernel disagrees with its "
+              f"plain version")
+        ms = cuda_time_ms(lambda: launch(*inputs), 10)
+        if form == "payload":
+            other = "boolean-mask call"
+            other_ms = cuda_time_ms(lambda: payload[payload[:, 7] >= 0.0], 10)
+            # every entry read once, every live entry and n_live written
+            nbytes = (n + k) * rows * 4 + 4
+        else:
+            other = "make_payload + payload form"
+            other_ms = cuda_time_ms(
+                lambda: partition.partition_cuda(wf.make_payload(*rays)), 10)
+            # valid (and t_limit) of every lane, o and d of the live lanes
+            # read once; the live entries and n_live written
+            nbytes = n * (1 + (4 if rays[3] is not None else 0)) \
+                + k * (24 + 32) + 4
+        b = _bound(nbytes, 0)
+        print(f"[kernel] partition ({form}), {label}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.2f} ms, {other} {other_ms:.4f} ms, bound "
+              f"{b['bound_ms']:.5f} ms (bytes), {b['bound_ms'] / ms:.3f} of "
+              f"it reached")
+        out[form] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0,
+                         n_live=k, other_ms=other_ms,
+                         library_ms=other_ms if form == "payload" else None,
+                         **b)
+    return out
 
 
 def _sorted_regions(queue, seg_base, total):
@@ -509,13 +546,15 @@ def measure_wavefront(label, scene, rays):
     do_kill = rays[3] is not None
     n = rays[0].shape[0]
     cap = wf.queue_capacity(n + (-n) % wf.CHUNK, 2, bvh.wf_sched)
-    queue, n_live = partition.partition_cuda(wf.make_payload(*rays))
+    queue, n_live = partition.partition_rays_cuda(
+        *(None if x is None else x.contiguous() for x in rays))
     seg_base = torch.stack([torch.zeros_like(n_live), n_live])
     keys = torch.full((n,), wf.KEY_MISS, dtype=torch.int64, device=DEVICE)
     dropped = torch.zeros((), dtype=torch.int64, device=DEVICE)
     bound = n
     best = None
-    sums = dict(count_ms=0.0, pack_ms=0.0, count_plain=0.0, pack_plain=0.0)
+    sums = dict(count_ms=0.0, pack_ms=0.0, count_plain=0.0, pack_plain=0.0,
+                count_bound=0.0, pack_bound=0.0)
     for lvl, lv in enumerate(bvh.wf_levels):
         total = int(seg_base[-1])
         # the level's schedule and the table rows it refers to, once each:
@@ -611,6 +650,9 @@ def measure_wavefront(label, scene, rays):
         sums["pack_plain"] += row["pack_plain_ms"]
         sums["count_ms"] += row.get("count_ms", 0.0)
         sums["count_plain"] += row.get("count_plain_ms", 0.0)
+        sums["pack_bound"] += row["pack_bound"]["bound_ms"]
+        if lv.has_inner:
+            sums["count_bound"] += row["count_bound"]["bound_ms"]
         if best is None or (lv.has_inner and total > best["entries"]):
             best = row
         if not lv.has_inner:
@@ -618,10 +660,11 @@ def measure_wavefront(label, scene, rays):
         keys = keys_k
         queue, seg_base, bound = out_k, seg_base_next, cap
     print(f"[kernel] wavefront, {label}: all levels: count {sums['count_ms']:.4f}"
-          f" ms, pack {sums['pack_ms']:.4f} ms (plain versions "
-          f"{sums['count_plain']:.1f} and {sums['pack_plain']:.1f} ms); all "
-          f"comparisons equal; the JSON line takes level {best['level']} "
-          f"({best['entries']} entries)")
+          f" ms (bound {sums['count_bound']:.5f} ms), pack "
+          f"{sums['pack_ms']:.4f} ms (bound {sums['pack_bound']:.5f} ms); "
+          f"plain versions {sums['count_plain']:.1f} and "
+          f"{sums['pack_plain']:.1f} ms; all comparisons equal; the JSON line "
+          f"takes level {best['level']} ({best['entries']} entries)")
     return best
 
 
@@ -681,7 +724,8 @@ def phase_slice():
     print(f"[slice B] frame with the roulette depths through the wavefront "
           f"{run_b['ms']:.1f} ms, through packet-DFS {run_b_dfs['ms']:.1f} ms")
     for k in COUNTERS:
-        check(run_b["launches"][k] > 0, f"run B never launched {k}")
+        if k not in OFF_PATH:
+            check(run_b["launches"][k] > 0, f"run B never launched {k}")
 
     ra, rb = run_a["r"], run_b["r"]
     dfs = measure_kernel("run A camera trace", ra.scene, run_a["dfs"][True])
@@ -693,6 +737,7 @@ def phase_slice():
     part = measure_partition("run B depth-2 closest-hit trace", closest)
     measure_partition("run B depth-2 shadow trace", shadow)
     measure_partition("run A depth-2 closest-hit trace", run_a["wf"][True])
+    measure_partition("run A depth-2 shadow trace", run_a["wf"][False])
     lvl = measure_wavefront("run B depth-2 closest-hit trace", rb.scene,
                             closest)
     lvl_s = measure_wavefront("run B depth-2 shadow trace", rb.scene, shadow)
@@ -716,8 +761,10 @@ def phase_slice():
     return [
         row("packet_dfs", "packet_dfs.cu", "packet_dfs.py:99", dfs,
             dfs["max_abs_err"]),
-        row("partition", "partition.cu", "partition.py:38", part,
-            part["max_abs_err"], part["library_ms"]),
+        row("partition_rays", "partition.cu", "partition.py:38",
+            part["rays"], 0.0),
+        row("partition", "partition.cu", "partition.py:38",
+            part["payload"], 0.0, part["payload"]["library_ms"]),
         row("wf2_count", "wavefront2.cu", "wavefront2.py:262",
             dict(ms=lvl["count_ms"], plain_ms=lvl["count_plain_ms"],
                  **lvl["count_bound"]),

@@ -11,7 +11,9 @@ raises; there is no fallback.
 
 Flags shared by every kernel: ``sm_90a``, ``-fmad=false`` and no fast
 math, so a kernel rounds as its plain PyTorch version does (IEEE
-division and sqrt, no FMA contraction).
+division and sqrt, no FMA contraction); ``-Xptxas -v``, whose report
+(registers, spills, shared memory per kernel) is kept beside the
+library and read back by ``ptxas_report``.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ def nvcc_command(src: str, out: str, defines: Sequence[str] = ()):
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     return [
         nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+        "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+        "-fPIC",
         *(f"-D{d}" for d in defines), "-o", out, src,
     ]
 
@@ -65,6 +68,8 @@ def _finish_build(name: str, proc, tmp: str, so: str) -> None:
     out, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed building {source_path(name)}:\n{out}")
+    with open(f"{so}.log", "w") as f:
+        f.write(out)
     os.replace(tmp, so)
 
 
@@ -90,3 +95,21 @@ def load_library(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
             _finish_build(name, *_start_build(name, defines, so), so)
         _libs[key] = ctypes.CDLL(so)
     return _libs[key]
+
+
+def ptxas_report(name: str, defines: Sequence[str] = ()) -> list:
+    """What ptxas said of each kernel of a built library: one line per
+    entry function (mangled name), its registers, spill stores/loads and
+    shared memory; empty where the library was built without a report."""
+    log = f"{_library_path(name, defines)}.log"
+    if not os.path.exists(log):
+        return []
+    lines, entry = [], None
+    with open(log) as f:
+        for raw in f:
+            line = raw.split(":", 1)[-1].strip()
+            if line.startswith("Compiling entry function"):
+                entry = line.split("'")[1] if "'" in line else line
+            elif entry and (line.startswith("Used") or "spill" in line):
+                lines.append(f"{entry}: {line}")
+    return lines

@@ -1,41 +1,77 @@
 // Closest-hit / shadow traversal of the <=8-wide BVH: one thread per ray,
-// depth-first with a per-thread node stack.
+// depth-first, with the node stack in shared memory.
 //
 // Replaces the TPU kernel cuda_raytracer_tpu/ops/pallas/packet_dfs.py
 // (_dfs_kernel, launched by trace_closest_packets).  That kernel walks one
 // DFS per packet of 1024 rays with union descent; this one walks one DFS
-// per ray.  Both return the same thing: the closest hit (t, prim) and, for
-// shadow rays, the same pass/fail decision.  The semantics kept from the
-// TPU kernel, in order of a visit:
-//   * pop a node; slab-test all W child boxes against the ray's current
-//     bound tub: (tn <= tf) & (tf >= 0) & (tn <= tub), with NaN-propagating
+// per ray, children in the same slot order.  Both return the same closest
+// hit (and, for shadow rays, the same pass/fail decision).  The
+// semantics, in order of a visit:
+//   * pop a node; slab-test all W child boxes against the ray's bound
+//     tub: (tn <= tf) & (tf >= 0) & (tn <= tub), with NaN-propagating
 //     min/max (a 0*inf slab is a miss, as in jnp.minimum/torch.minimum);
 //   * push the hit inner children (slots 0..icnt-1, ids ibase+w) in
 //     reverse slot order, so slot 0 pops first;
 //   * intersect the hit leaf children (slots icnt..W-1) inline, in slot
 //     order.  A leaf job folds its 8-prim groups: per group the min t over
-//     the hit prims, the max orig_id among the slots at that min; strict <
+//     the hit prims, the max orig_id among the hits at that min; strict <
 //     against the job's best, then strict < against tub to update;
-//   * shadow mode (do_kill): tub starts at min(t_limit, 1e30); after a leaf
-//     job the ray stops once prim >= 0 and best_t < tub0 - kill_eps.
+//   * shadow mode: tub starts at min(t_limit, 1e30); after a leaf job the
+//     ray stops once prim >= 0 and best_t < tub0 - kill_eps.
 // Invalid lanes never traverse.  A ray cut off by MAX_VISITS or by an
 // overflow of its stack (never written past) adds one to *dropped.
 //
-// The leaf test is packed_prim_test of ops/intersect.py line for line
-// (rt_common.cuh, shared with the wavefront kernels).
-// Build with -fmad=false and without --use_fast_math: IEEE division and
-// sqrt, no FMA contraction, so it rounds as the plain PyTorch version.
-//
 // Bound on the H100: per ray it reads o, d (24 B), valid (1 B) and, for
 // shadow rays, t_limit (4 B), and writes t and prim (8 B); the node rows
-// (32 B per child) and prim groups (512 B per group) are re-read per visit
-// from L2/L1, where the tables of a bunny-class scene (a few MB) stay
-// resident.  So the work is ALU and latency: a box test is 25 flops per
-// child, a prim test 37-38 per prim, with divergent control flow between the
-// threads of a warp.  The design keeps the tables in compact rows (one
-// 32-byte sector per child, 64-byte prim records read as float4) and
-// everything per ray in registers and local memory; warp-coherent packets
-// in shared memory are later work.
+// (32 B per child) and prim records (64 B per prim) are re-read per visit
+// from L1/L2, where the tables of these scenes stay resident.  So the work
+// is ALU and latency: a box test is 25 flops per child, a prim test 38
+// (triangle) or 37 (sphere), with divergent control flow between the
+// threads of a warp.  What the design does about it:
+//   * the leaf loop tests each prim by its own type only and skips pad
+//     slots (the shared packed_prim_test computes both halves, three IEEE
+//     divisions and a square root per slot); tri_test and sph_test keep
+//     its op order, so every result rounds as before;
+//   * the stack lives in shared memory, laid out [entry][thread] so the
+//     threads of a warp hit distinct banks, and is sized by the caller
+//     from the tree ((W - 1) * D + 1 entries for depth D);
+//   * each thread loops over node visits until one hits a leaf child, then
+//     runs that node's leaf jobs ("while-while", Aila & Laine,
+//     "Understanding the Efficiency of Ray Traversal on GPUs", HPG 2009):
+//     the threads of a warp that wait do so in the cheap loop, and the
+//     leaf jobs, the costly part, run with the warp's lanes together.  A
+//     thread's own order of visits and leaf jobs is the one above;
+//   * the order is the slot order: nearest-first descent with culling
+//     (below) visits fewer nodes, but the lanes of a warp then walk the
+//     children in different orders, and on the frame's traces it reads
+//     slower (PERF.md, PR 3);
+//   * closest-hit and shadow mode are separate instantiations, and so are
+//     trees of width <= 4 and <= 8 (the per-child loops unroll and the
+//     near-first ranks stay in registers).
+// Built with -fmad=false and without --use_fast_math: IEEE division and
+// sqrt, no FMA contraction, so it rounds as the plain PyTorch version.
+//
+// Build-time switches let tools/torch_dfs_levers.py time each lever on
+// and off on the same rays (the shipped build defines none of these).
+// Back to the first design:
+//   DFS_BOTH_HALVES - every slot, pads included, through packed_prim_test;
+//   DFS_LOCAL_STACK - the stack in per-thread arrays (local memory);
+//   DFS_ONE_MODE    - one instantiation per width, shadow mode a runtime
+//                     flag;
+//   DFS_IF_IF       - one loop trip per visit and its leaf jobs.
+// Levers measured and not kept (t is unchanged with any of them; the prim
+// at a bit-equal t may differ):
+//   DFS_NEAR_FIRST  - hit inner children pushed in order of decreasing tn
+//                     (equal tn in decreasing slot), leaf jobs nearest
+//                     first;
+//   DFS_CULL        - each stack entry keeps its tn and is dropped on pop
+//                     once tn > tub (exact: child boxes lie inside their
+//                     parent's and the slab arithmetic is monotone), and a
+//                     leaf job runs only while its tn <= tub;
+//   DFS_MIN_BLOCKS=8 - at most 64 registers a thread;
+//   DFS_PERSISTENT  - one resident grid whose warps fetch fresh rays from
+//                     a global counter once half their lanes are done
+//                     (Aila & Laine).
 
 #include "rt_common.cuh"
 
@@ -44,125 +80,395 @@
 #endif
 
 #define MAX_VISITS (1 << 20)
+#define DFS_BLOCK 128
+// the second argument of __launch_bounds__: blocks that must fit an SM
+// (8 caps a thread at 64 registers)
+#ifndef DFS_MIN_BLOCKS
+#define DFS_MIN_BLOCKS 1
+#endif
+#define FULL_MASK 0xffffffffu
 
-// o, d [n, 3]; valid [n]; t_limit [n] or null (closest-hit mode).  nodes
-// [8*Nd, 8] as float4 pairs: (mnx mny mnz mxx) (mxy mxz grp0 ngroups).
-// prims [8*G, 16] as float4 quads.  meta [4*Nd].  t [n] (inf on a miss),
-// prim [n] (-1 on a miss), dropped: one counter.
-__global__ void __launch_bounds__(128)
-dfs_kernel(const float* __restrict__ o, const float* __restrict__ d,
-           const bool* __restrict__ valid, const float* __restrict__ t_limit,
-           const float4* __restrict__ nodes,
-           const float4* __restrict__ prims,
-           const int* __restrict__ meta, float* __restrict__ t_out,
-           int* __restrict__ prim_out,
-           unsigned long long* __restrict__ dropped, int n, int width,
-           float kill_eps) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float o_x = o[3 * i], o_y = o[3 * i + 1], o_z = o[3 * i + 2];
-  const float d_x = d[3 * i], d_y = d[3 * i + 1], d_z = d[3 * i + 2];
-  const bool do_kill = t_limit != nullptr;
-  const float tub0 =
-      !valid[i] ? -1.0f : (do_kill ? nan_min(t_limit[i], T_NO_LIMIT)
-                                   : T_NO_LIMIT);
-  const float inv_x = 1.0f / d_x, inv_y = 1.0f / d_y, inv_z = 1.0f / d_z;
-  const float kill_lim = tub0 - kill_eps;
+// the BVH as the kernel reads it: nodes [8*Nd, 8] as float4 pairs (mnx mny
+// mnz mxx)(mxy mxz grp0 ngroups); prims [8*G, 16] as float4 quads (g.xyz
+// g.w)(T1)(T2)(type orig_id pad pad); meta [4*Nd] (ibase icnt . .)
+struct Tables {
+  const float4* __restrict__ nodes;
+  const float4* __restrict__ prims;
+  const int* __restrict__ meta;
+  int width;
+};
 
-  float tub = tub0, best_t = T_NO_LIMIT, prim = -1.0f;
-  int stack[STACK_CAP];
-  int sp = 0, visits = 0;
-  bool overflow = false;
-  if (tub0 >= 0.0f) stack[sp++] = 0;
+// one thread's stack: entry k is node[k * stride], its tn tn[k * stride]
+struct Stack {
+  int* node;
+  float* tn;
+  int stride;
+  int cap;
+};
 
-  while (sp > 0 && tub >= 0.0f && visits < MAX_VISITS) {
-    const int node = stack[--sp];
-    const int ibase = meta[4 * node], icnt = meta[4 * node + 1];
-    const float4* row = nodes + 2 * (8 * node);
-    unsigned mask = 0;
-    for (int w = 0; w < width; ++w) {
-      const float4 a = row[2 * w], b = row[2 * w + 1];
-      const float t0x = (a.x - o_x) * inv_x, t1x = (a.w - o_x) * inv_x;
-      const float t0y = (a.y - o_y) * inv_y, t1y = (b.x - o_y) * inv_y;
-      const float t0z = (a.z - o_z) * inv_z, t1z = (b.y - o_z) * inv_z;
-      const float tn = nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)),
-                               nan_min(t0z, t1z));
-      const float tf = nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)),
-                               nan_max(t0z, t1z));
-      if ((tn <= tf) && (tf >= 0.0f) && (tn <= tub)) mask |= 1u << w;
+template <int WMAX>
+struct DfsRay {
+  float o_x, o_y, o_z, d_x, d_y, d_z, inv_x, inv_y, inv_z, a_q, kill_lim;
+  float tub, best_t, prim;
+  int sp, visits;
+  bool overflow;
+  // the last visited node: its child rows, each child's tn, and the hit
+  // leaf children whose jobs are still to run
+  const float4* row;
+  float tn[WMAX];
+  unsigned lmask;
+
+  __device__ __forceinline__ void start(int i, const float* __restrict__ o,
+                                        const float* __restrict__ d,
+                                        const bool* __restrict__ valid,
+                                        const float* __restrict__ t_limit,
+                                        bool kill, float kill_eps,
+                                        const Stack& s) {
+    o_x = o[3 * i];
+    o_y = o[3 * i + 1];
+    o_z = o[3 * i + 2];
+    d_x = d[3 * i];
+    d_y = d[3 * i + 1];
+    d_z = d[3 * i + 2];
+    const float tub0 = !valid[i] ? -1.0f
+                                 : (kill ? nan_min(t_limit[i], T_NO_LIMIT)
+                                         : T_NO_LIMIT);
+    inv_x = 1.0f / d_x;
+    inv_y = 1.0f / d_y;
+    inv_z = 1.0f / d_z;
+    a_q = d_x * d_x + d_y * d_y + d_z * d_z;
+    kill_lim = tub0 - kill_eps;
+    tub = tub0;
+    best_t = T_NO_LIMIT;
+    prim = -1.0f;
+    sp = 0;
+    visits = 0;
+    overflow = false;
+    lmask = 0;
+    if (tub0 >= 0.0f) {
+      s.node[0] = 0;
+#ifdef DFS_CULL
+      s.tn[0] = -__int_as_float(0x7f800000);  // the root is never dropped
+#endif
+      sp = 1;
     }
-    // inner children, reverse slot order so slot 0 pops first
-    for (int w = width - 1; w >= 0; --w) {
-      if (w < icnt && ((mask >> w) & 1u)) {
-        if (sp < STACK_CAP) {
-          stack[sp++] = ibase + w;
+  }
+
+  __device__ __forceinline__ bool traversing() const {
+    return sp > 0 && tub >= 0.0f && visits < MAX_VISITS;
+  }
+
+  // one leaf job: the prims of leaf child w of the node at `row`
+  __device__ __forceinline__ void leaf_job(const Tables& tb, int w,
+                                           bool kill) {
+    const float4 b = row[2 * w + 1];
+    const int grp0 = (int)b.z, ngroups = (int)b.w;
+    float job_t = T_NO_LIMIT, job_p = -1.0f;
+    for (int g = 0; g < ngroups; ++g) {
+      const float4* rec = tb.prims + 4 * 8 * (grp0 + g);
+      // min t over the group's hits, max orig_id among the hits at it
+      // (a group with no hit below T_NO_LIMIT changes nothing)
+      float tbest = T_NO_LIMIT, pbest = -1.0f;
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        const float4 TI = rec[4 * s + 3];
+        float t;
+#ifdef DFS_BOTH_HALVES
+        const bool ok =
+            packed_prim_test(o_x, o_y, o_z, d_x, d_y, d_z, rec[4 * s],
+                             rec[4 * s + 1], rec[4 * s + 2], TI.x, &t);
+#else
+        if (TI.x < -0.5f) continue;  // pad slot: no test
+        const float4 G = rec[4 * s];
+        const bool ok =
+            TI.x > 0.5f
+                ? sph_test(o_x, o_y, o_z, d_x, d_y, d_z, a_q, G, &t)
+                : tri_test(o_x, o_y, o_z, d_x, d_y, d_z, G, rec[4 * s + 1],
+                           rec[4 * s + 2], &t);
+#endif
+        if (!ok) continue;
+        if (t < tbest) {
+          tbest = t;
+          pbest = TI.y;
+        } else if (t == tbest) {
+          pbest = fmaxf(pbest, TI.y);
+        }
+      }
+      if (tbest < job_t) {
+        job_t = tbest;
+        job_p = pbest;
+      }
+    }
+    if (job_t < tub) {
+      prim = job_p;
+      best_t = job_t;
+      tub = job_t;
+    }
+    if (kill && prim >= 0.0f && best_t < kill_lim) tub = -1.0f;
+  }
+
+  // pop one entry and visit it (with DFS_CULL: or drop it): box tests and
+  // pushes; the hit leaf children are left in lmask
+  __device__ __forceinline__ void visit(const Tables& tb, const Stack& s) {
+    --sp;
+    const int node = s.node[sp * s.stride];
+#ifdef DFS_CULL
+    if (s.tn[sp * s.stride] > tub) return;
+#endif
+    const int2 m = reinterpret_cast<const int2*>(tb.meta)[2 * node];
+    const int ibase = m.x, icnt = m.y;
+    row = tb.nodes + 2 * (8 * node);
+    unsigned mask = 0;
+#pragma unroll
+    for (int w = 0; w < WMAX; ++w) {
+      tn[w] = 0.0f;
+      if (w < tb.width) {
+        const float4 a = row[2 * w], b = row[2 * w + 1];
+        const float t0x = (a.x - o_x) * inv_x, t1x = (a.w - o_x) * inv_x;
+        const float t0y = (a.y - o_y) * inv_y, t1y = (b.x - o_y) * inv_y;
+        const float t0z = (a.z - o_z) * inv_z, t1z = (b.y - o_z) * inv_z;
+        tn[w] = nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)),
+                        nan_min(t0z, t1z));
+        const float tf =
+            nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)),
+                    nan_max(t0z, t1z));
+        if ((tn[w] <= tf) && (tf >= 0.0f) && (tn[w] <= tub)) mask |= 1u << w;
+      }
+    }
+    // inner children: a child's place is the number of hit inner children
+    // pushed before it (later slots; with DFS_NEAR_FIRST farther ones, or
+    // as near and in a later slot)
+    const unsigned below = (1u << icnt) - 1u;
+    const unsigned imask = mask & below;
+    if (imask) {
+#pragma unroll
+      for (int w = 0; w < WMAX; ++w) {
+        if (!((imask >> w) & 1u)) continue;
+        int rank = 0;
+#pragma unroll
+        for (int v = 0; v < WMAX; ++v) {
+#ifdef DFS_NEAR_FIRST
+          if (v != w && ((imask >> v) & 1u) &&
+              (tn[v] > tn[w] || (tn[v] == tn[w] && v > w)))
+            ++rank;
+#else
+          if (((imask >> v) & 1u) && v > w) ++rank;
+#endif
+        }
+        const int pos = sp + rank;
+        if (pos < s.cap) {
+          s.node[pos * s.stride] = ibase + w;
+#ifdef DFS_CULL
+          s.tn[pos * s.stride] = tn[w];
+#endif
         } else {
           overflow = true;
         }
       }
+      sp = min(sp + __popc(imask), s.cap);
     }
-    // leaf children, inline in slot order
-    for (int w = icnt; w < width; ++w) {
-      if (!((mask >> w) & 1u)) continue;
-      const float4 b = row[2 * w + 1];
-      const int grp0 = (int)b.z, ngroups = (int)b.w;
-      float job_t = T_NO_LIMIT, job_p = -1.0f;
-      for (int g = 0; g < ngroups; ++g) {
-        const float4* rec = prims + 4 * 8 * (grp0 + g);
-        float tbest = 0.0f, pbest = -1.0f;
-        for (int s = 0; s < 8; ++s) {
-          const float4 G = rec[4 * s], T1 = rec[4 * s + 1],
-                       T2 = rec[4 * s + 2], TI = rec[4 * s + 3];
-          float t;
-          const bool ok =
-              packed_prim_test(o_x, o_y, o_z, d_x, d_y, d_z, G, T1, T2,
-                               TI.x, &t);
-          const float tm = ok ? t : T_NO_LIMIT;
-          if (s == 0 || tm < tbest) {
-            tbest = tm;
-            pbest = TI.y;
-          } else if (tm == tbest) {
-            pbest = fmaxf(pbest, TI.y);
-          }
-        }
-        if (tbest < job_t) {
-          job_t = tbest;
-          job_p = pbest;
-        }
-      }
-      if (job_t < tub) {
-        prim = job_p;
-        best_t = job_t;
-        tub = job_t;
-      }
-      if (do_kill && prim >= 0.0f && best_t < kill_lim) {
-        tub = -1.0f;
-        break;
-      }
-    }
+    lmask = mask & ~below;
     ++visits;
   }
 
-  t_out[i] = prim >= 0.0f ? best_t : __int_as_float(0x7f800000);
-  prim_out[i] = (int)prim;
-  if ((overflow || (sp > 0 && visits >= MAX_VISITS)) && tub >= 0.0f)
-    atomicAdd(dropped, 1ull);
+  // the leaf jobs of the last visit, in slot order (DFS_NEAR_FIRST:
+  // nearest first; DFS_CULL: each while it starts within the bound).
+  // leaf_job is inlined at this one place only: its code is most of the
+  // kernel's
+  __device__ __forceinline__ void leaves(const Tables& tb, bool kill) {
+    while (lmask && tub >= 0.0f) {
+      int w = 0;
+      float tw = 0.0f;
+      bool none = true;
+#pragma unroll
+      for (int v = 0; v < WMAX; ++v) {
+#ifdef DFS_NEAR_FIRST
+        const bool nearer = tn[v] < tw;
+#else
+        const bool nearer = false;  // the lowest slot left
+#endif
+        if (((lmask >> v) & 1u) && (none || nearer)) {
+          w = v;
+          tw = tn[v];
+          none = false;
+        }
+      }
+      lmask &= ~(1u << w);
+#ifdef DFS_CULL
+      if (tw > tub) {
+#ifdef DFS_NEAR_FIRST
+        break;  // and so do the leaves left, all farther
+#else
+        continue;
+#endif
+      }
+#endif
+      leaf_job(tb, w, kill);
+    }
+    lmask = 0;
+  }
+
+  __device__ __forceinline__ void finish(int i, float* __restrict__ t_out,
+                                         int* __restrict__ prim_out,
+                                         unsigned long long* dropped) const {
+    t_out[i] = prim >= 0.0f ? best_t : __int_as_float(0x7f800000);
+    prim_out[i] = (int)prim;
+    if ((overflow || (sp > 0 && visits >= MAX_VISITS)) && tub >= 0.0f)
+      atomicAdd(dropped, 1ull);
+  }
+};
+
+// the calling thread's stack in dynamic shared memory: the node ids of
+// every thread, then (DFS_CULL) their tn
+__device__ __forceinline__ Stack shared_stack(int stack_cap) {
+  extern __shared__ int s_stack[];
+  return Stack{s_stack + threadIdx.x,
+               reinterpret_cast<float*>(s_stack + stack_cap * DFS_BLOCK) +
+                   threadIdx.x,
+               DFS_BLOCK, stack_cap};
 }
 
+#ifdef DFS_ONE_MODE
+#define DFS_KILL (t_limit != nullptr)
+#else
+#define DFS_KILL KILL
+#endif
+
+// o, d [n, 3]; valid [n]; t_limit [n] (shadow mode only).  t [n] (inf on a
+// miss), prim [n] (-1 on a miss), counters[0]: dropped rays, counters[1]:
+// the next ray to fetch (DFS_PERSISTENT).  Dynamic shared memory:
+// stack_cap * DFS_BLOCK ints (and, with DFS_CULL, as many floats).
+template <int WMAX, bool KILL>
+__global__ void __launch_bounds__(DFS_BLOCK, DFS_MIN_BLOCKS)
+dfs_kernel(const float* __restrict__ o, const float* __restrict__ d,
+           const bool* __restrict__ valid, const float* __restrict__ t_limit,
+           Tables tb, float* __restrict__ t_out, int* __restrict__ prim_out,
+           unsigned long long* __restrict__ counters, int n, int stack_cap,
+           float kill_eps) {
+#ifdef DFS_LOCAL_STACK
+  int local_node[STACK_CAP];
+  float local_tn[STACK_CAP];
+  const Stack s{local_node, local_tn, 1, stack_cap};
+#else
+  const Stack s = shared_stack(stack_cap);
+#endif
+  DfsRay<WMAX> r;
+#ifdef DFS_PERSISTENT
+  // lanes without a ray fetch fresh ones together once half the warp is
+  // idle; the warp leaves when the counter is spent and no lane traces
+  int* next = reinterpret_cast<int*>(counters + 1);
+  const int lane = threadIdx.x & 31;
+  int i = -1;
+  bool more = true;  // the same in every lane of the warp
+  while (true) {
+    const unsigned idle = __ballot_sync(FULL_MASK, i < 0);
+    if (!more && idle == FULL_MASK) break;
+    if (more && __popc(idle) >= 16) {
+      int base = 0;
+      if (lane == 0) base = atomicAdd(next, __popc(idle));
+      base = __shfl_sync(FULL_MASK, base, 0);
+      more = base + __popc(idle) < n;
+      if (i < 0) {
+        const int k = base + __popc(idle & ((1u << lane) - 1u));
+        if (k < n) {
+          r.start(k, o, d, valid, t_limit, DFS_KILL, kill_eps, s);
+          if (r.traversing()) {
+            i = k;
+          } else {
+            r.finish(k, t_out, prim_out, counters);
+          }
+        }
+      }
+    }
+    if (i >= 0) {
+      r.visit(tb, s);
+      r.leaves(tb, DFS_KILL);
+      if (!r.traversing()) {
+        r.finish(i, t_out, prim_out, counters);
+        i = -1;
+      }
+    }
+  }
+#else
+  const int i = blockIdx.x * DFS_BLOCK + threadIdx.x;
+  if (i >= n) return;
+  r.start(i, o, d, valid, t_limit, DFS_KILL, kill_eps, s);
+  while (r.traversing()) {
+#ifdef DFS_IF_IF
+    r.visit(tb, s);
+#else
+    do {
+      r.visit(tb, s);
+    } while (!r.lmask && r.traversing());
+#endif
+    r.leaves(tb, DFS_KILL);
+  }
+  r.finish(i, t_out, prim_out, counters);
+#endif
+}
+
+template <int WMAX, bool KILL>
+static void launch(const float* o, const float* d, const bool* valid,
+                   const float* t_limit, const Tables& tb, float* t_out,
+                   int* prim_out, unsigned long long* counters, int n,
+                   int stack_cap, float kill_eps, cudaStream_t st) {
+#ifdef DFS_LOCAL_STACK
+  const int smem = 0;
+#elif defined(DFS_CULL)
+  const int smem = stack_cap * DFS_BLOCK * 8;
+#else
+  const int smem = stack_cap * DFS_BLOCK * 4;
+#endif
+#ifndef DFS_LOCAL_STACK
+  if (smem > 48 * 1024)  // above the default, by opt-in
+    cudaFuncSetAttribute(dfs_kernel<WMAX, KILL>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+#endif
+  int grid = (n + DFS_BLOCK - 1) / DFS_BLOCK;
+#ifdef DFS_PERSISTENT
+  int dev = 0, sms = 132, per_sm = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, dfs_kernel<WMAX, KILL>, DFS_BLOCK, smem);
+  if (per_sm < 1) per_sm = 1;
+  if (grid > sms * per_sm) grid = sms * per_sm;
+#endif
+  dfs_kernel<WMAX, KILL><<<grid, DFS_BLOCK, smem, st>>>(
+      o, d, valid, t_limit, tb, t_out, prim_out, counters, n, stack_cap,
+      kill_eps);
+}
+
+// t_limit null: closest-hit mode; else shadow mode.  stack_cap: entries of
+// each ray's stack, 1..STACK_CAP.  counters: two int64, zeroed by the
+// caller.
 extern "C" int packet_dfs_trace(const void* o, const void* d,
                                 const void* valid, const void* t_limit,
                                 const void* nodes, const void* prims,
                                 const void* meta, void* t_out,
-                                void* prim_out, void* dropped, int n,
-                                int width, float kill_eps, void* stream) {
+                                void* prim_out, void* counters, int n,
+                                int width, int stack_cap, float kill_eps,
+                                void* stream) {
+  if (width < 1 || width > 8 || stack_cap < 1 || stack_cap > STACK_CAP)
+    return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    const int block = 128;
-    const int grid = (n + block - 1) / block;
-    dfs_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        (const float*)o, (const float*)d, (const bool*)valid,
-        (const float*)t_limit, (const float4*)nodes, (const float4*)prims,
-        (const int*)meta, (float*)t_out, (int*)prim_out,
-        (unsigned long long*)dropped, n, width, kill_eps);
+    const Tables tb{(const float4*)nodes, (const float4*)prims,
+                    (const int*)meta, width};
+#ifdef DFS_ONE_MODE
+    const bool kill = false;  // the kernel reads the mode from t_limit
+#else
+    const bool kill = t_limit != nullptr;
+#endif
+#define DFS_ARGS (const float*)o, (const float*)d, (const bool*)valid, \
+                 (const float*)t_limit, tb, (float*)t_out, (int*)prim_out, \
+                 (unsigned long long*)counters, n, stack_cap, kill_eps, \
+                 (cudaStream_t)stream
+    if (width <= 4) {
+      if (kill) launch<4, true>(DFS_ARGS); else launch<4, false>(DFS_ARGS);
+    } else {
+      if (kill) launch<8, true>(DFS_ARGS); else launch<8, false>(DFS_ARGS);
+    }
+#undef DFS_ARGS
   }
   return (int)cudaGetLastError();
 }

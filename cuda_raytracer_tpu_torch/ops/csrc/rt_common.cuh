@@ -17,11 +17,15 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
 }
 
-// ops/intersect.py packed_prim_test for one prim: g = plane normal |
-// sphere center, g.w = plane offset | radius, T1/T2 the barycentric rows
-__device__ __forceinline__ bool packed_prim_test(
-    float o_x, float o_y, float o_z, float d_x, float d_y, float d_z,
-    float4 g, float4 T1, float4 T2, float ptype, float* t_out) {
+// The two halves of ops/intersect.py packed_prim_test, each in its own
+// op order: a prim's result does not depend on which half is computed
+// for it alone or on whether the other half is computed at all.
+// Triangle: g = plane normal, g.w = plane offset, T1/T2 the barycentric
+// rows.
+__device__ __forceinline__ bool tri_test(float o_x, float o_y, float o_z,
+                                         float d_x, float d_y, float d_z,
+                                         float4 g, float4 T1, float4 T2,
+                                         float* t_out) {
   float denom = g.x * d_x + g.y * d_y + g.z * d_z;
   bool parallel = fabsf(denom) < PRIM_EPS;
   float t_tri = (g.w - (g.x * o_x + g.y * o_y + g.z * o_z)) /
@@ -31,10 +35,17 @@ __device__ __forceinline__ bool packed_prim_test(
   float hz = o_z + t_tri * d_z;
   float u = T1.x * hx + T1.y * hy + T1.z * hz + T1.w;
   float v = T2.x * hx + T2.y * hy + T2.z * hz + T2.w;
-  bool ok_tri = (!parallel) && (u >= 0.0f) && (v >= 0.0f) &&
-                (u + v <= 1.0f) && (t_tri >= 0.0f);
+  *t_out = t_tri;
+  return (!parallel) && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
+         (t_tri >= 0.0f);
+}
+
+// Sphere: g = center, g.w = radius; a_q = d.d, computed by the caller as
+// d_x * d_x + d_y * d_y + d_z * d_z (the same for every prim of a ray).
+__device__ __forceinline__ bool sph_test(float o_x, float o_y, float o_z,
+                                         float d_x, float d_y, float d_z,
+                                         float a_q, float4 g, float* t_out) {
   float ocx = o_x - g.x, ocy = o_y - g.y, ocz = o_z - g.z;
-  float a_q = d_x * d_x + d_y * d_y + d_z * d_z;
   float b_q = 2.0f * (ocx * d_x + ocy * d_y + ocz * d_z);
   float c_q = ocx * ocx + ocy * ocy + ocz * ocz - g.w * g.w;
   float disc = b_q * b_q - 4.0f * a_q * c_q;
@@ -42,7 +53,20 @@ __device__ __forceinline__ bool packed_prim_test(
   float ts1 = (-b_q - sq) / (2.0f * a_q);
   float ts2 = (-b_q + sq) / (2.0f * a_q);
   float t_sph = ts1 > 0.0f ? ts1 : ts2;
-  bool ok_sph = (disc >= 0.0f) && (t_sph > 0.0f);
+  *t_out = t_sph;
+  return (disc >= 0.0f) && (t_sph > 0.0f);
+}
+
+// ops/intersect.py packed_prim_test for one prim of type ptype (0
+// triangle, 1 sphere, -1 pad, never a hit): both halves, then a select
+__device__ __forceinline__ bool packed_prim_test(
+    float o_x, float o_y, float o_z, float d_x, float d_y, float d_z,
+    float4 g, float4 T1, float4 T2, float ptype, float* t_out) {
+  float t_tri, t_sph;
+  const bool ok_tri = tri_test(o_x, o_y, o_z, d_x, d_y, d_z, g, T1, T2,
+                               &t_tri);
+  const float a_q = d_x * d_x + d_y * d_y + d_z * d_z;
+  const bool ok_sph = sph_test(o_x, o_y, o_z, d_x, d_y, d_z, a_q, g, &t_sph);
   bool is_sph = ptype > 0.5f;
   bool not_pad = ptype > -0.5f;
   *t_out = is_sph ? t_sph : t_tri;

@@ -3,22 +3,24 @@
 The port of ``cuda_raytracer_tpu/ops/pallas/packet_dfs.py``.  The TPU
 kernel (``_dfs_kernel``) walks one depth-first traversal per packet of
 1024 rays with union descent, because the TPU's vector unit wants 1024
-lanes in lockstep.  Its Hopper counterpart (ops/csrc/packet_dfs.cu) is
-the simple right design for a GPU: one thread per ray, each with its own
-node stack.  Both return the closest hit and, for shadow rays, the same
-pass/fail decision; the .cu file's header lists the semantics kept.
+lanes in lockstep.  Its Hopper counterpart (ops/csrc/packet_dfs.cu)
+walks one per ray: one thread per ray, children in slot order, its node
+stack in shared memory, each prim tested by its own type.  Both return
+the closest hit and, for shadow rays, the same pass/fail decision; the
+.cu file's header lists the semantics.
 
 * ``trace_closest_packets`` — the wrapper (the JAX function's name and
   contract): launches the kernel for CUDA tensors or runs the plain
   version for CPU tensors.
 * ``dfs_trace_cuda`` — the kernel's launch; ``launches`` counts it.
-* ``dfs_trace_plain`` — the same per-ray DFS as vectorized torch ops (a
-  [N, STACK_CAP] stack, one pop per live ray per step), in the kernel's
+* ``dfs_trace_plain`` — the same per-ray DFS as vectorized torch ops (an
+  [N, stack] stack, one pop per live ray per step), in the kernel's
   visit order and op order, so the two agree bit for bit.
 
 Both take the rays as they come (o, d [N, 3], valid [N], t_limit [N] or
-None) and return (t [N] f32, inf on a miss; prim [N] int32, -1 on a
-miss; dropped, a 0-d int64 count).
+None) and the stack size (``stack_entries(bvh)``: what the tree can
+need, at most ``STACK_CAP``), and return (t [N] f32, inf on a miss;
+prim [N] int32, -1 on a miss; dropped, a 0-d int64 count).
 
 The kernel builds at first use with nvcc into ``_build/`` beside the
 package (ops/_build.py).
@@ -39,8 +41,9 @@ from .intersect import packed_prim_test
 C = 1024
 #: finite "no limit" initial bound (must not be inf: inf*0 = nan)
 T_NO_LIMIT = 1e30
-#: per-ray stack depth (a W-wide tree of depth D needs D*(W-1)+1); the
-#: kernel is built with the same value, and an overflow is counted in
+#: the most stack entries per ray the kernel takes (its shared-memory
+#: stack holds ``stack`` of them per thread, ``stack`` <= STACK_CAP); the
+#: kernel is built with the same value.  An overflow is counted in
 #: ``dropped``, never written past
 STACK_CAP = 64
 MAX_VISITS = 1 << 20
@@ -48,7 +51,7 @@ MAX_VISITS = 1 << 20
 #: kernel launches since the count was last set to 0
 launches = 0
 
-_lib = None
+_libs = {}
 
 
 class WaveTraceResult(NamedTuple):
@@ -57,19 +60,22 @@ class WaveTraceResult(NamedTuple):
     dropped: torch.Tensor  # 0-d int64: live rays cut off (visit cap/stack)
 
 
-def _load_library():
+def _load_library(switches=()):
     """Build ops/csrc/packet_dfs.cu at first use and load it.  Raises if
-    nvcc fails; there is no fallback."""
-    global _lib
-    if _lib is None:
-        lib = load_library("packet_dfs", build_defines())
+    nvcc fails; there is no fallback.  ``switches``: the .cu file's
+    measurement switches (``DFS_NEAR_FIRST`` ...) to build with; the
+    port never passes any."""
+    key = tuple(switches)
+    if key not in _libs:
+        lib = load_library("packet_dfs", build_defines() + key)
         fn = lib.packet_dfs_trace
         fn.argtypes = [ctypes.c_void_p] * 10 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[key] = lib
+    return _libs[key]
 
 
 def build_defines():
@@ -77,19 +83,25 @@ def build_defines():
     return (f"STACK_CAP={STACK_CAP}",)
 
 
-def _check_inputs(o, d, valid, t_limit, node_rows, prim_rows, meta,
-                  width):
-    if not 1 <= width <= 8:
-        raise ValueError(f"packet-DFS supports tree_width <= 8, got {width}")
+def stack_entries(bvh) -> int:
+    """Stack entries a DFS of ``bvh`` can need: popping a node pushes at
+    most W inner children, so a tree whose deepest inner node is at depth
+    D needs (W - 1) * D + 1."""
+    inner_levels = sum(1 for k in bvh.level_inner if k > 0)
+    return (bvh.width - 1) * max(inner_levels - 1, 0) + 1
+
+
+def check_rays(o, d, valid, t_limit, *tables):
+    """What the kernels take of rays: o, d [N, 3] float32, valid [N]
+    bool, t_limit [N] float32 or None, all contiguous on o's device;
+    ``tables``: more (name, tensor, dtype, shape) to check alike."""
     n = o.shape[0]
     for name, x, dt, shape in (
         ("o", o, torch.float32, (n, 3)),
         ("d", d, torch.float32, (n, 3)),
         ("valid", valid, torch.bool, (n,)),
         ("t_limit", t_limit, torch.float32, (n,)),
-        ("node_rows", node_rows, torch.float32, (node_rows.shape[0], 8)),
-        ("prim_rows", prim_rows, torch.float32, (prim_rows.shape[0], 16)),
-        ("meta", meta, torch.int32, (node_rows.shape[0] // 2,)),
+        *tables,
     ):
         if x is None:
             continue
@@ -101,6 +113,21 @@ def _check_inputs(o, d, valid, t_limit, node_rows, prim_rows, meta,
             raise ValueError(f"{name} must be contiguous")
         if x.device != o.device:
             raise ValueError(f"{name} on {x.device}, o on {o.device}")
+
+
+def _check_inputs(o, d, valid, t_limit, node_rows, prim_rows, meta,
+                  width, stack):
+    if not 1 <= width <= 8:
+        raise ValueError(f"packet-DFS supports tree_width <= 8, got {width}")
+    if not 1 <= stack <= STACK_CAP:
+        raise ValueError(f"a stack of {stack} entries per ray: the kernel "
+                         f"takes 1 to {STACK_CAP}")
+    check_rays(
+        o, d, valid, t_limit,
+        ("node_rows", node_rows, torch.float32, (node_rows.shape[0], 8)),
+        ("prim_rows", prim_rows, torch.float32, (prim_rows.shape[0], 16)),
+        ("meta", meta, torch.int32, (node_rows.shape[0] // 2,)),
+    )
     if node_rows.shape[0] % 8:
         raise ValueError("node_rows must hold whole 8-slot nodes")
     if prim_rows.shape[0] % 8:
@@ -108,35 +135,39 @@ def _check_inputs(o, d, valid, t_limit, node_rows, prim_rows, meta,
 
 
 def dfs_trace_cuda(o, d, valid, t_limit, node_rows, prim_rows, meta,
-                   width: int, kill_eps: float):
+                   width: int, kill_eps: float, stack: int):
     """Launch the kernel on the current stream; returns (t, prim,
     dropped).  ``t_limit`` None is a closest-hit trace, else a shadow
-    trace."""
+    trace; ``stack`` entries per ray."""
     global launches
-    _check_inputs(o, d, valid, t_limit, node_rows, prim_rows, meta, width)
+    _check_inputs(o, d, valid, t_limit, node_rows, prim_rows, meta, width,
+                  stack)
     if o.device.type != "cuda":
         raise ValueError("dfs_trace_cuda needs CUDA tensors")
     lib = _load_library()
     n = o.shape[0]
     t = torch.empty((n,), dtype=torch.float32, device=o.device)
     prim = torch.empty((n,), dtype=torch.int32, device=o.device)
-    dropped = torch.zeros((), dtype=torch.int64, device=o.device)
+    # dropped rays, and the ray counter of the kernel's persistent variant
+    counters = torch.zeros((2,), dtype=torch.int64, device=o.device)
     err = lib.packet_dfs_trace(
         o.data_ptr(), d.data_ptr(), valid.data_ptr(),
         None if t_limit is None else t_limit.data_ptr(),
         node_rows.data_ptr(), prim_rows.data_ptr(), meta.data_ptr(),
-        t.data_ptr(), prim.data_ptr(), dropped.data_ptr(), n, width,
-        float(kill_eps), torch.cuda.current_stream(o.device).cuda_stream,
+        t.data_ptr(), prim.data_ptr(), counters.data_ptr(), n, width,
+        int(stack), float(kill_eps),
+        torch.cuda.current_stream(o.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"packet_dfs kernel launch failed: cuda error {err}")
     if n:  # the C side launches nothing for an empty batch
         launches += 1
-    return t, prim, dropped
+    return t, prim, counters[0]
 
 
 def dfs_trace_plain(o, d, valid, t_limit, node_rows, prim_rows, meta,
-                    width: int, kill_eps: float, stats: dict = None):
+                    width: int, kill_eps: float, stack: int,
+                    stats: dict = None):
     """The kernel's per-ray DFS in plain torch ops (any device).
 
     Each step pops one node for every ray still traversing, slab-tests
@@ -148,7 +179,8 @@ def dfs_trace_plain(o, d, valid, t_limit, node_rows, prim_rows, meta,
     non-empty child slots), and prim tests by type, ``tris`` and
     ``spheres`` (pad slots are no test).
     """
-    _check_inputs(o, d, valid, t_limit, node_rows, prim_rows, meta, width)
+    _check_inputs(o, d, valid, t_limit, node_rows, prim_rows, meta, width,
+                  stack)
     W = width
     dev = o.device
     n = o.shape[0]
@@ -165,7 +197,7 @@ def dfs_trace_plain(o, d, valid, t_limit, node_rows, prim_rows, meta,
     tub = tub0.clone()
     best = torch.full((n,), T_NO_LIMIT, dtype=torch.float32, device=dev)
     prim = torch.full((n,), -1.0, dtype=torch.float32, device=dev)
-    stack = torch.zeros((n, STACK_CAP), dtype=torch.int64, device=dev)
+    stk = torch.zeros((n, stack), dtype=torch.int64, device=dev)
     sp = (tub0 >= 0.0).long()  # the root, for live rays
     visits = torch.zeros((n,), dtype=torch.int64, device=dev)
     overflow = torch.zeros((n,), dtype=torch.bool, device=dev)
@@ -180,7 +212,7 @@ def dfs_trace_plain(o, d, valid, t_limit, node_rows, prim_rows, meta,
         if idx.numel() == 0:
             break
         spa = sp[idx] - 1
-        node = stack[idx, spa]
+        node = stk[idx, spa]
         blk = rows[node]  # [A, W, 8]
         if stats is not None:
             _count(stats, "visits", idx.numel())
@@ -208,10 +240,10 @@ def dfs_trace_plain(o, d, valid, t_limit, node_rows, prim_rows, meta,
         # inner children, reverse slot order so slot 0 pops first
         for w in range(W - 1, -1, -1):
             push = (w < icnt) & m[:, w]
-            fits = spa < STACK_CAP
+            fits = spa < stack
             overflow[idx[push & ~fits]] = True
             do = push & fits
-            stack[idx[do], spa[do]] = ibase[do] + w
+            stk[idx[do], spa[do]] = ibase[do] + w
             spa = spa + do.long()
         sp[idx] = spa
 
@@ -293,11 +325,15 @@ def trace_closest_packets(
     """
     del packet_size
     bvh = scene.bvh
+    stack = stack_entries(bvh)
+    if stack > STACK_CAP:
+        raise ValueError(f"the tree needs a stack of {stack} entries per "
+                         f"ray; the kernel takes at most {STACK_CAP}")
     args = (o.float().contiguous(), d.float().contiguous(),
             valid.bool().contiguous(),
             None if t_limit is None else t_limit.float().contiguous(),
             bvh.dfs_node_rows, bvh.dfs_prim_rows, bvh.node_meta, bvh.width,
-            kill_eps)
+            kill_eps, stack)
     if o.device.type == "cuda":
         return WaveTraceResult(*dfs_trace_cuda(*args))
     if o.device.type == "cpu":

@@ -22,11 +22,12 @@ entries of one node (a *segment*) contiguous.  Per level:
   the entry, with its new bound, to each inner child it enters *under
   its incoming bound* (the count kernel's test, so the two agree).
 
-``trace_closest_wavefront`` builds the payload, optionally compacts it
-to its live entries (ops/partition.py), runs the level loop over the
+``trace_closest_wavefront`` builds the level-0 queue — every lane
+(``make_payload``), or with ``compact=True`` the live lanes only
+(``compact_live_rays``, ops/partition.py) — runs the level loop over the
 scene's static schedule ``bvh.wf_sched`` and decodes the keys.  It runs
 unchanged on the CPU and on the card: only ``count_level``,
-``pack_level`` and ``compact_live_payload`` choose between a kernel
+``pack_level`` and ``compact_live_rays`` choose between a kernel
 (ops/csrc/wavefront2.cu, ops/csrc/partition.cu) for CUDA tensors and a
 plain version (``count_plain``, ``pack_plain``) for CPU tensors.
 
@@ -51,7 +52,7 @@ import torch
 from ._build import load_library
 from .intersect import packed_prim_test
 from .packet_dfs import WaveTraceResult
-from .partition import compact_live_payload
+from .partition import compact_live_rays
 
 #: finite "no limit" initial bound (must not be inf: inf*0 = nan)
 T_NO_LIMIT = 1e30
@@ -519,9 +520,9 @@ def trace_closest_wavefront(
     Shadow passes (t_limit given) never record hits beyond the limit
     and end a lineage once a hit lands kill_eps short of it, so the
     pass condition ``t > maxT - eps`` decides as a full closest-hit
-    trace would.  ``compact=True`` first packs the live entries to the
-    front (ops/partition.py), so every level sweeps live entries only;
-    the result is the same to the bit.  ``want_prim=False`` (shadow
+    trace would.  ``compact=True`` queues the live lanes only
+    (ops/partition.py), so every level sweeps live entries only; the
+    result is the same to the bit.  ``want_prim=False`` (shadow
     passes) reports prim -2 on a hit.
     """
     bvh = scene.bvh
@@ -536,11 +537,15 @@ def trace_closest_wavefront(
     node_rows, prim_rows = bvh.wf_node_rows, scene.wf_prim_rows
     cap = queue_capacity(n_pad, queue_multiplier, bvh.wf_sched)
 
-    queue = make_payload(o, d, valid.bool(), t_limit)
+    valid = valid.bool()
     if compact:
-        queue, n_live = compact_live_payload(queue)
+        queue, n_live = compact_live_rays(
+            o.float().contiguous(), d.float().contiguous(),
+            valid.contiguous(),
+            None if t_limit is None else t_limit.float().contiguous())
         total0 = n_live.reshape(1)
     else:
+        queue = make_payload(o, d, valid, t_limit)
         total0 = torch.full((1,), n_in, dtype=torch.int32, device=dev)
     seg_base = torch.cat([torch.zeros_like(total0), total0])
     keys = torch.full((n_in,), KEY_MISS, dtype=torch.int64, device=dev)

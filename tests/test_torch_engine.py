@@ -104,14 +104,15 @@ def _port_frames(cfg, scene, viewpoint, monkeypatch):
     r.load_static_scene(scene)
     r.set_viewpoint(*viewpoint)
     counts = (packet_dfs, "launches"), (partition, "launches"), \
-        (wavefront2, "count_launches"), (wavefront2, "pack_launches")
+        (partition, "ray_launches"), (wavefront2, "count_launches"), \
+        (wavefront2, "pack_launches")
     for mod, name in counts:
         setattr(mod, name, 0)
     for _ in range(FRAMES):
         r.render()
         assert r.dropped == 0
     # the CPU runs the plain versions: no kernel launch is counted
-    assert [getattr(mod, name) for mod, name in counts] == [0, 0, 0, 0]
+    assert [getattr(mod, name) for mod, name in counts] == [0] * 5
     assert r.traces_per_frame == 8
     return r, calls
 

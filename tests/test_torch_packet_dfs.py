@@ -7,9 +7,9 @@ held against this plain version on the card by chip_smoke.py.
 Tolerances: hit/miss exact; prim exact except where two prims tie at a
 bit-equal t (the DFS keeps the first group's winner, the oracle the
 lowest index); shadow decisions ``t > max_t - eps`` exact; invalid
-lanes miss; dropped == 0.  t within rtol=1e-6 of trace_bruteforce,
-whose jnp ops run one by one and round as torch does (the same
-packed_prim_test, op for op: seen bit-equal).  trace_closest
+lanes miss; dropped == 0.
+t bit-equal to trace_bruteforce, whose jnp ops run one by one and round
+as torch does (the same packed_prim_test, op for op).  trace_closest
 and interpret-mode Pallas run under jit, where XLA's CPU fusion
 contracts multiply-adds into FMAs; the plane offset g.w - g.o cancels,
 so the gap is absolute (seen: 1.1e-7 at t = 0.002, 5e-5 relative) and
@@ -113,12 +113,16 @@ def _jax_trace(fn, scene, o, d, valid):
 JIT_RTOL, JIT_ATOL = 1e-5, 1e-6
 
 
-def check_closest(ta, pa, tb, pb, rtol, atol=0.0):
+def check_closest(ta, pa, tb, pb, rtol=0.0, atol=0.0):
+    """rtol = atol = 0: t bit-equal."""
     np.testing.assert_array_equal(pa < 0, pb < 0)
     hit = pa >= 0
     gap = np.abs(ta[hit].view(np.int32).astype(np.int64)
                  - tb[hit].view(np.int32).astype(np.int64))
     print(f"{hit.sum()} hits, max t ulp gap {gap.max() if gap.size else 0}")
+    if rtol == atol == 0.0:
+        np.testing.assert_array_equal(ta[hit].view(np.int32),
+                                      tb[hit].view(np.int32))
     np.testing.assert_allclose(ta[hit], tb[hit], rtol=rtol, atol=atol)
     differ = hit & (pa != pb)
     assert np.array_equal(ta[differ], tb[differ]), "prim differs off a tie"
@@ -134,7 +138,7 @@ def test_closest_matches_oracles(name):
     assert np.all(pa[~valid] == -1) and np.all(np.isinf(ta[~valid]))
     assert (pa >= 0).sum() > 50
     tb, pb = _jax_trace(trace_bruteforce, ref, o, d, valid)
-    check_closest(ta, pa, tb, pb, rtol=1e-6)
+    check_closest(ta, pa, tb, pb)
     if name == "soup":  # the deepest tree; trace_closest compiles per scene
         tb, pb = _jax_trace(trace_closest, ref, o, d, valid)
         check_closest(ta, pa, tb, pb, JIT_RTOL, JIT_ATOL)
@@ -180,17 +184,42 @@ def test_matches_pallas_kernel(monkeypatch):
     assert (pa >= 0).sum() > 500
 
 
-def test_stack_overflow_counted(monkeypatch):
+def _plain(scene, o, d, valid, t_limit=None, stack=None, stats=None):
+    b = scene.bvh
+    return pdfs.dfs_trace_plain(
+        torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(valid),
+        None if t_limit is None else torch.from_numpy(t_limit),
+        b.dfs_node_rows, b.dfs_prim_rows, b.node_meta, b.width, 1e-3,
+        pdfs.stack_entries(b) if stack is None else stack, stats=stats)
+
+
+def test_stack_overflow_counted():
     """A stack too small for the tree counts the rays it cuts off in
-    dropped instead of writing past the stack."""
+    dropped instead of writing past the stack; the tree's own size
+    (stack_entries) drops none."""
     ours, _, box = scenes("soup")
     o, d = random_rays(1024, seed=9, origin_box=box)
     valid = np.ones(len(o), bool)
-    _, _, dropped = _port_trace(ours, o, d, valid)
-    assert dropped == 0
-    monkeypatch.setattr(pdfs, "STACK_CAP", 1)
-    _, _, dropped = _port_trace(ours, o, d, valid)
-    assert dropped > 0
+    assert int(_plain(ours, o, d, valid)[2]) == 0
+    assert int(_plain(ours, o, d, valid, stack=1)[2]) > 0
+
+
+def test_stack_size_check_raises(monkeypatch):
+    """The stack is sized from the tree, (W - 1) * D + 1 for inner depth
+    D; a tree deeper than the kernel's stack raises instead of tracing."""
+    root_leaf = scenes("box")[0].bvh
+    assert root_leaf.root_is_leaf and pdfs.stack_entries(root_leaf) == 1
+    ours, _ = flatten_scene(terrain_scene(n=8), tree_width=4,
+                            max_leaf_size=4, device="cpu")
+    assert len(ours.bvh.wf_sched) == 3  # three inner levels: D = 2
+    assert pdfs.stack_entries(ours.bvh) == 7
+    o, d = random_rays(64, seed=3, origin_box=1.0)
+    valid = np.ones(len(o), bool)
+    monkeypatch.setattr(pdfs, "STACK_CAP", 6)
+    with pytest.raises(ValueError, match="stack"):
+        _port_trace(ours, o, d, valid)
+    with pytest.raises(ValueError, match="stack"):
+        _plain(ours, o, d, valid)
 
 
 def test_visit_cap_counted(monkeypatch):
@@ -212,7 +241,7 @@ def test_root_leaf_scene():
     valid = np.ones(len(o), bool)
     ta, pa, _ = _port_trace(ours, o, d, valid)
     tb, pb = _jax_trace(trace_bruteforce, ref, o, d, valid)
-    check_closest(ta, pa, tb, pb, rtol=1e-6)
+    check_closest(ta, pa, tb, pb)
 
 
 def test_cuda_tensors_never_take_plain_path(monkeypatch):
@@ -239,7 +268,8 @@ def test_cuda_tensors_never_take_plain_path(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         real_cuda(torch.from_numpy(o), torch.from_numpy(d),
                   torch.from_numpy(valid), None, b.dfs_node_rows,
-                  b.dfs_prim_rows, b.node_meta, b.width, 1e-3)
+                  b.dfs_prim_rows, b.node_meta, b.width, 1e-3,
+                  pdfs.stack_entries(b))
 
 
 def test_work_counts_root_leaf():
@@ -252,12 +282,8 @@ def test_work_counts_root_leaf():
     assert ours.bvh.root_is_leaf
     o, d = random_rays(256, seed=4, origin_box=0.9)
     valid = np.arange(len(o)) % 4 != 0
-    b = ours.bvh
     stats = {}
-    pdfs.dfs_trace_plain(torch.from_numpy(o), torch.from_numpy(d),
-                         torch.from_numpy(valid), None, b.dfs_node_rows,
-                         b.dfs_prim_rows, b.node_meta, b.width, 1e-3,
-                         stats=stats)
+    _plain(ours, o, d, valid, stats=stats)
     live = int(valid.sum())
     assert stats == {"visits": live, "boxes": live, "tris": 12 * live,
                      "spheres": 2 * live}

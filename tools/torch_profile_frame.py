@@ -9,10 +9,11 @@ Runs chip_smoke.py's run-A (cornell) or run-B (terrain) configuration
 packet-DFS; 800x600, 32 spp per frame, depth 4, NEE 1x1.0) on one card:
 a warm-up frame, then one frame with every bounce-loop stage timed by
 CUDA events around it (trace, shade_hit, nee_prep, nee_accum, scatter,
-plus raygen and film) and, inside the wavefront traces, the payload
-build, the partition, the count and pack kernels, the region arithmetic
-between them and the decode of the hit keys (the merge), with the live
-entries the partition found per trace; then one frame under
+plus raygen and film) and, inside the wavefront traces, the partition
+of the rays into the level-0 queue, the count and pack kernels, the
+region arithmetic between them and the decode of the hit keys (the
+merge), with the live entries the partition found per trace; then one
+frame under
 torch.profiler for device time by kernel name and the device's busy
 share of the frame.  Prints the card's name and power limit first.
 """
@@ -79,20 +80,19 @@ def main() -> int:
     r._film = timed("film", r._film)
     # inside the wavefront traces (these rows are part of the trace rows)
     live = []
-    parts = {"make_payload": "payload build",
-             "compact_live_payload": "partition", "count_level": "count",
-             "plan_regions": "regions (torch)", "pack_level": "pack",
-             "decode_keys": "merge (decode keys)"}
+    parts = {"compact_live_rays": "partition (rays)",
+             "count_level": "count", "plan_regions": "regions (torch)",
+             "pack_level": "pack", "decode_keys": "merge (decode keys)"}
     for fn, label in parts.items():
         setattr(wf, fn, timed("  wavefront: " + label, getattr(wf, fn)))
-    compact = wf.compact_live_payload
+    compact = wf.compact_live_rays
 
-    def compact_and_note(payload):
-        out = compact(payload)
-        live.append((payload.shape[0], out[1]))
+    def compact_and_note(o, *rest):
+        out = compact(o, *rest)
+        live.append((o.shape[0], out[1]))
         return out
 
-    wf.compact_live_payload = compact_and_note
+    wf.compact_live_rays = compact_and_note
     t0 = time.perf_counter()
     r.render()
     torch.cuda.synchronize()
