@@ -10,8 +10,8 @@ prints one JSON line for the kernels and, last, the device line.  Phases:
 
 1. set-up: the card's name and power limit, nvcc's version, the build of
    packet_dfs.cu, partition.cu and wavefront2.cu (one nvcc each, started
-   together) and what ptxas reports for each kernel (registers, spills,
-   shared memory);
+   together) and what ptxas reports for each kernel (registers, stack
+   frame, spills, shared memory);
 2. the packet-DFS kernel against its plain version on 262,144 rays of
    terrain n=121 (28,800 tris): hit/miss, prim and t bit-equal, shadow
    decisions equal, dropped == 0; kernel, plain and bound times; and the
@@ -220,7 +220,7 @@ def terrain_ray_set(dev):
 
 def _plain_chunked(args, chunk, stats):
     """The plain version over chunks of the rays (rays are independent,
-    so the result is the same; it bounds the plain version's [N, 64]
+    so the result is the same; it bounds the plain version's [N, stack]
     stack and leaf temporaries at main-path sizes)."""
     import torch
 
@@ -484,6 +484,7 @@ def measure_partition(label, rays):
         k = int(n_k)
         bad = int((q_k[:k].view(torch.int32)
                    != q_p[:k].view(torch.int32)).sum())
+        err = float((q_k[:k] - q_p[:k]).abs().max()) if k else 0.0
         print(f"[kernel] partition ({form}), {label}: {n} entries, n_live "
               f"{k} (plain {int(n_p)}), {bad} words of the live prefix "
               f"differ")
@@ -509,7 +510,7 @@ def measure_partition(label, rays):
               f"plain {plain_ms:.2f} ms, {other} {other_ms:.4f} ms, bound "
               f"{b['bound_ms']:.5f} ms (bytes), {b['bound_ms'] / ms:.3f} of "
               f"it reached")
-        out[form] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0,
+        out[form] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
                          n_live=k, other_ms=other_ms,
                          library_ms=other_ms if form == "payload" else None,
                          **b)
@@ -762,9 +763,10 @@ def phase_slice():
         row("packet_dfs", "packet_dfs.cu", "packet_dfs.py:99", dfs,
             dfs["max_abs_err"]),
         row("partition_rays", "partition.cu", "partition.py:38",
-            part["rays"], 0.0),
+            part["rays"], part["rays"]["max_abs_err"]),
         row("partition", "partition.cu", "partition.py:38",
-            part["payload"], 0.0, part["payload"]["library_ms"]),
+            part["payload"], part["payload"]["max_abs_err"],
+            part["payload"]["library_ms"]),
         row("wf2_count", "wavefront2.cu", "wavefront2.py:262",
             dict(ms=lvl["count_ms"], plain_ms=lvl["count_plain_ms"],
                  **lvl["count_bound"]),

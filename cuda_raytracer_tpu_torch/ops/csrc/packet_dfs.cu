@@ -1,5 +1,5 @@
 // Closest-hit / shadow traversal of the <=8-wide BVH: one thread per ray,
-// depth-first, with the node stack in shared memory.
+// depth-first with a per-thread node stack.
 //
 // Replaces the TPU kernel cuda_raytracer_tpu/ops/pallas/packet_dfs.py
 // (_dfs_kernel, launched by trace_closest_packets).  That kernel walks one
@@ -32,46 +32,18 @@
 //     slots (the shared packed_prim_test computes both halves, three IEEE
 //     divisions and a square root per slot); tri_test and sph_test keep
 //     its op order, so every result rounds as before;
-//   * the stack lives in shared memory, laid out [entry][thread] so the
-//     threads of a warp hit distinct banks, and is sized by the caller
-//     from the tree ((W - 1) * D + 1 entries for depth D);
 //   * each thread loops over node visits until one hits a leaf child, then
 //     runs that node's leaf jobs ("while-while", Aila & Laine,
 //     "Understanding the Efficiency of Ray Traversal on GPUs", HPG 2009):
 //     the threads of a warp that wait do so in the cheap loop, and the
 //     leaf jobs, the costly part, run with the warp's lanes together.  A
 //     thread's own order of visits and leaf jobs is the one above;
-//   * the order is the slot order: nearest-first descent with culling
-//     (below) visits fewer nodes, but the lanes of a warp then walk the
-//     children in different orders, and on the frame's traces it reads
-//     slower (PERF.md, PR 3);
-//   * closest-hit and shadow mode are separate instantiations, and so are
-//     trees of width <= 4 and <= 8 (the per-child loops unroll and the
-//     near-first ranks stay in registers).
+//   * the stack is a per-thread array of STACK_CAP entries, of which the
+//     caller uses what the tree can need ((W - 1) * D + 1 for depth D);
+//   * trees of width <= 4 and <= 8 are separate instantiations, so the
+//     per-child loops unroll to the width.
 // Built with -fmad=false and without --use_fast_math: IEEE division and
 // sqrt, no FMA contraction, so it rounds as the plain PyTorch version.
-//
-// Build-time switches let tools/torch_dfs_levers.py time each lever on
-// and off on the same rays (the shipped build defines none of these).
-// Back to the first design:
-//   DFS_BOTH_HALVES - every slot, pads included, through packed_prim_test;
-//   DFS_LOCAL_STACK - the stack in per-thread arrays (local memory);
-//   DFS_ONE_MODE    - one instantiation per width, shadow mode a runtime
-//                     flag;
-//   DFS_IF_IF       - one loop trip per visit and its leaf jobs.
-// Levers measured and not kept (t is unchanged with any of them; the prim
-// at a bit-equal t may differ):
-//   DFS_NEAR_FIRST  - hit inner children pushed in order of decreasing tn
-//                     (equal tn in decreasing slot), leaf jobs nearest
-//                     first;
-//   DFS_CULL        - each stack entry keeps its tn and is dropped on pop
-//                     once tn > tub (exact: child boxes lie inside their
-//                     parent's and the slab arithmetic is monotone), and a
-//                     leaf job runs only while its tn <= tub;
-//   DFS_MIN_BLOCKS=8 - at most 64 registers a thread;
-//   DFS_PERSISTENT  - one resident grid whose warps fetch fresh rays from
-//                     a global counter once half their lanes are done
-//                     (Aila & Laine).
 
 #include "rt_common.cuh"
 
@@ -81,12 +53,6 @@
 
 #define MAX_VISITS (1 << 20)
 #define DFS_BLOCK 128
-// the second argument of __launch_bounds__: blocks that must fit an SM
-// (8 caps a thread at 64 registers)
-#ifndef DFS_MIN_BLOCKS
-#define DFS_MIN_BLOCKS 1
-#endif
-#define FULL_MASK 0xffffffffu
 
 // the BVH as the kernel reads it: nodes [8*Nd, 8] as float4 pairs (mnx mny
 // mnz mxx)(mxy mxz grp0 ngroups); prims [8*G, 16] as float4 quads (g.xyz
@@ -98,38 +64,32 @@ struct Tables {
   int width;
 };
 
-// one thread's stack: entry k is node[k * stride], its tn tn[k * stride]
-struct Stack {
-  int* node;
-  float* tn;
-  int stride;
-  int cap;
-};
-
 template <int WMAX>
 struct DfsRay {
   float o_x, o_y, o_z, d_x, d_y, d_z, inv_x, inv_y, inv_z, a_q, kill_lim;
   float tub, best_t, prim;
-  int sp, visits;
-  bool overflow;
-  // the last visited node: its child rows, each child's tn, and the hit
-  // leaf children whose jobs are still to run
+  int sp, visits, cap;
+  bool kill, overflow;
+  int* stack;  // the kernel's local array: a member array would put the
+               // whole struct in local memory
+  // the last visited node's child rows, and its hit leaf children whose
+  // jobs are still to run
   const float4* row;
-  float tn[WMAX];
   unsigned lmask;
 
   __device__ __forceinline__ void start(int i, const float* __restrict__ o,
                                         const float* __restrict__ d,
                                         const bool* __restrict__ valid,
                                         const float* __restrict__ t_limit,
-                                        bool kill, float kill_eps,
-                                        const Stack& s) {
+                                        float kill_eps, int* stack_mem,
+                                        int stack_cap) {
     o_x = o[3 * i];
     o_y = o[3 * i + 1];
     o_z = o[3 * i + 2];
     d_x = d[3 * i];
     d_y = d[3 * i + 1];
     d_z = d[3 * i + 2];
+    kill = t_limit != nullptr;
     const float tub0 = !valid[i] ? -1.0f
                                  : (kill ? nan_min(t_limit[i], T_NO_LIMIT)
                                          : T_NO_LIMIT);
@@ -143,15 +103,11 @@ struct DfsRay {
     prim = -1.0f;
     sp = 0;
     visits = 0;
+    stack = stack_mem;
+    cap = stack_cap;
     overflow = false;
     lmask = 0;
-    if (tub0 >= 0.0f) {
-      s.node[0] = 0;
-#ifdef DFS_CULL
-      s.tn[0] = -__int_as_float(0x7f800000);  // the root is never dropped
-#endif
-      sp = 1;
-    }
+    if (tub0 >= 0.0f) stack[sp++] = 0;
   }
 
   __device__ __forceinline__ bool traversing() const {
@@ -159,8 +115,7 @@ struct DfsRay {
   }
 
   // one leaf job: the prims of leaf child w of the node at `row`
-  __device__ __forceinline__ void leaf_job(const Tables& tb, int w,
-                                           bool kill) {
+  __device__ __forceinline__ void leaf_job(const Tables& tb, int w) {
     const float4 b = row[2 * w + 1];
     const int grp0 = (int)b.z, ngroups = (int)b.w;
     float job_t = T_NO_LIMIT, job_p = -1.0f;
@@ -172,20 +127,14 @@ struct DfsRay {
 #pragma unroll
       for (int s = 0; s < 8; ++s) {
         const float4 TI = rec[4 * s + 3];
-        float t;
-#ifdef DFS_BOTH_HALVES
-        const bool ok =
-            packed_prim_test(o_x, o_y, o_z, d_x, d_y, d_z, rec[4 * s],
-                             rec[4 * s + 1], rec[4 * s + 2], TI.x, &t);
-#else
         if (TI.x < -0.5f) continue;  // pad slot: no test
         const float4 G = rec[4 * s];
+        float t;
         const bool ok =
             TI.x > 0.5f
                 ? sph_test(o_x, o_y, o_z, d_x, d_y, d_z, a_q, G, &t)
                 : tri_test(o_x, o_y, o_z, d_x, d_y, d_z, G, rec[4 * s + 1],
                            rec[4 * s + 2], &t);
-#endif
         if (!ok) continue;
         if (t < tbest) {
           tbest = t;
@@ -207,103 +156,54 @@ struct DfsRay {
     if (kill && prim >= 0.0f && best_t < kill_lim) tub = -1.0f;
   }
 
-  // pop one entry and visit it (with DFS_CULL: or drop it): box tests and
-  // pushes; the hit leaf children are left in lmask
-  __device__ __forceinline__ void visit(const Tables& tb, const Stack& s) {
-    --sp;
-    const int node = s.node[sp * s.stride];
-#ifdef DFS_CULL
-    if (s.tn[sp * s.stride] > tub) return;
-#endif
+  // pop one node and visit it: box tests and pushes; the hit leaf children
+  // are left in lmask
+  __device__ __forceinline__ void visit(const Tables& tb) {
+    const int node = stack[--sp];
     const int2 m = reinterpret_cast<const int2*>(tb.meta)[2 * node];
     const int ibase = m.x, icnt = m.y;
     row = tb.nodes + 2 * (8 * node);
     unsigned mask = 0;
 #pragma unroll
     for (int w = 0; w < WMAX; ++w) {
-      tn[w] = 0.0f;
       if (w < tb.width) {
         const float4 a = row[2 * w], b = row[2 * w + 1];
         const float t0x = (a.x - o_x) * inv_x, t1x = (a.w - o_x) * inv_x;
         const float t0y = (a.y - o_y) * inv_y, t1y = (b.x - o_y) * inv_y;
         const float t0z = (a.z - o_z) * inv_z, t1z = (b.y - o_z) * inv_z;
-        tn[w] = nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)),
-                        nan_min(t0z, t1z));
+        const float tn =
+            nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)),
+                    nan_min(t0z, t1z));
         const float tf =
             nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)),
                     nan_max(t0z, t1z));
-        if ((tn[w] <= tf) && (tf >= 0.0f) && (tn[w] <= tub)) mask |= 1u << w;
+        if ((tn <= tf) && (tf >= 0.0f) && (tn <= tub)) mask |= 1u << w;
       }
     }
-    // inner children: a child's place is the number of hit inner children
-    // pushed before it (later slots; with DFS_NEAR_FIRST farther ones, or
-    // as near and in a later slot)
+    // inner children, reverse slot order: a child's place is the number of
+    // hit inner children in later slots
     const unsigned below = (1u << icnt) - 1u;
     const unsigned imask = mask & below;
-    if (imask) {
 #pragma unroll
-      for (int w = 0; w < WMAX; ++w) {
-        if (!((imask >> w) & 1u)) continue;
-        int rank = 0;
-#pragma unroll
-        for (int v = 0; v < WMAX; ++v) {
-#ifdef DFS_NEAR_FIRST
-          if (v != w && ((imask >> v) & 1u) &&
-              (tn[v] > tn[w] || (tn[v] == tn[w] && v > w)))
-            ++rank;
-#else
-          if (((imask >> v) & 1u) && v > w) ++rank;
-#endif
-        }
-        const int pos = sp + rank;
-        if (pos < s.cap) {
-          s.node[pos * s.stride] = ibase + w;
-#ifdef DFS_CULL
-          s.tn[pos * s.stride] = tn[w];
-#endif
-        } else {
-          overflow = true;
-        }
+    for (int w = WMAX - 1; w >= 0; --w) {
+      if (!((imask >> w) & 1u)) continue;
+      if (sp < cap) {
+        stack[sp++] = ibase + w;
+      } else {
+        overflow = true;
       }
-      sp = min(sp + __popc(imask), s.cap);
     }
     lmask = mask & ~below;
     ++visits;
   }
 
-  // the leaf jobs of the last visit, in slot order (DFS_NEAR_FIRST:
-  // nearest first; DFS_CULL: each while it starts within the bound).
-  // leaf_job is inlined at this one place only: its code is most of the
-  // kernel's
-  __device__ __forceinline__ void leaves(const Tables& tb, bool kill) {
+  // the leaf jobs of the last visit, in slot order.  leaf_job is inlined
+  // at this one place only: its code is most of the kernel's
+  __device__ __forceinline__ void leaves(const Tables& tb) {
     while (lmask && tub >= 0.0f) {
-      int w = 0;
-      float tw = 0.0f;
-      bool none = true;
-#pragma unroll
-      for (int v = 0; v < WMAX; ++v) {
-#ifdef DFS_NEAR_FIRST
-        const bool nearer = tn[v] < tw;
-#else
-        const bool nearer = false;  // the lowest slot left
-#endif
-        if (((lmask >> v) & 1u) && (none || nearer)) {
-          w = v;
-          tw = tn[v];
-          none = false;
-        }
-      }
-      lmask &= ~(1u << w);
-#ifdef DFS_CULL
-      if (tw > tub) {
-#ifdef DFS_NEAR_FIRST
-        break;  // and so do the leaves left, all farther
-#else
-        continue;
-#endif
-      }
-#endif
-      leaf_job(tb, w, kill);
+      const int w = __ffs(lmask) - 1;
+      lmask &= lmask - 1u;
+      leaf_job(tb, w);
     }
     lmask = 0;
   }
@@ -318,135 +218,37 @@ struct DfsRay {
   }
 };
 
-// the calling thread's stack in dynamic shared memory: the node ids of
-// every thread, then (DFS_CULL) their tn
-__device__ __forceinline__ Stack shared_stack(int stack_cap) {
-  extern __shared__ int s_stack[];
-  return Stack{s_stack + threadIdx.x,
-               reinterpret_cast<float*>(s_stack + stack_cap * DFS_BLOCK) +
-                   threadIdx.x,
-               DFS_BLOCK, stack_cap};
-}
-
-#ifdef DFS_ONE_MODE
-#define DFS_KILL (t_limit != nullptr)
-#else
-#define DFS_KILL KILL
-#endif
-
-// o, d [n, 3]; valid [n]; t_limit [n] (shadow mode only).  t [n] (inf on a
-// miss), prim [n] (-1 on a miss), counters[0]: dropped rays, counters[1]:
-// the next ray to fetch (DFS_PERSISTENT).  Dynamic shared memory:
-// stack_cap * DFS_BLOCK ints (and, with DFS_CULL, as many floats).
-template <int WMAX, bool KILL>
-__global__ void __launch_bounds__(DFS_BLOCK, DFS_MIN_BLOCKS)
+// o, d [n, 3]; valid [n]; t_limit [n] (shadow mode) or null (closest-hit
+// mode).  t [n] (inf on a miss), prim [n] (-1 on a miss), dropped: one
+// counter.  Each ray's stack holds stack_cap entries.
+template <int WMAX>
+__global__ void __launch_bounds__(DFS_BLOCK)
 dfs_kernel(const float* __restrict__ o, const float* __restrict__ d,
            const bool* __restrict__ valid, const float* __restrict__ t_limit,
            Tables tb, float* __restrict__ t_out, int* __restrict__ prim_out,
-           unsigned long long* __restrict__ counters, int n, int stack_cap,
+           unsigned long long* __restrict__ dropped, int n, int stack_cap,
            float kill_eps) {
-#ifdef DFS_LOCAL_STACK
-  int local_node[STACK_CAP];
-  float local_tn[STACK_CAP];
-  const Stack s{local_node, local_tn, 1, stack_cap};
-#else
-  const Stack s = shared_stack(stack_cap);
-#endif
-  DfsRay<WMAX> r;
-#ifdef DFS_PERSISTENT
-  // lanes without a ray fetch fresh ones together once half the warp is
-  // idle; the warp leaves when the counter is spent and no lane traces
-  int* next = reinterpret_cast<int*>(counters + 1);
-  const int lane = threadIdx.x & 31;
-  int i = -1;
-  bool more = true;  // the same in every lane of the warp
-  while (true) {
-    const unsigned idle = __ballot_sync(FULL_MASK, i < 0);
-    if (!more && idle == FULL_MASK) break;
-    if (more && __popc(idle) >= 16) {
-      int base = 0;
-      if (lane == 0) base = atomicAdd(next, __popc(idle));
-      base = __shfl_sync(FULL_MASK, base, 0);
-      more = base + __popc(idle) < n;
-      if (i < 0) {
-        const int k = base + __popc(idle & ((1u << lane) - 1u));
-        if (k < n) {
-          r.start(k, o, d, valid, t_limit, DFS_KILL, kill_eps, s);
-          if (r.traversing()) {
-            i = k;
-          } else {
-            r.finish(k, t_out, prim_out, counters);
-          }
-        }
-      }
-    }
-    if (i >= 0) {
-      r.visit(tb, s);
-      r.leaves(tb, DFS_KILL);
-      if (!r.traversing()) {
-        r.finish(i, t_out, prim_out, counters);
-        i = -1;
-      }
-    }
-  }
-#else
   const int i = blockIdx.x * DFS_BLOCK + threadIdx.x;
   if (i >= n) return;
-  r.start(i, o, d, valid, t_limit, DFS_KILL, kill_eps, s);
+  int stack[STACK_CAP];
+  DfsRay<WMAX> r;
+  r.start(i, o, d, valid, t_limit, kill_eps, stack, stack_cap);
   while (r.traversing()) {
-#ifdef DFS_IF_IF
-    r.visit(tb, s);
-#else
     do {
-      r.visit(tb, s);
+      r.visit(tb);
     } while (!r.lmask && r.traversing());
-#endif
-    r.leaves(tb, DFS_KILL);
+    r.leaves(tb);
   }
-  r.finish(i, t_out, prim_out, counters);
-#endif
+  r.finish(i, t_out, prim_out, dropped);
 }
 
-template <int WMAX, bool KILL>
-static void launch(const float* o, const float* d, const bool* valid,
-                   const float* t_limit, const Tables& tb, float* t_out,
-                   int* prim_out, unsigned long long* counters, int n,
-                   int stack_cap, float kill_eps, cudaStream_t st) {
-#ifdef DFS_LOCAL_STACK
-  const int smem = 0;
-#elif defined(DFS_CULL)
-  const int smem = stack_cap * DFS_BLOCK * 8;
-#else
-  const int smem = stack_cap * DFS_BLOCK * 4;
-#endif
-#ifndef DFS_LOCAL_STACK
-  if (smem > 48 * 1024)  // above the default, by opt-in
-    cudaFuncSetAttribute(dfs_kernel<WMAX, KILL>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-#endif
-  int grid = (n + DFS_BLOCK - 1) / DFS_BLOCK;
-#ifdef DFS_PERSISTENT
-  int dev = 0, sms = 132, per_sm = 1;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, dfs_kernel<WMAX, KILL>, DFS_BLOCK, smem);
-  if (per_sm < 1) per_sm = 1;
-  if (grid > sms * per_sm) grid = sms * per_sm;
-#endif
-  dfs_kernel<WMAX, KILL><<<grid, DFS_BLOCK, smem, st>>>(
-      o, d, valid, t_limit, tb, t_out, prim_out, counters, n, stack_cap,
-      kill_eps);
-}
-
-// t_limit null: closest-hit mode; else shadow mode.  stack_cap: entries of
-// each ray's stack, 1..STACK_CAP.  counters: two int64, zeroed by the
-// caller.
+// stack_cap: entries of each ray's stack, 1..STACK_CAP.  dropped: one
+// int64, zeroed by the caller.
 extern "C" int packet_dfs_trace(const void* o, const void* d,
                                 const void* valid, const void* t_limit,
                                 const void* nodes, const void* prims,
                                 const void* meta, void* t_out,
-                                void* prim_out, void* counters, int n,
+                                void* prim_out, void* dropped, int n,
                                 int width, int stack_cap, float kill_eps,
                                 void* stream) {
   if (width < 1 || width > 8 || stack_cap < 1 || stack_cap > STACK_CAP)
@@ -454,19 +256,14 @@ extern "C" int packet_dfs_trace(const void* o, const void* d,
   if (n > 0) {
     const Tables tb{(const float4*)nodes, (const float4*)prims,
                     (const int*)meta, width};
-#ifdef DFS_ONE_MODE
-    const bool kill = false;  // the kernel reads the mode from t_limit
-#else
-    const bool kill = t_limit != nullptr;
-#endif
+    const int grid = (n + DFS_BLOCK - 1) / DFS_BLOCK;
 #define DFS_ARGS (const float*)o, (const float*)d, (const bool*)valid, \
                  (const float*)t_limit, tb, (float*)t_out, (int*)prim_out, \
-                 (unsigned long long*)counters, n, stack_cap, kill_eps, \
-                 (cudaStream_t)stream
+                 (unsigned long long*)dropped, n, stack_cap, kill_eps
     if (width <= 4) {
-      if (kill) launch<4, true>(DFS_ARGS); else launch<4, false>(DFS_ARGS);
+      dfs_kernel<4><<<grid, DFS_BLOCK, 0, (cudaStream_t)stream>>>(DFS_ARGS);
     } else {
-      if (kill) launch<8, true>(DFS_ARGS); else launch<8, false>(DFS_ARGS);
+      dfs_kernel<8><<<grid, DFS_BLOCK, 0, (cudaStream_t)stream>>>(DFS_ARGS);
     }
 #undef DFS_ARGS
   }

@@ -4,8 +4,8 @@ The port of ``cuda_raytracer_tpu/ops/pallas/packet_dfs.py``.  The TPU
 kernel (``_dfs_kernel``) walks one depth-first traversal per packet of
 1024 rays with union descent, because the TPU's vector unit wants 1024
 lanes in lockstep.  Its Hopper counterpart (ops/csrc/packet_dfs.cu)
-walks one per ray: one thread per ray, children in slot order, its node
-stack in shared memory, each prim tested by its own type.  Both return
+walks one per ray: one thread per ray, children in slot order, a node
+stack per thread, each prim tested by its own type.  Both return
 the closest hit and, for shadow rays, the same pass/fail decision; the
 .cu file's header lists the semantics.
 
@@ -41,8 +41,8 @@ from .intersect import packed_prim_test
 C = 1024
 #: finite "no limit" initial bound (must not be inf: inf*0 = nan)
 T_NO_LIMIT = 1e30
-#: the most stack entries per ray the kernel takes (its shared-memory
-#: stack holds ``stack`` of them per thread, ``stack`` <= STACK_CAP); the
+#: the most stack entries per ray the kernel takes (each thread's stack
+#: array has this many; a trace uses ``stack`` <= STACK_CAP of them); the
 #: kernel is built with the same value.  An overflow is counted in
 #: ``dropped``, never written past
 STACK_CAP = 64
@@ -51,7 +51,7 @@ MAX_VISITS = 1 << 20
 #: kernel launches since the count was last set to 0
 launches = 0
 
-_libs = {}
+_lib = None
 
 
 class WaveTraceResult(NamedTuple):
@@ -60,22 +60,20 @@ class WaveTraceResult(NamedTuple):
     dropped: torch.Tensor  # 0-d int64: live rays cut off (visit cap/stack)
 
 
-def _load_library(switches=()):
+def _load_library():
     """Build ops/csrc/packet_dfs.cu at first use and load it.  Raises if
-    nvcc fails; there is no fallback.  ``switches``: the .cu file's
-    measurement switches (``DFS_NEAR_FIRST`` ...) to build with; the
-    port never passes any."""
-    key = tuple(switches)
-    if key not in _libs:
-        lib = load_library("packet_dfs", build_defines() + key)
+    nvcc fails; there is no fallback."""
+    global _lib
+    if _lib is None:
+        lib = load_library("packet_dfs", build_defines())
         fn = lib.packet_dfs_trace
         fn.argtypes = [ctypes.c_void_p] * 10 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        _libs[key] = lib
-    return _libs[key]
+        _lib = lib
+    return _lib
 
 
 def build_defines():
@@ -148,13 +146,12 @@ def dfs_trace_cuda(o, d, valid, t_limit, node_rows, prim_rows, meta,
     n = o.shape[0]
     t = torch.empty((n,), dtype=torch.float32, device=o.device)
     prim = torch.empty((n,), dtype=torch.int32, device=o.device)
-    # dropped rays, and the ray counter of the kernel's persistent variant
-    counters = torch.zeros((2,), dtype=torch.int64, device=o.device)
+    dropped = torch.zeros((), dtype=torch.int64, device=o.device)
     err = lib.packet_dfs_trace(
         o.data_ptr(), d.data_ptr(), valid.data_ptr(),
         None if t_limit is None else t_limit.data_ptr(),
         node_rows.data_ptr(), prim_rows.data_ptr(), meta.data_ptr(),
-        t.data_ptr(), prim.data_ptr(), counters.data_ptr(), n, width,
+        t.data_ptr(), prim.data_ptr(), dropped.data_ptr(), n, width,
         int(stack), float(kill_eps),
         torch.cuda.current_stream(o.device).cuda_stream,
     )
@@ -162,7 +159,7 @@ def dfs_trace_cuda(o, d, valid, t_limit, node_rows, prim_rows, meta,
         raise RuntimeError(f"packet_dfs kernel launch failed: cuda error {err}")
     if n:  # the C side launches nothing for an empty batch
         launches += 1
-    return t, prim, counters[0]
+    return t, prim, dropped
 
 
 def dfs_trace_plain(o, d, valid, t_limit, node_rows, prim_rows, meta,
