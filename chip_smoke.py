@@ -17,21 +17,31 @@ prints one JSON line for the kernels and, last, the device line.  Phases:
    decisions equal, dropped == 0; kernel, plain and bound times; and the
    partition kernel (ray form and payload form), the count and pack
    kernels and the whole wavefront trace on the same rays, as in phase 3;
+   then the wavefront kernels and trace on the same kind of ray sets of
+   terrain n=121 at tree width 8 and of terrain n=40 under
+   max_leaf_size=64, whose segments with more leaf prims than the pack
+   kernel stages in shared memory read them from global memory;
 3. the main path at full size: the fast preset as shipped (packet-DFS at
    depths 0-1, the compacted wavefront at the roulette depths 2-3),
    800x600, depth 4, NEE 1x1.0 per depth — run A is bench.py's
    configuration and procedural scene (Cornell box with spheres, one
    leaf: 2 frames of 32 spp), run B terrain n=121 seen from above so it
    fills the frame (1 frame of 32 spp; six wavefront levels); the launch
-   counts of all four kernels must equal what the scene's schedule
-   gives (the payload form of the partition is off the main path: 0).
-   Then run B once more with traversal_rr="dfs" (every trace through
-   packet-DFS), for the two frame times side by side.  Then every kernel
-   against its plain version on the runs' own traces: the DFS kernel on
-   15,360,000-lane traces; both partition forms, and the count and pack
-   kernels level by level, on run B's depth-2 closest-hit and shadow
-   traces; and the whole wavefront trace against the DFS kernel on the
-   same rays;
+   counts of all six kernels must equal what the scene's schedule
+   gives (the payload form of the partition is off the main path: 0;
+   one count per wavefront trace, on its level-0 queue, since each pack
+   counts the level after it).  Then run B once more with
+   traversal_rr="dfs" (every trace through packet-DFS), for the two
+   frame times side by side.  Then every kernel against its plain
+   version on the runs' own traces: the DFS kernel on 15,360,000-lane
+   traces; both partition forms on run A's and run B's depth-2 traces;
+   the count and pack kernels level by level (counts, keys, cursors, the
+   next level's counts and each kernel's region plan exact, the next
+   queue as sets per region) on run B's depth-2 closest-hit and shadow
+   traces, run A's depth-2 closest-hit trace and run B's 15,360,000
+   camera rays (all live, six levels); the whole wavefront trace against
+   the DFS kernel on the same rays; and the decode kernel on two
+   traces' 15,360,000 keys;
 4. the same small frames on the card and on the CPU, per pixel: the
    Cornell box, and terrain n=8 under max_leaf_size=4 (three levels).
 
@@ -94,19 +104,30 @@ def smi_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, reps: int) -> float:
+def cuda_time_ms(fn, reps: int, prep=None) -> float:
+    """Device time of fn() per call: CUDA events around each call, behind
+    a device sleep long enough for the host to queue every call, so no
+    host gap between launches is timed.  prep() (not timed) runs before
+    each call."""
     import torch
 
+    if prep is not None:
+        prep()
     fn()  # warm
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
+    torch.cuda._sleep(20_000_000)
+    evs = []
     for _ in range(reps):
+        if prep is not None:
+            prep()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
         fn()
-    b.record()
+        b.record()
+        evs.append((a, b))
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+    return sum(a.elapsed_time(b) for a, b in evs) / reps
 
 
 def fast_config(**over):
@@ -126,7 +147,11 @@ COUNTERS = {
     "partition": ("partition", "launches"),
     "wf2_count": ("wavefront2", "count_launches"),
     "wf2_pack": ("wavefront2", "pack_launches"),
+    "wf2_decode": ("wavefront2", "decode_launches"),
 }
+#: leaf prims a pack block stages in shared memory (WF_STAGE_PRIMS of
+#: ops/csrc/wavefront2.cu); a segment with more reads them from global
+WF_STAGE_PRIMS = 128
 #: kernels the main path does not launch (the partition's payload form,
 #: kept for whole-depth compaction); held on the card all the same
 OFF_PATH = ("partition",)
@@ -172,10 +197,10 @@ def phase_setup():
             print(f"[setup] ptxas, {name}.cu: {line}")
 
 
-def terrain_ray_set(dev):
-    """262,144 rays on terrain n=121: camera rays of the slice, random
-    incoherent rays and invalid lanes (closest-hit set), plus shadow
-    rays from the camera hits toward the area light."""
+def terrain_ray_set(dev, n=121, **over):
+    """262,144 rays on terrain n (fast_config(**over)): camera rays of
+    the slice, random incoherent rays and invalid lanes (closest-hit
+    set), plus shadow rays from the camera hits toward the area light."""
     import numpy as np
     import torch
 
@@ -185,8 +210,8 @@ def terrain_ray_set(dev):
     from cuda_raytracer_tpu_torch.ops import shade as S
     from cuda_raytracer_tpu_torch.render.engine import WavefrontRenderer
 
-    r = WavefrontRenderer(fast_config(), device=dev)
-    r.load_static_scene(terrain_scene(n=121))
+    r = WavefrontRenderer(fast_config(**over), device=dev)
+    r.load_static_scene(terrain_scene(n=n))
     r.setup()
     scene = r.scene
     n_cam, n_inv = N_RAYS // 2, N_RAYS // 32
@@ -318,6 +343,20 @@ def phase_kernel(dev):
         measure_partition(label, rays)
         measure_wavefront(label, scene, rays)
         compare_traces(label, scene, rays)
+    # the widest tree the kernels take, and segments whose leaf prims do
+    # not fit the pack kernel's staging buffer (terrain n=40 under
+    # max_leaf_size=64: 14 segments of its level 2)
+    for tag, n, over in (("W=8 terrain", 121, dict(tree_width=8)),
+                         ("terrain n=40, max_leaf_size=64", 40,
+                          dict(max_leaf_size=64))):
+        scene_x, closest_x, shadow_x = terrain_ray_set(dev, n, **over)
+        for label, rays in ((f"{tag} closest-hit", closest_x),
+                            (f"{tag} shadow", shadow_x)):
+            got = measure_wavefront(label, scene_x, rays)
+            compare_traces(label, scene_x, rays)
+            if "max_leaf_size" in over:
+                check(got["n_global"] > 0, f"{label}: no segment read its "
+                      f"leaf prims from global memory")
     return max(a["max_abs_err"], b["max_abs_err"])
 
 
@@ -326,12 +365,13 @@ def expected_launches(r, frames):
     config's pass classes and the scene's wavefront schedule: a depth
     makes one closest-hit trace and one shadow trace per NEE sample and
     light; a DFS trace is one launch; a wavefront trace is one
-    partition, one pack per level it visits and one count per level
-    that has inner children."""
+    partition, one count if it has a level with inner children (the
+    level-0 queue's: each pack counts the level after it), one pack per
+    level it visits and one decode of the keys."""
     cfg, bvh = r.config, r.scene.bvh
     inner = [lv.has_inner for lv in bvh.wf_levels]
     n_pack = inner.index(False) + 1 if False in inner else len(inner)
-    n_count = sum(inner[:n_pack])
+    n_count = int(inner[0])
     want = dict.fromkeys(COUNTERS, 0)
     for depth in range(cfg.max_depth):
         num_nee = (cfg.nee_schedule[depth][0]
@@ -350,6 +390,7 @@ def expected_launches(r, frames):
                                        else 0)
             want["wf2_pack"] += traces * n_pack
             want["wf2_count"] += traces * n_count
+            want["wf2_decode"] += traces
     return {k: v * frames for k, v in want.items()}
 
 
@@ -528,14 +569,47 @@ def _sorted_regions(queue, seg_base, total):
     return queue[:total][torch.argsort(region * (1 << 32) + rid)]
 
 
+def _plan_tensors(n_slots, n_next):
+    import torch
+
+    from cuda_raytracer_tpu_torch.ops import wavefront2 as wf
+
+    def z(k):
+        return torch.full((k,), -7, dtype=torch.int32, device=DEVICE)
+
+    return wf.Plan(z(n_next + 1), z(n_next + 1), z(n_slots), z(n_next))
+
+
+def _check_plan(where, plan, counts, lv, cap):
+    """A region plan a kernel's last block made against plan_regions and
+    tile_prefix of the same counts: every word equal.  Returns the
+    entries it lost."""
+    from cuda_raytracer_tpu_torch.ops import wavefront2 as wf
+
+    sb, route, cursor, lost = wf.plan_regions(counts, lv, cap)
+    bad = sum(int((a != b).sum()) for a, b in (
+        (plan.seg_base, sb), (plan.route, route), (plan.cursor, cursor),
+        (plan.tile_base, wf.tile_prefix(sb))))
+    check(bad == 0, f"{where}: the kernel's region plan differs from "
+          f"plan_regions in {bad} words")
+    return int(lost)
+
+
 def measure_wavefront(label, scene, rays):
     """The count and pack kernels against their plain versions, level by
-    level, on one captured trace (compacted, as the main path runs it):
-    counts equal exactly; after pack the ray keys (hits) equal to the
-    bit, the region cursors equal, and the next queue equal as a set of
-    entries per region (ranks come from atomic cursors, so both sides
-    are sorted by ray id within a region first).  Every level is timed;
-    the level with the most entries gives the JSON line's numbers."""
+    level, on one captured trace (compacted, as the main path runs it,
+    and with fused counts: each pack counts the next level and plans
+    it).  At every level with inner children the count kernel runs too
+    (the main path runs it on the level-0 queue only): counts exact, and
+    equal to what the previous pack counted for this level.  After each
+    kernel its region plan (seg_base, tile_base, cursors, route) equals
+    plan_regions of the plain counts, word for word.  After pack the ray
+    keys (hits) equal to the bit, the region cursors and the next
+    level's counts exact, and the next queue equal as a set of entries
+    per region (ranks come from atomic cursors, so both sides are sorted
+    by ray id within a region first).  Every level is timed.  Returns
+    the level-0 row (count on the main path), the row of the inner level
+    with the most entries, the sums and the final keys."""
     import torch
 
     from cuda_raytracer_tpu_torch.ops import partition
@@ -543,29 +617,50 @@ def measure_wavefront(label, scene, rays):
 
     bvh = scene.bvh
     W = bvh.width
+    levels = bvh.wf_levels
     node_rows, prim_rows = bvh.wf_node_rows, scene.wf_prim_rows
+    row_bytes = node_rows.shape[1] * 4
     do_kill = rays[3] is not None
     n = rays[0].shape[0]
     cap = wf.queue_capacity(n + (-n) % wf.CHUNK, 2, bvh.wf_sched)
     queue, n_live = partition.partition_rays_cuda(
         *(None if x is None else x.contiguous() for x in rays))
-    seg_base = torch.stack([torch.zeros_like(n_live), n_live])
+    zero = torch.zeros_like(n_live)
+    seg_base = torch.stack([zero, n_live]).reshape(2)
+    tile_base = torch.stack([zero, torch.div(
+        n_live + wf.TILE - 1, wf.TILE, rounding_mode="floor")]).reshape(2)
     keys = torch.full((n,), wf.KEY_MISS, dtype=torch.int64, device=DEVICE)
-    dropped = torch.zeros((), dtype=torch.int64, device=DEVICE)
+
+    def zeros(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=DEVICE)
+
     bound = n
-    best = None
+    plan = None  # this level's regions, once a pack has planned them
+    counted = None  # this level's counts, as the previous pack made them
+    rows, best, n_global = [], None, 0
     sums = dict(count_ms=0.0, pack_ms=0.0, count_plain=0.0, pack_plain=0.0,
                 count_bound=0.0, pack_bound=0.0)
-    for lvl, lv in enumerate(bvh.wf_levels):
-        total = int(seg_base[-1])
-        # the level's schedule and the table rows it refers to, once each:
-        # one node row per segment, 64 B per prim of its leaf children
-        tables = (_nbytes(seg_base, lv.seg_node, lv.child)
-                  + lv.num_segs * node_rows.shape[1] * 4)
-        leaf_prims = int(lv.child[lv.child[:, 0] == 2, 2].sum())
-        row = dict(level=lvl, entries=total)
+    for lvl, lv in enumerate(levels):
+        total, tiles = int(seg_base[-1]), int(tile_base[-1])
+        # the level's schedule and the table rows it refers to, once
+        # each: one node row per segment, 64 B per prim of its leaf
+        # children
+        tables = (_nbytes(seg_base, tile_base, lv.seg_node, lv.child)
+                  + lv.num_segs * row_bytes)
+        leaf = torch.where(lv.child[:, 0] == 2, lv.child[:, 2], 0)
+        leaf_prims = int(leaf.sum())
+        over = int((leaf.view(-1, W).sum(1) > WF_STAGE_PRIMS).sum())
+        n_global += over
+        nxt = levels[lvl + 1] if lv.has_inner else None
+        fuse = nxt is not None and nxt.has_inner
+        row = dict(level=lvl, entries=total, idle=tiles * wf.TILE - total)
         if lv.has_inner:
-            counts = wf.count_cuda(queue, seg_base, lv, node_rows, W, bound)
+            counts, ticket, drop_c = zeros(lv.num_segs * W), zeros(1), \
+                zeros(dtype=torch.int64)
+            plan_c = _plan_tensors(lv.num_segs * W, lv.num_next)
+            cargs = (queue, seg_base, tile_base, lv, node_rows, W, bound,
+                     counts, plan_c, cap, drop_c, ticket)
+            wf.count_cuda(*cargs)
             cstats = {}
             counts_p, row["count_plain_ms"] = _host_ms(
                 lambda: wf.count_plain(queue, seg_base, lv, node_rows, W,
@@ -574,78 +669,116 @@ def measure_wavefront(label, scene, rays):
             check(row["count_err"] == 0,
                   f"count, {label} level {lvl}: kernel disagrees with its "
                   f"plain version")
-            row["count_ms"] = cuda_time_ms(
-                lambda: wf.count_cuda(queue, seg_base, lv, node_rows, W,
-                                      bound), 5)
-            # entries, schedule and node rows read once, counts written
+            lost = _check_plan(f"count, {label} level {lvl}", plan_c,
+                               counts_p, lv, cap)
+            check(lost == 0 and int(drop_c) == 0 and int(ticket) == 0,
+                  f"count, {label} level {lvl}: lost {lost}, dropped "
+                  f"{int(drop_c)}, ticket {int(ticket)}")
+            if counted is not None:
+                check(torch.equal(counted, counts_p),
+                      f"pack, {label} level {lvl - 1}: its counts of this "
+                      f"level differ from the count of the queue it wrote")
+            else:
+                plan = plan_c
+            row["count_ms"] = cuda_time_ms(lambda: wf.count_cuda(*cargs), 5,
+                                           prep=counts.zero_)
+            # entries, schedule and node rows read once; counts and the
+            # plan written
             row["count_bound"] = _bound(
-                total * 32 + tables + counts.numel() * 4,
+                total * 32 + tables + _nbytes(lv.parent, lv.pair)
+                + counts.numel() * 4 + _nbytes(*plan_c),
                 cstats.get("boxes", 0) * BOX_FLOPS + total * RAY_FLOPS)
-            seg_base_next, route, cursor0, lost = wf.plan_regions(
-                counts, lv, cap)
-            check(int(lost) == 0, f"{label} level {lvl}: queue overflow")
-            total_next = int(seg_base_next[-1])
+            total_next = int(plan.seg_base[-1])
+            route, cursor0 = plan.route, plan.cursor.clone()
         else:
-            seg_base_next, total_next = None, 0
-            route = torch.full((lv.num_segs * W,), -1, dtype=torch.int32,
-                               device=DEVICE)
-            cursor0 = torch.zeros((1,), dtype=torch.int32, device=DEVICE)
-        out_rows = max(total_next, 1)
-        out_k = torch.empty((out_rows, 8), dtype=torch.float32, device=DEVICE)
+            total_next = 0
+            route, cursor0 = lv.pair, zeros(1)
+        out_k = torch.empty((max(total_next, 1), 8), dtype=torch.float32,
+                            device=DEVICE)
         out_p = torch.empty_like(out_k)
         cur_k, cur_p = cursor0.clone(), cursor0.clone()
         keys_k, keys_p = keys.clone(), keys.clone()
+        drop_k, drop_p = zeros(dtype=torch.int64), zeros(dtype=torch.int64)
+        fused, counts_np = None, None
+        if fuse:
+            fused = wf.Fused(nxt, zeros(nxt.num_segs * W),
+                             _plan_tensors(nxt.num_segs * W, nxt.num_next),
+                             cap, zeros(1))
+            counts_np = zeros(nxt.num_segs * W)
 
-        def pack(fn, cur, out, ks, **kw):
-            return fn(queue, seg_base, lv, route, cur, node_rows, prim_rows,
-                      W, do_kill, 1e-3, out, ks, dropped, bound, **kw)
+        def pack(cur, drop):
+            wf.pack_cuda(queue, seg_base, tile_base, lv, route, cur,
+                         node_rows, prim_rows, W, do_kill, 1e-3, out_k,
+                         keys_k, drop, bound, fused)
 
-        pack(wf.pack_cuda, cur_k, out_k, keys_k)
+        pack(cur_k, drop_k)
         pstats = {}
-        _, row["pack_plain_ms"] = _host_ms(
-            lambda: pack(wf.pack_plain, cur_p, out_p, keys_p, stats=pstats))
+        _, row["pack_plain_ms"] = _host_ms(lambda: wf.pack_plain(
+            queue, seg_base, lv, route, cur_p, node_rows, prim_rows, W,
+            do_kill, 1e-3, out_p, keys_p, drop_p, stats=pstats,
+            counts_next=counts_np, lv_next=nxt if fuse else None))
         key_bad = int((keys_k != keys_p).sum())
         cur_bad = int((cur_k != cur_p).sum())
-        q_bad = 0
+        q_bad = cnt_bad = 0
         if total_next:
-            a = _sorted_regions(out_k, seg_base_next, total_next)
-            b = _sorted_regions(out_p, seg_base_next, total_next)
+            a = _sorted_regions(out_k, plan.seg_base, total_next)
+            b = _sorted_regions(out_p, plan.seg_base, total_next)
             q_bad = int((a.view(torch.int32) != b.view(torch.int32)).sum())
-        tk, _ = wf.decode_keys(keys_k)
-        tp, _ = wf.decode_keys(keys_p)
+        if fuse:
+            cnt_bad = int((fused.counts != counts_np).sum())
+        tk, _ = wf.decode_plain(keys_k)
+        tp, _ = wf.decode_plain(keys_p)
         hit = torch.isfinite(tp)
         row["pack_err"] = (float((tk - tp)[hit].abs().max())
                            if bool(hit.any()) else 0.0)
-        check(key_bad == 0 and cur_bad == 0 and q_bad == 0,
+        check(key_bad == 0 and cur_bad == 0 and q_bad == 0 and cnt_bad == 0,
               f"pack, {label} level {lvl}: kernel disagrees with its plain "
               f"version ({key_bad} keys, {cur_bad} cursors, {q_bad} queue "
-              f"words)")
-        check(int(dropped) == 0, f"pack, {label} level {lvl}: dropped")
-        scratch = cursor0.clone()
+              f"words, {cnt_bad} next-level counts)")
+        check(int(drop_k) == 0 and int(drop_p) == 0,
+              f"pack, {label} level {lvl}: dropped")
+        if fuse:
+            lost = _check_plan(f"pack, {label} level {lvl}", fused.plan,
+                               counts_np, nxt, cap)
+            check(lost == 0 and int(fused.ticket) == 0,
+                  f"pack, {label} level {lvl}: lost {lost}, ticket "
+                  f"{int(fused.ticket)}")
+        scratch, drop_t = cursor0.clone(), zeros(dtype=torch.int64)
 
-        def timed_pack():
+        def prep():
             scratch.copy_(cursor0)
-            pack(wf.pack_cuda, scratch, out_k, keys_k)
+            if fuse:
+                fused.counts.zero_()
 
-        row["pack_ms"] = cuda_time_ms(timed_pack, 5)
-        # entries, schedule, node and prim rows read once; survivors, hit
-        # keys and region cursors written
+        row["pack_ms"] = cuda_time_ms(lambda: pack(scratch, drop_t), 5,
+                                      prep=prep)
+        # entries, schedule, node and prim rows read once (and, counting
+        # for the next level, its schedule and node rows); survivors, hit
+        # keys, region cursors (and the next counts and plan) written
+        fused_bytes = 0
+        if fuse:
+            fused_bytes = (_nbytes(nxt.seg_node, nxt.child, nxt.parent,
+                                   nxt.pair, fused.counts, *fused.plan)
+                           + nxt.num_segs * row_bytes)
         row["pack_bound"] = _bound(
             total * 32 + tables + _nbytes(route, cursor0) + leaf_prims * 64
-            + pstats.get("survivors", 0) * 32 + pstats.get("hits", 0) * 8,
-            pstats.get("boxes", 0) * BOX_FLOPS
-            + pstats.get("tris", 0) * TRI_FLOPS
+            + pstats.get("survivors", 0) * 32 + pstats.get("hits", 0) * 8
+            + fused_bytes,
+            (pstats.get("boxes", 0) + pstats.get("fused_boxes", 0))
+            * BOX_FLOPS + pstats.get("tris", 0) * TRI_FLOPS
             + pstats.get("spheres", 0) * SPH_FLOPS + total * RAY_FLOPS)
         print(f"[kernel] wavefront, {label}, level {lvl}: {lv.num_segs} "
-              f"segments, {total} entries -> {total_next}; "
+              f"segments ({over} with more than {WF_STAGE_PRIMS} leaf prims), "
+              f"{total} entries in {tiles} tiles ({row['idle']} idle lanes) "
+              f"-> {total_next}; "
               + (f"count {row['count_ms']:.4f} ms (plain "
                  f"{row['count_plain_ms']:.1f} ms, bound "
                  f"{row['count_bound']['bound_ms']:.5f} ms by "
                  f"{row['count_bound']['bound_by']}), "
                  if lv.has_inner else "no count, ")
-              + f"pack {row['pack_ms']:.4f} ms (plain "
-              f"{row['pack_plain_ms']:.1f} ms, bound "
-              f"{row['pack_bound']['bound_ms']:.5f} ms by "
+              + f"pack{' with fused counts' if fuse else ''} "
+              f"{row['pack_ms']:.4f} ms (plain {row['pack_plain_ms']:.1f} ms, "
+              f"bound {row['pack_bound']['bound_ms']:.5f} ms by "
               f"{row['pack_bound']['bound_by']}); work {pstats}")
         sums["pack_ms"] += row["pack_ms"]
         sums["pack_plain"] += row["pack_plain_ms"]
@@ -654,19 +787,63 @@ def measure_wavefront(label, scene, rays):
         sums["pack_bound"] += row["pack_bound"]["bound_ms"]
         if lv.has_inner:
             sums["count_bound"] += row["count_bound"]["bound_ms"]
+        rows.append(row)
         if best is None or (lv.has_inner and total > best["entries"]):
             best = row
         if not lv.has_inner:
             break
         keys = keys_k
-        queue, seg_base, bound = out_k, seg_base_next, cap
-    print(f"[kernel] wavefront, {label}: all levels: count {sums['count_ms']:.4f}"
-          f" ms (bound {sums['count_bound']:.5f} ms), pack "
+        queue, seg_base, tile_base = out_k, plan.seg_base, plan.tile_base
+        bound = cap
+        plan, counted = (fused.plan, fused.counts) if fuse else (None, None)
+    print(f"[kernel] wavefront, {label}: all levels: pack "
           f"{sums['pack_ms']:.4f} ms (bound {sums['pack_bound']:.5f} ms); "
-          f"plain versions {sums['count_plain']:.1f} and "
-          f"{sums['pack_plain']:.1f} ms; all comparisons equal; the JSON line "
-          f"takes level {best['level']} ({best['entries']} entries)")
-    return best
+          f"count {rows[0].get('count_ms', 0.0):.4f} ms on the level-0 queue "
+          f"(the main path's), {sums['count_ms']:.4f} ms at every level "
+          f"(bound {sums['count_bound']:.5f} ms); plain versions "
+          f"{sums['count_plain']:.1f} and {sums['pack_plain']:.1f} ms; "
+          f"{n_global} segments read leaf prims from global memory; all "
+          f"comparisons equal; the JSON line takes level {best['level']} "
+          f"({best['entries']} entries)")
+    return dict(level0=rows[0], best=best, sums=sums, keys=keys,
+                n_global=n_global)
+
+
+def measure_decode(label, keys):
+    """The decode kernel against its plain version on one trace's keys,
+    with and without prim ids: t and prim equal to the bit.  Kernel and
+    plain (torch ops on the card) times; the bound is 8 B read and 8 B
+    written per key."""
+    import torch
+
+    from cuda_raytracer_tpu_torch.ops import wavefront2 as wf
+
+    bad, errs = 0, [torch.zeros((), device=keys.device)]
+    for want_prim in (True, False):
+        tk, pk = wf.decode_cuda(keys, want_prim)
+        tp, pp = wf.decode_plain(keys, want_prim)
+        bad += int((tk.view(torch.int32) != tp.view(torch.int32)).sum())
+        bad += int((pk != pp).sum())
+        fin = torch.isfinite(tp)
+        if bool(fin.any()):
+            errs.append((tk - tp)[fin].abs().max())
+    # torch's max keeps a NaN (a NaN t from the kernel shows as NaN)
+    err = float(torch.stack(errs).max())
+    n = keys.shape[0]
+    print(f"[kernel] decode, {label}: {n} keys ({int((pk == -2).sum())} "
+          f"hits), {bad} words differ from the plain version, max abs "
+          f"error in t {err}")
+    check(err == 0.0, f"decode, {label}: t differs from the plain version "
+          f"by {err}")
+    check(bad == 0, f"decode, {label}: kernel disagrees with its plain "
+          f"version")
+    ms = cuda_time_ms(lambda: wf.decode_cuda(keys), 10)
+    plain_ms = cuda_time_ms(lambda: wf.decode_plain(keys), 10)
+    b = _bound(n * 16, 0)
+    print(f"[kernel] decode, {label}: kernel {ms:.4f} ms, plain (torch on "
+          f"the card) {plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms "
+          f"(bytes), {b['bound_ms'] / ms:.3f} of it reached")
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, **b)
 
 
 def compare_traces(label, scene, rays):
@@ -681,7 +858,12 @@ def compare_traces(label, scene, rays):
     from cuda_raytracer_tpu_torch.ops import wavefront2 as wf
 
     o, d, valid, t_limit = rays
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     a = wf.trace_closest_wavefront(scene, o, d, valid, t_limit, compact=True)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
     b = packet_dfs.trace_closest_packets(scene, o, d, valid, t_limit)
     hm = int(((a.prim < 0) != (b.prim < 0)).sum())
     t_bad = int((a.t.view(torch.int32) != b.t.view(torch.int32)).sum())
@@ -689,7 +871,9 @@ def compare_traces(label, scene, rays):
     print(f"[trace] {label}: wavefront vs packet-DFS on {o.shape[0]} lanes "
           f"({int(valid.sum())} live): hit/miss mismatches {hm}, t bit "
           f"mismatches {t_bad}, prims differing at a bit-equal t {ties}, "
-          f"hits {int((a.prim >= 0).sum())}, dropped {int(a.dropped)}")
+          f"hits {int((a.prim >= 0).sum())}, dropped {int(a.dropped)}; "
+          f"the wavefront trace took {peak:.3f} GiB of device memory above "
+          f"what was allocated before it (torch.cuda.max_memory_allocated)")
     check(hm == 0 and t_bad == 0, f"{label}: wavefront and DFS disagree")
     check(int(a.dropped) == 0, f"{label}: dropped")
     if t_limit is not None:
@@ -704,6 +888,7 @@ def compare_traces(label, scene, rays):
         scene, o, d, valid, t_limit), 3)
     print(f"[trace] {label}: whole trace {ms_wf:.3f} ms through the "
           f"wavefront, {ms_dfs:.3f} ms through packet-DFS")
+    return dict(wf_ms=ms_wf, dfs_ms=ms_dfs, peak_gib=peak)
 
 
 def phase_slice():
@@ -739,14 +924,20 @@ def phase_slice():
     measure_partition("run B depth-2 shadow trace", shadow)
     measure_partition("run A depth-2 closest-hit trace", run_a["wf"][True])
     measure_partition("run A depth-2 shadow trace", run_a["wf"][False])
-    lvl = measure_wavefront("run B depth-2 closest-hit trace", rb.scene,
+    wfb = measure_wavefront("run B depth-2 closest-hit trace", rb.scene,
                             closest)
-    lvl_s = measure_wavefront("run B depth-2 shadow trace", rb.scene, shadow)
+    wfb_s = measure_wavefront("run B depth-2 shadow trace", rb.scene, shadow)
     measure_wavefront("run A depth-2 closest-hit trace", ra.scene,
                       run_a["wf"][True])
+    # many lanes live and a deep tree: all 15,360,000 camera rays of run B
+    cam = measure_wavefront("run B camera trace", rb.scene,
+                            run_b["dfs"][True])
     compare_traces("run B depth-2 closest-hit", rb.scene, closest)
     compare_traces("run B depth-2 shadow", rb.scene, shadow)
     compare_traces("run A depth-2 closest-hit", ra.scene, run_a["wf"][True])
+    compare_traces("run B camera trace", rb.scene, run_b["dfs"][True])
+    dec = measure_decode("run B depth-2 closest-hit trace", wfb["keys"])
+    measure_decode("run B camera trace", cam["keys"])
 
     csrc = "cuda_raytracer_tpu_torch/ops/csrc/"
     tpu = "cuda_raytracer_tpu/ops/pallas/"
@@ -759,6 +950,9 @@ def phase_slice():
                     bound_ms=k["bound_ms"], bound_by=k["bound_by"],
                     library_ms=library_ms)
 
+    # count: the main path's, on the level-0 queue; pack: the level with
+    # the most entries
+    cnt, pk = wfb["level0"], wfb["best"]
     return [
         row("packet_dfs", "packet_dfs.cu", "packet_dfs.py:99", dfs,
             dfs["max_abs_err"]),
@@ -768,15 +962,16 @@ def phase_slice():
             part["payload"], part["payload"]["max_abs_err"],
             part["payload"]["library_ms"]),
         row("wf2_count", "wavefront2.cu", "wavefront2.py:262",
-            dict(ms=lvl["count_ms"], plain_ms=lvl["count_plain_ms"],
-                 **lvl["count_bound"]),
-            float(max(lvl["count_err"], lvl_s["count_err"]))),
+            dict(ms=cnt["count_ms"], plain_ms=cnt["count_plain_ms"],
+                 **cnt["count_bound"]),
+            float(max(cnt["count_err"], wfb_s["level0"]["count_err"]))),
         row("wf2_pack", "wavefront2.cu", "wavefront2.py:377",
-            dict(ms=lvl["pack_ms"], plain_ms=lvl["pack_plain_ms"],
-                 **lvl["pack_bound"]),
-            max(lvl["pack_err"], lvl_s["pack_err"])),
+            dict(ms=pk["pack_ms"], plain_ms=pk["pack_plain_ms"],
+                 **pk["pack_bound"]),
+            max(pk["pack_err"], wfb_s["best"]["pack_err"])),
+        row("wf2_decode", "wavefront2.cu", "wavefront2.py:1420", dec,
+            dec["max_abs_err"]),
     ]
-
 
 def phase_cpu_vs_cuda():
     """The shipped preset at 64x32 on the card and on the CPU: the

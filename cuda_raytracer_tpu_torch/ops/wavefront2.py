@@ -1,5 +1,5 @@
-"""Wavefront BVH traversal: per-level count and pack kernels and their
-plain versions.
+"""Wavefront BVH traversal: per-level count and pack kernels, the key
+decode, and their plain versions.
 
 The port of ``cuda_raytracer_tpu/ops/pallas/wavefront2.py``.  Rays walk
 the wide BVH level by level.  A level's queue holds one 8-float entry
@@ -7,45 +7,55 @@ per (ray, inner node of the level) the ray entered — ``o.xyz d.xyz
 rayid tub``, entry-major [rows, 8] float32, ``rayid`` an int32 bit
 pattern in field 6, ``tub`` the entry's carried upper bound on t (the
 shadow limit and its lineage's best hit; -1 = terminated) — with the
-entries of one node (a *segment*) contiguous.  Per level:
+entries of one node (a *segment*) contiguous.  A *tile* is up to
+``TILE`` entries of one segment; ``tile_base[s]`` counts the tiles of
+the segments before s.  Per level:
 
 * **count** (``count_level``): for every segment s and inner child w,
   how many entries enter the child;
-* the counts become the next level's segment regions
-  (``plan_regions``: plain torch ops on S-sized tensors, on the device,
-  so no count returns to the host);
+* the **plan** (``plan_regions``; on the card the last block of the
+  kernel that counted): the counts become the next level's segment
+  regions (``Plan``: ``seg_base``, ``tile_base``, the region cursors,
+  and this level's ``route``), on the device, so no count returns to
+  the host;
 * **pack** (``pack_level``): per entry, intersect the node's leaf
   children in slot order (tightening ``tub``, first prim at the minimum
   within a leaf, strict ``<`` between leaves), record an improving hit
   in the ray's 64-bit key (``min`` over [t bits | ~prim]: least t, and
   among bit-equal t the largest prim), apply the shadow kill, and route
   the entry, with its new bound, to each inner child it enters *under
-  its incoming bound* (the count kernel's test, so the two agree).
+  its incoming bound* (the count's test, so the two agree).  With
+  ``fused`` it also counts, for the next level, the children of each
+  child that the survivor it writes enters under the bound it carries
+  out — the count kernel's test on the next queue — and makes the next
+  level's plan, so count runs only where no pack has counted.
 
 ``trace_closest_wavefront`` builds the level-0 queue — every lane
 (``make_payload``), or with ``compact=True`` the live lanes only
 (``compact_live_rays``, ops/partition.py) — runs the level loop over the
-scene's static schedule ``bvh.wf_sched`` and decodes the keys.  It runs
-unchanged on the CPU and on the card: only ``count_level``,
-``pack_level`` and ``compact_live_rays`` choose between a kernel
-(ops/csrc/wavefront2.cu, ops/csrc/partition.cu) for CUDA tensors and a
-plain version (``count_plain``, ``pack_plain``) for CPU tensors.
+scene's static schedule ``bvh.wf_sched`` and decodes the keys
+(``decode_keys``).  It runs unchanged on the CPU and on the card: only
+``count_level``, ``pack_level``, ``decode_keys`` and
+``compact_live_rays`` choose between a kernel (ops/csrc/wavefront2.cu,
+ops/csrc/partition.cu) for CUDA tensors and a plain version
+(``count_plain`` + ``plan_plain``, ``pack_plain`` + ``plan_plain``,
+``decode_plain``) for CPU tensors.
 
 Against the TPU source, the hit log and its merge passes are gone (the
-pack kernel resolves hits with ``atomicMin``), regions are not
-chunk-aligned, and entries inside a region come in an order that may
-differ from run to run on the card (atomic cursors); results do not
-depend on it.  Capacity keeps its meaning: a level's queue holds at most
-``queue_capacity`` entries, a segment whose cumulative demand does not
-fit loses its entries, and they are counted in ``dropped``.  Not carried
-over: ``seed_t``/``seed_prim``, ``box_bf16``, ``fused_counts``,
-``dyn_alloc`` and the ``debug_*`` switches.
+pack kernel resolves hits with ``atomicMin``, one decode pass reads the
+keys), regions are not chunk-aligned, and entries inside a region come
+in an order that may differ from run to run on the card (atomic
+cursors); results do not depend on it.  Capacity keeps its meaning: a
+level's queue holds at most ``queue_capacity`` entries, a segment whose
+cumulative demand does not fit loses its entries, and they are counted
+in ``dropped``.  Not carried over: ``seed_t``/``seed_prim``,
+``box_bf16``, ``dyn_alloc`` and the ``debug_*`` switches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -64,15 +74,18 @@ ROWS = 8
 RID_LIMIT = 1 << 30
 #: widest tree the kernels take
 MAX_WIDTH = 8
+#: entries per tile (WF_TILE of the kernels)
+TILE = 128
 
 _INF_BITS = 0x7F800000
 _LOW = 0xFFFFFFFF
 #: a ray's key before any hit: t = inf, prim = -1
 KEY_MISS = (_INF_BITS << 32) | _LOW
 
-#: launches of the count and of the pack kernel since last set to 0
+#: launches of the count, pack and decode kernels since last set to 0
 count_launches = 0
 pack_launches = 0
+decode_launches = 0
 
 _lib = None
 
@@ -87,9 +100,8 @@ class LevelTables(NamedTuple):
     #: [S*W, 4] int32 per child slot: kind (0 none / 1 inner / 2 leaf),
     #: leaf start, leaf count, forced
     child: torch.Tensor
-    parent: torch.Tensor  # [S_next] int64: slot s*W+w of each next segment
-    pair: torch.Tensor  # [S*W] int64: next segment of an inner slot, else 0
-    inner: torch.Tensor  # [S*W] bool: kind == 1
+    parent: torch.Tensor  # [S_next] int32: slot s*W+w of each next segment
+    pair: torch.Tensor  # [S*W] int32: next segment of an inner slot, else -1
 
 
 def level_tables(sched, width: int, device) -> Tuple[LevelTables, ...]:
@@ -111,13 +123,37 @@ def level_tables(sched, width: int, device) -> Tuple[LevelTables, ...]:
             child=torch.tensor(
                 list(zip(kind, lstart, lcnt, forced)), **i32
             ).reshape(-1, 4),
-            parent=torch.tensor(parent, dtype=torch.int64, device=device),
-            pair=torch.tensor([max(p, 0) for p in pair], dtype=torch.int64,
-                              device=device),
-            inner=torch.tensor([k == 1 for k in kind], dtype=torch.bool,
-                               device=device),
+            parent=torch.tensor(parent, **i32),
+            pair=torch.tensor([p if k == 1 else -1
+                               for k, p in zip(kind, pair)], **i32),
         ))
     return tuple(out)
+
+
+class Plan(NamedTuple):
+    """The next level's regions, made from one level's counts (int32):
+    ``seg_base`` and ``tile_base`` [S_next + 1], ``cursor`` [S_next]
+    (the next free position of each region, absolute) and ``route``
+    [S*W] (the next segment of each inner slot of the counted level, or
+    -1: not inner, or its region did not fit)."""
+
+    seg_base: torch.Tensor
+    tile_base: torch.Tensor
+    route: torch.Tensor
+    cursor: torch.Tensor
+
+
+class Fused(NamedTuple):
+    """What a pack needs to count for the next level and plan it:
+    ``lv`` the next level's tables, ``counts`` [S_next * W] int32
+    (zeroed), ``plan`` the Plan it fills, ``cap`` the queue capacity and
+    ``ticket`` a zeroed int32 [1] (the kernel leaves it zeroed)."""
+
+    lv: LevelTables
+    counts: torch.Tensor
+    plan: Plan
+    cap: int
+    ticket: torch.Tensor
 
 
 def queue_capacity(n_padded: int, queue_multiplier, sched) -> int:
@@ -129,18 +165,73 @@ def queue_capacity(n_padded: int, queue_multiplier, sched) -> int:
     return cap_chunks * CHUNK
 
 
+# ---------------------------------------------------------------------------
+# the C interface
+# ---------------------------------------------------------------------------
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+class _LevelArgs(ctypes.Structure):
+    _fields_ = [("queue", _P), ("seg_base", _P), ("tile_base", _P),
+                ("seg_node", _P), ("child", _P), ("node_rows", _P),
+                ("node_stride", _I), ("S", _I), ("W", _I)]
+
+
+class _PlanArgs(ctypes.Structure):
+    _fields_ = [("counts", _P), ("parent", _P), ("pair", _P),
+                ("seg_base_next", _P), ("tile_base_next", _P),
+                ("cursor_next", _P), ("route", _P), ("dropped", _P),
+                ("ticket", _P), ("n_slots", _I), ("S_next", _I),
+                ("cap", _I)]
+
+
+class _PackArgs(ctypes.Structure):
+    _fields_ = [("route", _P), ("cursor", _P), ("prim_rows", _P),
+                ("queue_out", _P), ("keys", _P), ("dropped", _P),
+                ("seg_node_next", _P), ("child_next", _P),
+                ("out_rows", _I), ("do_kill", _I),
+                ("kill_eps", ctypes.c_float)]
+
+
 def _load_library():
     global _lib
     if _lib is None:
         lib = load_library("wavefront2")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.wf2_count.argtypes = [p, p, p, p, p, i, i, i, p, i, p]
-        lib.wf2_count.restype = i
-        lib.wf2_pack.argtypes = [p, p, p, p, p, p, i, p, i, i, i,
-                                 ctypes.c_float, p, i, p, p, p, i, p]
-        lib.wf2_pack.restype = i
+        ref = ctypes.c_void_p
+        lib.wf2_tile.argtypes = []
+        lib.wf2_tile.restype = _I
+        lib.wf2_count.argtypes = [ref, ref, _I, _P]
+        lib.wf2_count.restype = _I
+        lib.wf2_pack.argtypes = [ref, ref, ref, _I, _P]
+        lib.wf2_pack.restype = _I
+        lib.wf2_decode.argtypes = [_P, _I, _I, _P, _P, _P]
+        lib.wf2_decode.restype = _I
+        if lib.wf2_tile() != TILE:
+            raise RuntimeError(f"wavefront2.cu tiles {lib.wf2_tile()} "
+                               f"entries, the wrapper {TILE}")
         _lib = lib
     return _lib
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _level_args(queue, seg_base, tile_base, lv, node_rows, width):
+    return _LevelArgs(queue.data_ptr(), seg_base.data_ptr(),
+                      tile_base.data_ptr(), lv.seg_node.data_ptr(),
+                      lv.child.data_ptr(), node_rows.data_ptr(),
+                      node_rows.shape[1], lv.num_segs, width)
+
+
+def _plan_args(counts, lv, plan, cap, dropped, ticket):
+    return _PlanArgs(counts.data_ptr(), lv.parent.data_ptr(),
+                     lv.pair.data_ptr(), plan.seg_base.data_ptr(),
+                     plan.tile_base.data_ptr(), plan.cursor.data_ptr(),
+                     plan.route.data_ptr(), dropped.data_ptr(),
+                     ticket.data_ptr(), lv.child.shape[0], lv.num_next,
+                     int(cap))
 
 
 def _check(width, device, **tensors):
@@ -159,7 +250,7 @@ def _check(width, device, **tensors):
             raise ValueError(f"{name} on {x.device}, queue on {device}")
 
 
-def _check_level(queue, seg_base, lv, node_rows, width):
+def _check_level(queue, seg_base, lv, node_rows, width, tile_base=None):
     s = lv.num_segs
     _check(
         width, queue.device,
@@ -169,41 +260,65 @@ def _check_level(queue, seg_base, lv, node_rows, width):
         child=(lv.child, torch.int32, (s * width, 4)),
         node_rows=(node_rows, torch.float32, None),
     )
-    if node_rows.dim() != 2 or node_rows.shape[1] < 7 * width:
-        raise ValueError("node_rows: want [nodes, >= 7 * width]")
+    if tile_base is not None:
+        _check(width, queue.device,
+               tile_base=(tile_base, torch.int32, (s + 1,)))
+    stride = node_rows.shape[1] if node_rows.dim() == 2 else 0
+    if node_rows.dim() != 2 or stride < 7 * width or stride % 4:
+        raise ValueError("node_rows: want [nodes, >= 7 * width], the row a "
+                         "whole number of float4")
     if queue.shape[0] >= 1 << 31:
         raise ValueError("queue too long for int32 positions")
 
 
-# ---------------------------------------------------------------------------
-# count
-# ---------------------------------------------------------------------------
-
-
-def count_cuda(queue, seg_base, lv: LevelTables, node_rows, width: int,
-               bound: int):
-    """Launch the count kernel on the current stream: counts [S*W]
-    int32.  ``bound`` is the most entries the level can hold (it sizes
-    the grid; the kernel reads the real total from seg_base[S])."""
-    global count_launches
-    _check_level(queue, seg_base, lv, node_rows, width)
-    if queue.device.type != "cuda":
-        raise ValueError("count_cuda needs CUDA tensors")
-    lib = _load_library()
-    counts = torch.zeros((lv.num_segs * width,), dtype=torch.int32,
-                         device=queue.device)
-    bound = min(int(bound), queue.shape[0])
-    err = lib.wf2_count(
-        queue.data_ptr(), seg_base.data_ptr(), lv.seg_node.data_ptr(),
-        lv.child.data_ptr(), node_rows.data_ptr(), node_rows.shape[1],
-        lv.num_segs, width, counts.data_ptr(), bound,
-        torch.cuda.current_stream(queue.device).cuda_stream,
+def _check_plan(counts, lv, plan, width, dropped, ticket, device):
+    s, n = lv.num_segs, lv.num_next
+    _check(
+        width, device,
+        counts=(counts, torch.int32, (s * width,)),
+        parent=(lv.parent, torch.int32, (n,)),
+        pair=(lv.pair, torch.int32, (s * width,)),
+        plan_seg_base=(plan.seg_base, torch.int32, (n + 1,)),
+        plan_tile_base=(plan.tile_base, torch.int32, (n + 1,)),
+        plan_cursor=(plan.cursor, torch.int32, (n,)),
+        plan_route=(plan.route, torch.int32, (s * width,)),
+        dropped=(dropped, torch.int64, ()),
+        ticket=(ticket, torch.int32, (1,)),
     )
+
+
+def _not_cuda(name, x):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors")
+
+
+# ---------------------------------------------------------------------------
+# count and the region plan
+# ---------------------------------------------------------------------------
+
+
+def count_cuda(queue, seg_base, tile_base, lv: LevelTables, node_rows,
+               width: int, bound: int, counts, plan: Plan, cap: int,
+               dropped, ticket):
+    """Launch the count kernel on the current stream: accumulates the
+    level's counts [S*W] into ``counts`` (zeroed by the caller), and its
+    last block fills ``plan`` (the next level's regions) and adds the
+    entries that do not fit ``cap`` to ``dropped``.  ``bound`` is the
+    most entries the level can hold (it sizes the grid; the kernel reads
+    the real tile count from tile_base[S])."""
+    global count_launches
+    _check_level(queue, seg_base, lv, node_rows, width, tile_base)
+    _check_plan(counts, lv, plan, width, dropped, ticket, queue.device)
+    _not_cuda("count_cuda", queue)
+    lib = _load_library()
+    bound = min(int(bound), queue.shape[0])
+    la = _level_args(queue, seg_base, tile_base, lv, node_rows, width)
+    pa = _plan_args(counts, lv, plan, cap, dropped, ticket)
+    err = lib.wf2_count(ctypes.byref(la), ctypes.byref(pa), bound,
+                        _stream(queue))
     if err != 0:
         raise RuntimeError(f"count kernel launch failed: cuda error {err}")
-    if bound > 0:  # the C side launches nothing for an empty queue
-        count_launches += 1
-    return counts
+    count_launches += 1
 
 
 def _segments(seg_base, lo: int, hi: int):
@@ -231,6 +346,15 @@ def _box_terms(rows, width: int, o, inv):
     return slab_ok, tnear, inside, outlet
 
 
+def _enters(rows, width, o, d, tub):
+    """[E, W]: the entry enters child w of its node row under bound tub
+    [E] (the count's test, without the kind)."""
+    slab_ok, tnear, inside, outlet = _box_terms(rows, width, o, 1.0 / d)
+    tub = tub[:, None]
+    return (((slab_ok & (tnear <= tub)) | inside) & (tub >= 0.0)
+            & (outlet >= 0.0))
+
+
 def _count(stats, key, k):
     if stats is not None:
         stats[key] = stats.get(key, 0) + int(k)
@@ -238,10 +362,10 @@ def _count(stats, key, k):
 
 def count_plain(queue, seg_base, lv: LevelTables, node_rows, width: int,
                 bound: int = 0, stats: dict = None, chunk: int = 1 << 20):
-    """The count kernel's function in plain torch ops (any device; reads
-    the level's total on the host).  ``stats``, if given, gets the work
-    this data needs: ``entries`` and ``boxes`` (box tests of inner
-    children of live entries)."""
+    """The count kernel's counts [S*W] int32 in plain torch ops (any
+    device; reads the level's total on the host).  ``stats``, if given,
+    gets the work this data needs: ``entries`` and ``boxes`` (box tests
+    of inner children of live entries)."""
     del bound
     _check_level(queue, seg_base, lv, node_rows, width)
     W = width
@@ -255,44 +379,68 @@ def count_plain(queue, seg_base, lv: LevelTables, node_rows, width: int,
         q = queue[lo:hi]
         seg = _segments(seg_base, lo, hi)
         rows = node_rows[lv.seg_node[seg].long()]
-        tub = q[:, 7:8]
-        slab_ok, tnear, inside, outlet = _box_terms(
-            rows, W, q[:, 0:3], 1.0 / q[:, 3:6])
+        tub = q[:, 7]
         inner = kind[seg] == 1
-        m = (((slab_ok & (tnear <= tub)) | inside) & (tub >= 0.0)
-             & (outlet >= 0.0) & inner)
+        m = _enters(rows, W, q[:, 0:3], q[:, 3:6], tub) & inner
         counts += torch.bincount((seg[:, None] * W + slot)[m],
                                  minlength=counts.shape[0])
         _count(stats, "entries", hi - lo)
-        _count(stats, "boxes", (inner & (tub >= 0.0)).sum())
+        _count(stats, "boxes", (inner & (tub >= 0.0)[:, None]).sum())
     return counts.to(torch.int32)
 
 
-def count_level(queue, seg_base, lv: LevelTables, node_rows, width: int,
-                bound: int):
-    """counts[s*W + w]: the entries of segment s that enter inner child
-    w.  CUDA tensors go through the kernel (or raise); CPU tensors
-    through the plain version."""
-    if queue.device.type == "cuda":
-        return count_cuda(queue, seg_base, lv, node_rows, width, bound)
-    if queue.device.type == "cpu":
-        return count_plain(queue, seg_base, lv, node_rows, width, bound)
-    raise ValueError(f"no wavefront path for device {queue.device}")
-
-
 def plan_regions(counts, lv: LevelTables, cap: int):
-    """The next level's regions from this level's counts, on the device:
-    (seg_base_next [S_next + 1] int32, route [S*W] int32, cursor
-    [S_next] int32, lost).  Regions are dense, in segment order; a
-    segment whose cumulative demand exceeds ``cap`` gets no region
-    (route -1) and its entries are ``lost``."""
-    count_next = counts[lv.parent].long()
+    """The next level's regions from this level's counts, in torch ops
+    on the device: (seg_base_next [S_next + 1] int32, route [S*W]
+    int32, cursor [S_next] int32, lost).  Regions are dense, in segment
+    order; a segment whose cumulative demand exceeds ``cap`` gets no
+    region (route -1) and its entries are ``lost``."""
+    count_next = counts[lv.parent.long()].long()
     fits = torch.cumsum(count_next, 0) <= cap
     lost = (count_next * ~fits).sum()
     base = torch.cumsum(count_next * fits, 0)
     seg_base_next = torch.cat([base.new_zeros(1), base]).to(torch.int32)
-    route = torch.where(lv.inner & fits[lv.pair], lv.pair, -1).to(torch.int32)
+    inner = lv.pair >= 0
+    pair = lv.pair.long().clamp_min(0)
+    route = torch.where(inner & fits[pair], pair, -1).to(torch.int32)
     return seg_base_next, route, seg_base_next[:-1].clone(), lost
+
+
+def tile_prefix(seg_base):
+    """tile_base [S + 1] int32 of a level: tiles of TILE entries that
+    never straddle a segment, counted over the segments before each."""
+    n = torch.diff(seg_base.long())
+    tiles = torch.div(n + TILE - 1, TILE, rounding_mode="floor")
+    return torch.cat([tiles.new_zeros(1), torch.cumsum(tiles, 0)]).to(
+        torch.int32)
+
+
+def plan_plain(counts, lv: LevelTables, cap: int, plan: Plan, dropped):
+    """The region plan the kernels' last block makes, in plain torch ops
+    (any device): ``plan_regions`` and ``tile_prefix`` of the level's
+    ``counts`` into ``plan``, the entries that do not fit ``cap`` added
+    to ``dropped``."""
+    seg_base, route, cursor, lost = plan_regions(counts, lv, cap)
+    for dst, src in zip(plan, (seg_base, tile_prefix(seg_base), route,
+                               cursor)):
+        dst.copy_(src)
+    dropped += lost
+
+
+def count_level(queue, seg_base, tile_base, lv: LevelTables, node_rows,
+                width: int, bound: int, counts, plan: Plan, cap: int,
+                dropped, ticket):
+    """The level's counts into ``counts`` and the next level's regions
+    into ``plan`` (lost entries into ``dropped``).  CUDA tensors go
+    through the kernel (or raise); CPU tensors through the plain
+    versions."""
+    if queue.device.type == "cuda":
+        return count_cuda(queue, seg_base, tile_base, lv, node_rows, width,
+                          bound, counts, plan, cap, dropped, ticket)
+    if queue.device.type == "cpu":
+        counts.copy_(count_plain(queue, seg_base, lv, node_rows, width))
+        return plan_plain(counts, lv, cap, plan, dropped)
+    raise ValueError(f"no wavefront path for device {queue.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -301,8 +449,8 @@ def plan_regions(counts, lv: LevelTables, cap: int):
 
 
 def _check_pack(queue, seg_base, lv, route, cursor, node_rows, prim_rows,
-                width, queue_out, keys, dropped):
-    _check_level(queue, seg_base, lv, node_rows, width)
+                width, queue_out, keys, dropped, tile_base=None):
+    _check_level(queue, seg_base, lv, node_rows, width, tile_base)
     _check(
         width, queue.device,
         route=(route, torch.int32, (lv.num_segs * width,)),
@@ -314,31 +462,41 @@ def _check_pack(queue, seg_base, lv, route, cursor, node_rows, prim_rows,
     )
 
 
-def pack_cuda(queue, seg_base, lv: LevelTables, route, cursor, node_rows,
-              prim_rows, width: int, do_kill: bool, kill_eps: float,
-              queue_out, keys, dropped, bound: int):
+def pack_cuda(queue, seg_base, tile_base, lv: LevelTables, route, cursor,
+              node_rows, prim_rows, width: int, do_kill: bool,
+              kill_eps: float, queue_out, keys, dropped, bound: int,
+              fused: Optional[Fused] = None):
     """Launch the pack kernel on the current stream.  Updates
-    ``queue_out``, ``cursor``, ``keys`` and ``dropped`` in place."""
+    ``queue_out``, ``cursor``, ``keys`` and ``dropped`` in place; with
+    ``fused``, also counts for the next level into ``fused.counts`` and
+    its last block fills ``fused.plan``."""
     global pack_launches
     _check_pack(queue, seg_base, lv, route, cursor, node_rows, prim_rows,
-                width, queue_out, keys, dropped)
-    if queue.device.type != "cuda":
-        raise ValueError("pack_cuda needs CUDA tensors")
+                width, queue_out, keys, dropped, tile_base)
+    _not_cuda("pack_cuda", queue)
+    pa = _PlanArgs()  # no ticket: the launch counts nothing
+    seg_node_next = child_next = 0
+    if fused is not None:
+        if fused.lv.num_segs != lv.num_next:
+            raise ValueError("fused.lv is not the next level")
+        _check_plan(fused.counts, fused.lv, fused.plan, width, dropped,
+                    fused.ticket, queue.device)
+        pa = _plan_args(fused.counts, fused.lv, fused.plan, fused.cap,
+                          dropped, fused.ticket)
+        seg_node_next = fused.lv.seg_node.data_ptr()
+        child_next = fused.lv.child.data_ptr()
     lib = _load_library()
     bound = min(int(bound), queue.shape[0])
-    err = lib.wf2_pack(
-        queue.data_ptr(), seg_base.data_ptr(), lv.seg_node.data_ptr(),
-        lv.child.data_ptr(), route.data_ptr(), node_rows.data_ptr(),
-        node_rows.shape[1], prim_rows.data_ptr(), lv.num_segs, width,
-        int(do_kill), float(kill_eps), queue_out.data_ptr(),
-        queue_out.shape[0], cursor.data_ptr(), keys.data_ptr(),
-        dropped.data_ptr(), bound,
-        torch.cuda.current_stream(queue.device).cuda_stream,
-    )
+    la = _level_args(queue, seg_base, tile_base, lv, node_rows, width)
+    pk = _PackArgs(route.data_ptr(), cursor.data_ptr(), prim_rows.data_ptr(),
+                   queue_out.data_ptr(), keys.data_ptr(), dropped.data_ptr(),
+                   seg_node_next, child_next, queue_out.shape[0],
+                   int(do_kill), float(kill_eps))
+    err = lib.wf2_pack(ctypes.byref(la), ctypes.byref(pk), ctypes.byref(pa),
+                       bound, _stream(queue))
     if err != 0:
         raise RuntimeError(f"pack kernel launch failed: cuda error {err}")
-    if bound > 0:
-        pack_launches += 1
+    pack_launches += 1
 
 
 def hit_keys(t, prim):
@@ -350,14 +508,19 @@ def hit_keys(t, prim):
 def pack_plain(queue, seg_base, lv: LevelTables, route, cursor, node_rows,
                prim_rows, width: int, do_kill: bool, kill_eps: float,
                queue_out, keys, dropped, bound: int = 0, stats: dict = None,
-               chunk: int = 1 << 18):
+               chunk: int = 1 << 18, counts_next=None,
+               lv_next: LevelTables = None):
     """The pack kernel's function in plain torch ops (any device; reads
     the level's total on the host).  Updates ``queue_out``, ``cursor``,
     ``keys`` and ``dropped`` in place like the kernel; survivors land in
-    their regions in queue order.  ``stats``, if given, gets the work
+    their regions in queue order.  With ``counts_next`` (and the next
+    level's tables ``lv_next``), adds to it the next level's counts of
+    the survivors written: each against its child's inner children,
+    under the bound it carries out.  ``stats``, if given, gets the work
     this data needs: ``entries``, ``boxes`` (non-empty child boxes of
     live entries), ``tris``/``spheres`` (prim tests by type), ``hits``
-    (key updates) and ``survivors`` (entries written)."""
+    (key updates), ``survivors`` (entries written) and ``fused_boxes``
+    (the fused count's box tests)."""
     del bound
     _check_pack(queue, seg_base, lv, route, cursor, node_rows, prim_rows,
                 width, queue_out, keys, dropped)
@@ -422,7 +585,7 @@ def pack_plain(queue, seg_base, lv: LevelTables, route, cursor, node_rows,
         if do_kill:
             tub = torch.where(hit & (tub < tub0 - kill_eps), -1.0, tub)
 
-        # inner children: the count kernel's test, on the incoming bound
+        # inner children: the count's test, on the incoming bound
         m_in = (((slab_ok & (tnear <= tub0[:, None])) | inside)
                 & live[:, None] & (outlet >= 0.0) & (kind == 1))
         r = route2[seg]
@@ -446,22 +609,90 @@ def pack_plain(queue, seg_base, lv: LevelTables, route, cursor, node_rows,
         cursor += torch.bincount(dst_seg, minlength=cursor.shape[0]).to(
             torch.int32)
         _count(stats, "survivors", fit.sum())
+        if counts_next is not None:
+            # the next level's count of the survivors written
+            out, c = rows_out[fit], seg_sorted[fit]
+            kind_next = lv_next.child[:, 0].view(-1, W)[c] == 1
+            m = _enters(node_rows[lv_next.seg_node[c].long()], W,
+                        out[:, 0:3], out[:, 3:6], out[:, 7]) & kind_next
+            slot = c[:, None] * W + torch.arange(W, device=dev)
+            counts_next += torch.bincount(
+                slot[m], minlength=counts_next.shape[0]).to(torch.int32)
+            _count(stats, "fused_boxes",
+                   (kind_next & (out[:, 7] >= 0.0)[:, None]).sum())
 
 
-def pack_level(queue, seg_base, lv: LevelTables, route, cursor, node_rows,
-               prim_rows, width: int, do_kill: bool, kill_eps: float,
-               queue_out, keys, dropped, bound: int):
+def pack_level(queue, seg_base, tile_base, lv: LevelTables, route, cursor,
+               node_rows, prim_rows, width: int, do_kill: bool,
+               kill_eps: float, queue_out, keys, dropped, bound: int,
+               fused: Optional[Fused] = None):
     """Leaf intersection, hit keys, shadow kill and survivor routing of
     one level, in place on ``queue_out``, ``cursor``, ``keys`` and
-    ``dropped``.  CUDA tensors go through the kernel (or raise); CPU
-    tensors through the plain version."""
-    args = (queue, seg_base, lv, route, cursor, node_rows, prim_rows, width,
-            do_kill, kill_eps, queue_out, keys, dropped, bound)
+    ``dropped``; with ``fused``, the next level's counts and plan too.
+    CUDA tensors go through the kernel (or raise); CPU tensors through
+    the plain versions."""
     if queue.device.type == "cuda":
-        return pack_cuda(*args)
+        return pack_cuda(queue, seg_base, tile_base, lv, route, cursor,
+                         node_rows, prim_rows, width, do_kill, kill_eps,
+                         queue_out, keys, dropped, bound, fused)
     if queue.device.type == "cpu":
-        return pack_plain(*args)
+        pack_plain(queue, seg_base, lv, route, cursor, node_rows, prim_rows,
+                   width, do_kill, kill_eps, queue_out, keys, dropped,
+                   counts_next=None if fused is None else fused.counts,
+                   lv_next=None if fused is None else fused.lv)
+        if fused is not None:
+            plan_plain(fused.counts, fused.lv, fused.cap, fused.plan,
+                       dropped)
+        return None
     raise ValueError(f"no wavefront path for device {queue.device}")
+
+
+# ---------------------------------------------------------------------------
+# the key decode
+# ---------------------------------------------------------------------------
+
+
+def decode_cuda(keys, want_prim: bool = True):
+    """Launch the decode kernel on the current stream: (t [N] float32,
+    prim [N] int32), as ``decode_plain``."""
+    global decode_launches
+    _check(1, keys.device, keys=(keys, torch.int64, (keys.shape[0],)))
+    _not_cuda("decode_cuda", keys)
+    if keys.shape[0] >= 1 << 31:
+        raise ValueError("too many keys for int32 positions")
+    lib = _load_library()
+    t = torch.empty(keys.shape, dtype=torch.float32, device=keys.device)
+    prim = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
+    err = lib.wf2_decode(keys.data_ptr(), keys.shape[0], int(want_prim),
+                         t.data_ptr(), prim.data_ptr(), _stream(keys))
+    if err != 0:
+        raise RuntimeError(f"decode kernel launch failed: cuda error {err}")
+    decode_launches += 1
+    return t, prim
+
+
+def decode_plain(keys, want_prim: bool = True):
+    """(t, prim) of each ray from its key: t = inf, prim = -1 on a miss;
+    with ``want_prim=False`` prim is -2 on a hit."""
+    t_bits = (keys >> 32).to(torch.int32)
+    hit = t_bits < _INF_BITS
+    t = torch.where(hit, t_bits.view(torch.float32), float("inf"))
+    if want_prim:
+        prim = torch.where(hit, _LOW - (keys & _LOW), -1)
+    else:
+        prim = torch.where(hit, -2, -1)
+    return t, prim.to(torch.int32)
+
+
+def decode_keys(keys, want_prim: bool = True):
+    """(t, prim) of each ray from its key (``decode_plain``).  CUDA
+    tensors go through the kernel (or raise); CPU tensors through the
+    plain version."""
+    if keys.device.type == "cuda":
+        return decode_cuda(keys, want_prim)
+    if keys.device.type == "cpu":
+        return decode_plain(keys, want_prim)
+    raise ValueError(f"no wavefront path for device {keys.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -487,17 +718,48 @@ def make_payload(o, d, valid, t_limit=None):
     return payload
 
 
-def decode_keys(keys, want_prim: bool = True):
-    """(t, prim) of each ray from its key: t = inf, prim = -1 on a miss;
-    with ``want_prim=False`` prim is -2 on a hit."""
-    t_bits = (keys >> 32).to(torch.int32)
-    hit = t_bits < _INF_BITS
-    t = torch.where(hit, t_bits.view(torch.float32), float("inf"))
-    if want_prim:
-        prim = torch.where(hit, _LOW - (keys & _LOW), -1)
-    else:
-        prim = torch.where(hit, -2, -1)
-    return t, prim.to(torch.int32)
+class Workspace(NamedTuple):
+    """The tables one trace's level loop fills, in two allocations:
+    per level L with inner children ``counts[L]`` [S_L * W] and
+    ``plans[L]`` (the regions of level L + 1, made from counts[L]), a
+    ``ticket``, the level-0 ``heads`` (seg_base, tile_base), all zeroed
+    once; and for the leaf-only level a one-entry ``cursor`` and
+    ``queue``."""
+
+    counts: dict
+    plans: dict
+    ticket: torch.Tensor
+    heads: Tuple[torch.Tensor, torch.Tensor]
+    cursor: torch.Tensor
+    queue: torch.Tensor
+
+
+def workspace(levels, width: int, device) -> Workspace:
+    """One trace's Workspace over the levels it can visit."""
+    inner = []
+    for L, lv in enumerate(levels):
+        if not lv.has_inner:
+            break
+        inner.append(L)
+    n_counts = sum(levels[L].num_segs * width for L in inner)
+    zeros = torch.zeros((n_counts + 6,), dtype=torch.int32, device=device)
+    sizes = [(levels[L].num_next + 1, levels[L].num_next + 1,
+              levels[L].num_segs * width, levels[L].num_next) for L in inner]
+    tables = torch.empty((sum(map(sum, sizes)),), dtype=torch.int32,
+                         device=device)
+    counts, plans, at, at0 = {}, {}, 0, 0
+    for L, size in zip(inner, sizes):
+        counts[L] = zeros[at0:at0 + levels[L].num_segs * width]
+        at0 += counts[L].numel()
+        parts = []
+        for n in size:
+            parts.append(tables[at:at + n])
+            at += n
+        plans[L] = Plan(*parts)
+    rest = zeros[n_counts:]
+    return Workspace(counts, plans, rest[0:1], (rest[1:3], rest[3:5]),
+                     rest[5:6], torch.empty((1, ROWS), dtype=torch.float32,
+                                            device=device))
 
 
 def trace_closest_wavefront(
@@ -510,6 +772,7 @@ def trace_closest_wavefront(
     kill_eps: float = 1e-3,
     compact: bool = False,
     want_prim: bool = True,
+    fused_counts: bool = True,
 ) -> WaveTraceResult:
     """Closest-hit / shadow traversal of N rays (o, d: [N, 3] f32;
     valid: [N] bool) by the wavefront level loop.
@@ -523,7 +786,11 @@ def trace_closest_wavefront(
     trace would.  ``compact=True`` queues the live lanes only
     (ops/partition.py), so every level sweeps live entries only; the
     result is the same to the bit.  ``want_prim=False`` (shadow
-    passes) reports prim -2 on a hit.
+    passes) reports prim -2 on a hit.  ``fused_counts=True`` (the JAX
+    parameter of that name) counts each level's entries for the next
+    level inside the pack that writes them, so the count kernel runs
+    once, on the level-0 queue; ``False`` runs a count sweep at every
+    level with inner children.  The result is the same to the bit.
     """
     bvh = scene.bvh
     if not bvh.wf_sched:
@@ -535,43 +802,52 @@ def trace_closest_wavefront(
     if n_pad >= RID_LIMIT:
         raise ValueError(f"{n_pad} rays exceed the ray-id range (2^30)")
     node_rows, prim_rows = bvh.wf_node_rows, scene.wf_prim_rows
+    levels = bvh.wf_levels
     cap = queue_capacity(n_pad, queue_multiplier, bvh.wf_sched)
+    ws = workspace(levels, W, dev)
 
     valid = valid.bool()
+    seg_base, tile_base = ws.heads
     if compact:
         queue, n_live = compact_live_rays(
             o.float().contiguous(), d.float().contiguous(),
             valid.contiguous(),
             None if t_limit is None else t_limit.float().contiguous())
-        total0 = n_live.reshape(1)
+        seg_base[1:].copy_(n_live.reshape(1))
+        tile_base[1:].copy_(torch.div(n_live.reshape(1) + TILE - 1, TILE,
+                                      rounding_mode="floor"))
     else:
         queue = make_payload(o, d, valid, t_limit)
-        total0 = torch.full((1,), n_in, dtype=torch.int32, device=dev)
-    seg_base = torch.cat([torch.zeros_like(total0), total0])
+        seg_base[1:] = n_in
+        tile_base[1:] = -(-n_in // TILE)
     keys = torch.full((n_in,), KEY_MISS, dtype=torch.int64, device=dev)
     dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    do_kill = t_limit is not None
     bound = n_in
 
-    for lv in bvh.wf_levels:
-        if lv.has_inner:
-            counts = count_level(queue, seg_base, lv, node_rows, W, bound)
-            seg_base_next, route, cursor, lost = plan_regions(counts, lv, cap)
-            dropped += lost
-            queue_out = torch.empty((cap, ROWS), dtype=torch.float32,
-                                    device=dev)
-        else:  # leaves only: nothing is routed
-            seg_base_next = None
-            route = torch.full((lv.num_segs * W,), -1, dtype=torch.int32,
-                               device=dev)
-            cursor = torch.zeros((1,), dtype=torch.int32, device=dev)
-            queue_out = torch.empty((1, ROWS), dtype=torch.float32,
-                                    device=dev)
-        pack_level(queue, seg_base, lv, route, cursor, node_rows, prim_rows,
-                   W, t_limit is not None, kill_eps, queue_out, keys, dropped,
-                   bound)
-        if not lv.has_inner:
+    plan = None  # the regions of the next level, once a pack counted it
+    for L, lv in enumerate(levels):
+        if not lv.has_inner:  # leaves only: nothing is routed
+            pack_level(queue, seg_base, tile_base, lv, lv.pair, ws.cursor,
+                       node_rows, prim_rows, W, do_kill, kill_eps, ws.queue,
+                       keys, dropped, bound)
             break
-        queue, seg_base, bound = queue_out, seg_base_next, cap
+        if plan is None:
+            plan = ws.plans[L]
+            count_level(queue, seg_base, tile_base, lv, node_rows, W, bound,
+                        ws.counts[L], plan, cap, dropped, ws.ticket)
+        nxt = levels[L + 1]
+        fused = None
+        if fused_counts and nxt.has_inner:
+            fused = Fused(nxt, ws.counts[L + 1], ws.plans[L + 1], cap,
+                          ws.ticket)
+        queue_out = torch.empty((cap, ROWS), dtype=torch.float32, device=dev)
+        pack_level(queue, seg_base, tile_base, lv, plan.route, plan.cursor,
+                   node_rows, prim_rows, W, do_kill, kill_eps, queue_out,
+                   keys, dropped, bound, fused)
+        queue, seg_base, tile_base = queue_out, plan.seg_base, plan.tile_base
+        bound = cap
+        plan = None if fused is None else fused.plan
 
     t, prim = decode_keys(keys, want_prim)
     return WaveTraceResult(t, prim, dropped)

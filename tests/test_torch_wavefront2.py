@@ -20,12 +20,15 @@ The CUDA kernels are held against these plain versions on the card by
 chip_smoke.py.
 """
 
+import bisect
+
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
 from cuda_raytracer_tpu.models.cornell import cornell_box_scene as jax_cornell
+from cuda_raytracer_tpu.models.terrain import terrain_scene as jax_terrain
 from cuda_raytracer_tpu.ops.pallas import wavefront2 as jax_wf2
 from cuda_raytracer_tpu.ops.traverse import trace_bruteforce
 from cuda_raytracer_tpu.render.flatscene import flatten_scene as jax_flatten
@@ -35,6 +38,7 @@ from cuda_raytracer_tpu.scene.bsdf import DiffuseBSDF as JaxDiffuse
 import torch
 
 from cuda_raytracer_tpu_torch.models.cornell import cornell_box_scene
+from cuda_raytracer_tpu_torch.models.terrain import terrain_scene
 from cuda_raytracer_tpu_torch.ops import wavefront2 as wf
 from cuda_raytracer_tpu_torch.render.flatscene import flatten_scene
 from cuda_raytracer_tpu_torch.scene import static_scene as st
@@ -78,16 +82,23 @@ SCENES = {
              8, 3.0),
     "root_leaf": (lambda: cornell_box_scene(with_spheres=False),
                   lambda: jax_cornell(with_spheres=False), 64, 0.9),
+    # three levels: pack 0 counts level 1, which has inner children
+    "terrain": (lambda: terrain_scene(n=8), lambda: jax_terrain(n=8), 4,
+                0.9),
+    # width 8: levels [1, 8, 64, 15], packs 0 and 1 count for the next
+    "soup8": (lambda: _soup(st, DiffuseBSDF), lambda: _soup(jst, JaxDiffuse),
+              4, 3.0, 8),
 }
 _cache = {}
 
 
 def scenes(name):
     if name not in _cache:
-        mk_port, mk_jax, ml, box = SCENES[name]
-        ours, _ = flatten_scene(mk_port(), tree_width=4, max_leaf_size=ml,
-                                device="cpu")
-        ref, _ = jax_flatten(mk_jax(), tree_width=4, max_leaf_size=ml)
+        mk_port, mk_jax, ml, box, *width = SCENES[name]
+        width = width[0] if width else 4
+        ours, _ = flatten_scene(mk_port(), tree_width=width,
+                                max_leaf_size=ml, device="cpu")
+        ref, _ = jax_flatten(mk_jax(), tree_width=width, max_leaf_size=ml)
         _cache[name] = (ours, ref, box)
     return _cache[name]
 
@@ -238,8 +249,8 @@ C = jax_wf2.CHUNK
 
 
 def _level_state(scene, o, d, valid, level, t_limit=None):
-    """The port's level loop up to ``level``: (queue, seg_base, bound)
-    entering it."""
+    """The port's level loop up to ``level`` (plain versions, a count at
+    every level): (queue, seg_base, bound, cap) entering it."""
     bvh = scene.bvh
     W = bvh.width
     queue = wf.make_payload(
@@ -252,13 +263,12 @@ def _level_state(scene, o, d, valid, level, t_limit=None):
     dropped = torch.zeros((), dtype=torch.int64)
     bound = n
     for lv in bvh.wf_levels[:level]:
-        counts = wf.count_level(queue, seg_base, lv, bvh.wf_node_rows, W,
-                                bound)
+        counts = wf.count_plain(queue, seg_base, lv, bvh.wf_node_rows, W)
         seg_base_next, route, cursor, _ = wf.plan_regions(counts, lv, cap)
         out = torch.zeros((cap, 8))
-        wf.pack_level(queue, seg_base, lv, route, cursor, bvh.wf_node_rows,
+        wf.pack_plain(queue, seg_base, lv, route, cursor, bvh.wf_node_rows,
                       scene.wf_prim_rows, W, t_limit is not None, 1e-3, out,
-                      keys, dropped, bound)
+                      keys, dropped)
         queue, seg_base, bound = out, seg_base_next, cap
     return queue, seg_base, bound, cap
 
@@ -291,6 +301,43 @@ def _i32(vals, size, fill=0):
     a = np.full((size,), fill, np.int32)
     a[: len(vals)] = vals
     return jnp.asarray(a)
+
+
+def _jax_pack(ref, bvh, level, queue, seg_base, count_next, do_kill,
+              fused_gc=False):
+    """The JAX package's _run_pack on the port's queue of ``level``,
+    with the next level's regions from ``count_next``: (CHUNK-unit
+    region bases, its outputs).  With ``fused_gc`` it counts every inner
+    grandchild, as its trace does when the next level has inner
+    children."""
+    seg_nodes, kind, pair, lstart, lcnt, forced = bvh.wf_sched[level]
+    W, S, n = bvh.width, len(seg_nodes), queue.shape[0]
+    q_j, base_j, cnt_j = _to_jax_queue(queue, seg_base)
+    Sp = jax_wf2._bucket(S)
+    base_next, nchunks_next = _chunked_regions(count_next)
+    cdest = np.where(np.asarray(kind) == 1,
+                     base_next[np.maximum(np.asarray(pair), 0)], -1)
+    cgc = []
+    if fused_gc:
+        kind_next = bvh.wf_sched[level + 1][1]
+        for k, c in zip(kind, pair):
+            bits = sum(1 << w2 for w2 in range(W)
+                       if k == 1 and kind_next[c * W + w2] == 1)
+            cgc.append((1 << 8) | bits if k == 1 else 0)
+    logcap = 2 * n
+    k8 = max(-(-bvh.max_leaf // 8) * 8, 8)
+    return base_next, jax_wf2._run_pack(
+        jnp.asarray(q_j), ref.bvh.node_packed, ref.prim_packed,
+        jnp.zeros((4, logcap + C), jnp.float32),
+        _i32(seg_nodes, Sp), _i32(base_j, Sp), _i32(cnt_j, Sp),
+        _i32(cdest, Sp * W, -1), _i32(kind, Sp * W), _i32(lstart, Sp * W),
+        _i32(lcnt, Sp * W), _i32(forced, Sp * W), _i32(cgc, Sp * W),
+        jnp.zeros((1,), jnp.int32), jnp.asarray([S], jnp.int32),
+        jnp.arange(q_j.shape[1] // C, dtype=jnp.int32),
+        _i32([], Sp * W, -1),
+        W, k8, (nchunks_next + 2) * C, do_kill, 1e-3, logcap,
+        fused_gc=fused_gc,
+    )
 
 
 def test_level_matches_pallas_kernels(monkeypatch):
@@ -347,22 +394,8 @@ def test_level_matches_pallas_kernels(monkeypatch):
     assert counts_j.sum() > 50
 
     count_next = counts_j[lv.parent.numpy()]
-    base_next, nchunks_next = _chunked_regions(count_next)
-    cdest = np.where(np.asarray(kind) == 1,
-                     base_next[np.maximum(np.asarray(pair), 0)], -1)
-    logcap = 2 * n
-    k8 = max(-(-bvh.max_leaf // 8) * 8, 8)
-    queue_new, log, currow, _, _, _ = jax_wf2._run_pack(
-        jnp.asarray(q_j), ref.bvh.node_packed, ref.prim_packed,
-        jnp.zeros((4, logcap + C), jnp.float32),
-        sched_a["seg_node"], sched_a["seg_base"], sched_a["seg_count"],
-        _i32(cdest, Sp * W, -1), _i32(kind, Sp * W), _i32(lstart, Sp * W),
-        _i32(lcnt, Sp * W), _i32(forced, Sp * W), _i32([], Sp * W),
-        jnp.zeros((1,), jnp.int32), sched_a["nsegs"],
-        jnp.arange(q_j.shape[1] // C, dtype=jnp.int32),
-        _i32([], Sp * W, -1),
-        W, k8, (nchunks_next + 2) * C, True, 1e-3, logcap,
-    )
+    base_next, (queue_new, log, currow, _, _, _) = _jax_pack(
+        ref, bvh, level, queue, seg_base, count_next, True)
     queue_new, log, currow = map(np.asarray, (queue_new, log, currow))
     assert currow[0, 1] == 0
 
@@ -486,46 +519,294 @@ def test_derived_tables():
 
 
 def test_cuda_tensors_never_take_plain_path(monkeypatch):
-    """count_level and pack_level: CPU tensors run the plain versions,
-    CUDA tensors the kernels' launches, any other device raises; the
-    launches themselves refuse CPU tensors.  No try/fallback."""
+    """count_level, pack_level (with fused counts) and decode_keys: CPU
+    tensors run the plain versions, CUDA tensors the kernels' launches,
+    any other device raises; the launches themselves refuse CPU
+    tensors.  No try/fallback."""
     ours, _, box = scenes("soup")
     bvh = ours.bvh
+    W = bvh.width
     o, d = random_rays(64, 3, box)
     queue, seg_base, bound, cap = _level_state(ours, o, d, np.ones(64, bool),
                                                1)
-    lv = bvh.wf_levels[1]
-    calls = []
-    real = {k: getattr(wf, k) for k in
-            ("count_plain", "pack_plain", "count_cuda", "pack_cuda")}
-    for k in real:
-        monkeypatch.setattr(
-            wf, k, lambda *a, _k=k: calls.append(_k)
-            or (real[_k](*a) if _k.endswith("plain") else None))
-    before = (wf.count_launches, wf.pack_launches)
-    counts = wf.count_level(queue, seg_base, lv, bvh.wf_node_rows, 4, bound)
-    _, route, cursor, _ = wf.plan_regions(counts, lv, cap)
+    lv, nxt = bvh.wf_levels[1], bvh.wf_levels[2]
+    assert nxt.has_inner
+    ws = wf.workspace(bvh.wf_levels, W, "cpu")
+    tile_base = wf.tile_prefix(seg_base)
     keys = torch.full((64,), wf.KEY_MISS, dtype=torch.int64)
     dropped = torch.zeros((), dtype=torch.int64)
-    pack_args = (seg_base, lv, route, cursor, bvh.wf_node_rows,
-                 ours.wf_prim_rows, 4, False, 1e-3, torch.zeros((cap, 8)),
-                 keys, dropped, bound)
+    calls = []
+    names = ("count_plain", "plan_plain", "pack_plain", "decode_plain",
+             "count_cuda", "pack_cuda", "decode_cuda")
+    real = {k: getattr(wf, k) for k in names}
+    for k in real:
+        monkeypatch.setattr(
+            wf, k, lambda *a, _k=k, **kw: calls.append(_k)
+            or (real[_k](*a, **kw) if _k.endswith("plain") else None))
+    before = (wf.count_launches, wf.pack_launches, wf.decode_launches)
+    plan = ws.plans[1]
+    count_args = (seg_base, tile_base, lv, bvh.wf_node_rows, W, bound,
+                  ws.counts[1], plan, cap, dropped, ws.ticket)
+    fused = wf.Fused(nxt, ws.counts[2], ws.plans[2], cap, ws.ticket)
+    pack_args = (seg_base, tile_base, lv, plan.route, plan.cursor,
+                 bvh.wf_node_rows, ours.wf_prim_rows, W, False, 1e-3,
+                 torch.zeros((cap, 8)), keys, dropped, bound, fused)
+    wf.count_level(queue, *count_args)
     wf.pack_level(queue, *pack_args)
-    assert calls == ["count_plain", "pack_plain"]
-    assert (wf.count_launches, wf.pack_launches) == before
+    wf.decode_keys(keys)
+    assert calls == ["count_plain", "plan_plain", "pack_plain", "plan_plain",
+                     "decode_plain"]
+    assert int(ws.counts[2].sum()) > 0 and int(dropped) == 0
+    assert (wf.count_launches, wf.pack_launches, wf.decode_launches) \
+        == before
 
     class OnCard:
         device = torch.device("cuda", 0)
 
-    wf.count_level(OnCard(), seg_base, lv, bvh.wf_node_rows, 4, bound)
+    wf.count_level(OnCard(), *count_args)
     wf.pack_level(OnCard(), *pack_args)
-    assert calls[2:] == ["count_cuda", "pack_cuda"]
+    wf.decode_keys(OnCard())
+    assert calls[5:] == ["count_cuda", "pack_cuda", "decode_cuda"]
     meta = queue.to("meta")
     with pytest.raises(ValueError, match="device"):
-        wf.count_level(meta, seg_base, lv, bvh.wf_node_rows, 4, bound)
+        wf.count_level(meta, *count_args)
     with pytest.raises(ValueError, match="device"):
         wf.pack_level(meta, *pack_args)
+    with pytest.raises(ValueError, match="device"):
+        wf.decode_keys(keys.to("meta"))
     with pytest.raises(ValueError, match="CUDA"):
-        real["count_cuda"](queue, seg_base, lv, bvh.wf_node_rows, 4, bound)
+        real["count_cuda"](queue, *count_args)
     with pytest.raises(ValueError, match="CUDA"):
         real["pack_cuda"](queue, *pack_args)
+    with pytest.raises(ValueError, match="CUDA"):
+        real["decode_cuda"](keys)
+
+
+# ---------------------------------------------------------------------------
+# fused counts, the region plan, tiles and the key decode
+# ---------------------------------------------------------------------------
+
+
+def _fused_level(name, level, shadow, n=1024, seed=5):
+    """Level ``level`` entered by n rays (shadow rays with a limit of
+    5, which lets soup level 2's one leaf child kill a few lineages),
+    counted and planned; then pack_plain with fused counts.
+    Returns (scene, queue written, its seg_base, next level, counts the
+    pack made for it, killed entries written, the entering state)."""
+    ours, _, _ = scenes(name)
+    bvh = ours.bvh
+    W = bvh.width
+    o, d = random_rays(n, seed, 0.5)
+    valid = np.arange(n) % 9 != 4
+    t_limit = np.full(n, 5.0, np.float32) if shadow else None
+    queue, seg_base, _, cap = _level_state(ours, o, d, valid, level, t_limit)
+    lv, nxt = bvh.wf_levels[level], bvh.wf_levels[level + 1]
+    assert nxt.has_inner
+    counts = wf.count_plain(queue, seg_base, lv, bvh.wf_node_rows, W)
+    seg_base_next, route, cursor, lost = wf.plan_regions(counts, lv, cap)
+    assert int(lost) == 0
+    out = torch.zeros((cap, 8))
+    keys = torch.full((n,), wf.KEY_MISS, dtype=torch.int64)
+    dropped = torch.zeros((), dtype=torch.int64)
+    counts_next = torch.zeros((nxt.num_segs * W,), dtype=torch.int32)
+    wf.pack_plain(queue, seg_base, lv, route, cursor, bvh.wf_node_rows,
+                  ours.wf_prim_rows, W, shadow, 1e-3, out, keys, dropped,
+                  counts_next=counts_next, lv_next=nxt)
+    assert int(dropped) == 0
+    total = int(seg_base_next[-1])
+    killed = int((out[:total, 7] == -1.0).sum())
+    return ours, out, seg_base_next, nxt, counts_next, killed, \
+        (queue, seg_base, counts)
+
+
+@pytest.mark.parametrize("name,level,shadow", [
+    ("soup", 2, False), ("soup", 2, True), ("soup8", 1, False),
+])
+def test_fused_counts_equal_count_of_written_queue(name, level, shadow):
+    """The counts pack_plain makes for the next level are count_plain of
+    the queue it wrote, exactly.  Soup level 2 is the deepest whose next
+    level has inner children (level 3's next has none); in shadow mode
+    its leaf child kills lineages, which are routed with tub = -1 and
+    count nothing.  The W = 8 soup's level 1 counts for its level 2."""
+    ours, out, sbn, nxt, counts_next, killed, _ = _fused_level(
+        name, level, shadow)
+    bvh = ours.bvh
+    want = wf.count_plain(out, sbn, nxt, bvh.wf_node_rows, bvh.width)
+    np.testing.assert_array_equal(counts_next.numpy(), want.numpy())
+    assert want.sum() > 50
+    if shadow:
+        assert killed > 0
+
+
+def test_fused_counts_match_pallas_fused_gc(monkeypatch):
+    """The same counts against the JAX package's pack kernel with
+    fused_gc in interpret mode (its gc_out: lane w*W + w' of segment s is
+    the survivors of child w entering grandchild w'), shadow mode with
+    the kill, soup level 2."""
+    monkeypatch.setattr(jax_wf2, "_INTERPRET", True)
+    level = 2
+    ours, out, sbn, nxt, counts_next, killed, (queue, seg_base, counts) = \
+        _fused_level("soup", level, True)
+    ref = scenes("soup")[1]
+    bvh = ours.bvh
+    W = bvh.width
+    lv = bvh.wf_levels[level]
+    count_next = counts.numpy()[lv.parent.numpy()]
+    _, res = _jax_pack(ref, bvh, level, queue, seg_base, count_next, True,
+                       fused_gc=True)
+    assert int(np.asarray(res[2])[0, 1]) == 0
+    gc = np.asarray(res[3])[:lv.num_segs, :W * W].reshape(-1, W)
+    pair = lv.pair.numpy()
+    got = counts_next.numpy().reshape(-1, W)
+    inner = pair >= 0
+    np.testing.assert_array_equal(got[pair[inner]],
+                                  gc[inner].astype(np.int32))
+    assert killed > 0 and got.sum() > 50
+
+
+def _trace_pair(name, n, seed, valid_mod, shadow=False, **kw):
+    ours, ref, box = scenes(name)
+    o, d = random_rays(n, seed, box)
+    valid = np.arange(n) % valid_mod != 2
+    t_limit = None
+    if shadow:
+        tb, pb = _oracle(ref, o, d, valid)
+        t_limit = np.where(pb >= 0, tb, 2.0).astype(np.float32) * np.where(
+            np.arange(n) % 3 == 0, 0.5, 1.5).astype(np.float32)
+    a = _trace(ours, o, d, valid, t_limit, **kw)
+    b = _trace(ours, o, d, valid, t_limit, fused_counts=False, **kw)
+    np.testing.assert_array_equal(a[0].view(np.int32), b[0].view(np.int32))
+    np.testing.assert_array_equal(a[1], b[1])
+    assert a[2] == b[2]
+    return (o, d, valid, t_limit), a
+
+
+def test_fused_trace_matches_unfused_and_pallas(monkeypatch):
+    """trace_closest_wavefront with fused counts (the default) equals
+    fused_counts=False to the bit, and the JAX package's trace with
+    fused_counts=True (interpret mode) under the bar of
+    test_trace_matches_pallas_wavefront, on terrain n=8 (three levels:
+    pack 0 counts level 1)."""
+    monkeypatch.setattr(jax_wf2, "_INTERPRET", True)
+    (o, d, valid, _), (ta, pa, dropped) = _trace_pair(
+        "terrain", 1024, 17, 7, compact=True)
+    ref = scenes("terrain")[1]
+    res = jax_wf2.trace_closest_wavefront(
+        ref, jnp.asarray(o), jnp.asarray(d), jnp.asarray(valid),
+        compact=True, fused_counts=True)
+    assert dropped == 0 and int(res.dropped) == 0
+    tb, pb = np.asarray(res.t), np.asarray(res.prim)
+    np.testing.assert_array_equal(pa < 0, pb < 0)
+    hit = pa >= 0
+    assert hit.sum() > 200
+    np.testing.assert_allclose(ta[hit], tb[hit], rtol=JIT_RTOL,
+                               atol=JIT_ATOL)
+    assert (hit & (pa != pb)).mean() < 0.01
+
+
+@pytest.mark.parametrize("name", ["terrain", "soup"])
+def test_fused_shadow_trace_matches_unfused(name):
+    """Shadow mode with the kill: fused counts equal a count sweep to
+    the bit, and decide t > max_t - eps as the oracle does."""
+    (o, d, valid, t_limit), (ta, _, dropped) = _trace_pair(
+        name, 1024, 19, 5, shadow=True)
+    tb, _ = _oracle(scenes(name)[1], o, d, valid)
+    eps = np.float32(1e-3)
+    assert dropped == 0
+    np.testing.assert_array_equal(ta > t_limit - eps, tb > t_limit - eps)
+    assert 0 < (ta > t_limit - eps).sum() < len(o)
+
+
+def test_fused_counts_under_overflow(monkeypatch):
+    """With a queue too small, fused counts count only the survivors
+    that were written: the same t, prim and dropped as a count sweep."""
+    monkeypatch.setattr(wf, "queue_capacity", lambda *a: 1500)
+    _, (_, p, dropped) = _trace_pair("soup", 1024, 9, 1000)
+    assert dropped > 0 and (p >= 0).sum() > 50
+
+
+def test_width8_matches_bruteforce():
+    """Width 8 (the kernels' widest): the fused trace against the
+    oracle, t to the bit, and against a count sweep."""
+    ours, ref, box = scenes("soup8")
+    assert ours.bvh.width == 8 and len(ours.bvh.wf_levels) == 4
+    (o, d, valid, _), (ta, pa, dropped) = _trace_pair("soup8", 1024, 4, 5)
+    tb, pb = _oracle(ref, o, d, valid)
+    assert dropped == 0 and (pa >= 0).sum() > 50
+    check_closest(ta, pa, tb, pb)
+
+
+def _tile_ranges(seg_base, tile_base):
+    """The entry range of every tile, found as the kernels find it: the
+    largest s with tile_base[s] <= t, then the tile's place in s."""
+    sb, tb = seg_base.tolist(), tile_base.tolist()
+    out = []
+    for t in range(tb[-1]):
+        s = bisect.bisect_right(tb, t) - 1
+        lo = sb[s] + (t - tb[s]) * wf.TILE
+        hi = min(lo + wf.TILE, sb[s + 1])
+        assert sb[s] <= lo < hi <= sb[s + 1], "a tile outside its segment"
+        out.append((lo, hi))
+    return out
+
+
+@pytest.mark.parametrize("fused,cap", [
+    (True, None), (False, None), (True, 1500),
+])
+def test_region_plan_matches_plan_regions(monkeypatch, fused, cap):
+    """On every level of a trace, the plan the level loop gets (on the
+    card from the last block of the kernel that counted, here from
+    plan_plain) equals plan_regions of the counts, lost entries included
+    (the 1500-entry queue overflows) and added to dropped once; and its
+    tiles cover every entry of the next level exactly once, each tile
+    inside one segment, with fewer than TILE idle lanes per segment.
+    chip_smoke.py holds the kernels' own plans to plan_regions."""
+    if cap is not None:
+        monkeypatch.setattr(wf, "queue_capacity", lambda *a: cap)
+    real = wf.plan_plain
+    lost_seen = []
+
+    def checked(counts, lv, cap_, plan, dropped):
+        before = int(dropped)
+        real(counts, lv, cap_, plan, dropped)
+        sb, route, cursor, lost = wf.plan_regions(counts, lv, cap_)
+        for got, want in ((plan.seg_base, sb), (plan.route, route),
+                          (plan.cursor, cursor),
+                          (plan.tile_base, wf.tile_prefix(sb))):
+            np.testing.assert_array_equal(got.numpy(), want.numpy())
+        assert int(dropped) - before == int(lost)
+        lost_seen.append(int(lost))
+        ranges = _tile_ranges(plan.seg_base, plan.tile_base)
+        flat = [x for r in ranges for x in r]
+        assert flat[1:-1:2] == flat[2::2] if ranges else True
+        total = int(sb[-1])
+        assert (flat[0], flat[-1]) == (0, total) if ranges else total == 0
+        assert len(ranges) * wf.TILE - total < lv.num_next * wf.TILE
+
+    monkeypatch.setattr(wf, "plan_plain", checked)
+    ours, _, box = scenes("soup")
+    n = 1024
+    o, d = random_rays(n, 9, box)
+    _, p, dropped = _trace(ours, o, d, np.ones(n, bool), fused_counts=fused)
+    assert len(lost_seen) == 4  # soup levels 0-3 have inner children
+    assert dropped == sum(lost_seen) and (dropped > 0) == (cap is not None)
+    assert (p >= 0).sum() > 50
+
+
+def test_decode_plain_hits_misses():
+    """decode_plain (the decode kernel's plain version): a hit gives its
+    t to the bit (0, -0, a denormal, the largest float) and its prim, a
+    miss (inf, -1); with want_prim=False a hit gives -2."""
+    t = torch.tensor([0.0, -0.0, 1e-40, 3.5, 3.4028235e38],
+                     dtype=torch.float32)
+    prim = torch.tensor([0, 5, (1 << 24) - 1, 123456, 7])
+    keys = torch.cat([wf.hit_keys(t, prim), torch.tensor([wf.KEY_MISS])])
+    got_t, got_p = wf.decode_plain(keys)
+    assert got_t.dtype == torch.float32 and got_p.dtype == torch.int32
+    np.testing.assert_array_equal(got_t[:5].view(torch.int32).numpy(),
+                                  t.view(torch.int32).numpy())
+    assert got_t[5] == float("inf")
+    assert got_p.tolist() == [0, 5, (1 << 24) - 1, 123456, 7, -1]
+    lite_t, lite_p = wf.decode_plain(keys, want_prim=False)
+    assert lite_p.tolist() == [-2] * 5 + [-1]
+    np.testing.assert_array_equal(lite_t.numpy(), got_t.numpy())

@@ -10,12 +10,14 @@ packet-DFS; 800x600, 32 spp per frame, depth 4, NEE 1x1.0) on one card:
 a warm-up frame, then one frame with every bounce-loop stage timed by
 CUDA events around it (trace, shade_hit, nee_prep, nee_accum, scatter,
 plus raygen and film) and, inside the wavefront traces, the partition
-of the rays into the level-0 queue, the count and pack kernels, the
-region arithmetic between them and the decode of the hit keys (the
-merge), with the live entries the partition found per trace; then one
-frame under
-torch.profiler for device time by kernel name and the device's busy
-share of the frame.  Prints the card's name and power limit first.
+of the rays into the level-0 queue, the count kernel (with its region
+plan), the pack kernel (with the next level's counts and plan) and the
+decode kernel of the hit keys (the merge), with the live entries the
+partition found per trace; then the device launches of one wavefront
+closest-hit and one shadow trace of that frame (torch.profiler); then
+one frame under torch.profiler for device time by kernel name and the
+device's busy share of the frame.  Prints the card's name and power
+limit first.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ def main() -> int:
     from cuda_raytracer_tpu_torch.models.cornell import cornell_box_scene
     from cuda_raytracer_tpu_torch.models.terrain import terrain_scene
     from cuda_raytracer_tpu_torch.ops import wavefront2 as wf
+    from cuda_raytracer_tpu_torch.render import backends
     from cuda_raytracer_tpu_torch.render.engine import WavefrontRenderer
 
     print(f"card: {cs.smi_line()}; traversal_rr={args.traversal_rr!r}")
@@ -81,8 +84,9 @@ def main() -> int:
     # inside the wavefront traces (these rows are part of the trace rows)
     live = []
     parts = {"compact_live_rays": "partition (rays)",
-             "count_level": "count", "plan_regions": "regions (torch)",
-             "pack_level": "pack", "decode_keys": "merge (decode keys)"}
+             "count_level": "count (+ plan)",
+             "pack_level": "pack (+ next counts, plan)",
+             "decode_keys": "merge (decode kernel)"}
     for fn, label in parts.items():
         setattr(wf, fn, timed("  wavefront: " + label, getattr(wf, fn)))
     compact = wf.compact_live_rays
@@ -93,10 +97,20 @@ def main() -> int:
         return out
 
     wf.compact_live_rays = compact_and_note
+    first_wf = {}
+    trace_wf = backends.trace_closest_wavefront
+
+    def keep_first(scene, o, d, valid, t_limit, *a, **kw):
+        first_wf.setdefault(t_limit is None, (scene, o, d, valid, t_limit,
+                                              a, kw))
+        return trace_wf(scene, o, d, valid, t_limit, *a, **kw)
+
+    backends.trace_closest_wavefront = keep_first
     t0 = time.perf_counter()
     r.render()
     torch.cuda.synchronize()
     frame_ms = (time.perf_counter() - t0) * 1e3
+    backends.trace_closest_wavefront = trace_wf
     if live:
         print("[live] entries the partition kept, per wavefront trace in "
               "frame order (depth 2 closest-hit, depth 2 shadow, depth 3 "
@@ -117,6 +131,19 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    # device launches of one wavefront trace (the first of each kind)
+    for closest, (scene, o, d, valid, t_limit, a, kw) in sorted(
+            first_wf.items(), reverse=True):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            trace_wf(scene, o, d, valid, t_limit, *a, **kw)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        print(f"[launches] one wavefront {'closest-hit' if closest else 'shadow'}"
+              f" trace ({len(scene.bvh.wf_levels)} levels): "
+              f"{sum(e.count for e in kern)} device launches: "
+              + ", ".join(f"{e.count}x {e.key[:48]}" for e in kern))
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         r.render()
