@@ -43,7 +43,17 @@ prints one JSON line for the kernels and, last, the device line.  Phases:
    the DFS kernel on the same rays; and the decode kernel on two
    traces' 15,360,000 keys;
 4. the same small frames on the card and on the CPU, per pixel: the
-   Cornell box, and terrain n=8 under max_leaf_size=4 (three levels).
+   Cornell box, and terrain n=8 under max_leaf_size=4 (three levels);
+5. run C, a scene file: a Z_UP COLLADA document written here (run B's
+   terrain n=121 as a triangles mesh with normals, the Cornell walls as
+   polylist quads, a mirror and a glass sphere, an area light, a camera)
+   rendered through ``render_cli.main`` at 800x600, fast preset, 64 spp
+   (2 frames of 32), depth 4, once with ``--camera-mode collada`` and
+   once with ``cutracer``: the loaded tables equal to those of the same
+   scene built in Python, dropped == 0, the launches the schedule gives,
+   the PNG read back by the port's load_png; the load time by step; and
+   the same document at terrain n=8 under max_leaf_size=4 on the card
+   and on the CPU, per pixel, in both camera modes.
 
 Needs one CUDA card; exits non-zero (and prints no result) without one,
 or when run outside a checkout of the repository.  Imports nothing of
@@ -1017,6 +1027,379 @@ def phase_cpu_vs_cuda():
               f"card and CPU frames differ ({name})")
 
 
+#: run C: the area light (world position, full extents, radiance) and
+#: the camera node's world position, which the .dae camera lifts by
+#: 0.75 in y (collada and cutracer modes): VIEW_A's origin
+RUN_C_LIGHT = ((0.0, 1.49, 0.0), (0.6, 0.5), 10.0)
+RUN_C_CAMERA = (0.0, 0.0, 2.5)
+#: run C's PNG (gamma-2.2 tonemapped) must be brighter than this mean;
+#: a frame that lost its light or its camera reads near 0
+RUN_C_PNG_FLOOR = 0.05
+
+
+def run_c_objects(n):
+    """Run C's objects in world coordinates, in the document's node order:
+    terrain n as a triangles mesh (its vertex normals as a NORMAL input,
+    its reflectance 0.7), the Cornell box's walls without its floor (the
+    terrain takes its place) as polylist quads by material, and a mirror
+    and a glass sphere above the terrain.  Meshes are (name, positions,
+    polygons, normals or None, material), spheres (name, centre, radius,
+    material); a material is (kind, parameters)."""
+    import numpy as np
+
+    from cuda_raytracer_tpu_torch.models.terrain import terrain_scene
+
+    terrain = terrain_scene(n=n).objects[0]
+    v = lambda *p: np.array(p, dtype=np.float64)  # noqa: E731
+    walls = {
+        "white": [[v(-1, 1.5, -1), v(-1, 1.5, 1), v(1, 1.5, 1), v(1, 1.5, -1)],
+                  [v(-1, 0, -1), v(-1, 1.5, -1), v(1, 1.5, -1), v(1, 0, -1)]],
+        "red": [[v(-1, 0, -1), v(-1, 0, 1), v(-1, 1.5, 1), v(-1, 1.5, -1)]],
+        "blue": [[v(1, 0, -1), v(1, 1.5, -1), v(1, 1.5, 1), v(1, 0, 1)]],
+    }
+    albedo = {"white": (0.8, 0.8, 0.8), "red": (0.8, 0.1, 0.1),
+              "blue": (0.1, 0.1, 0.8)}
+    meshes = [("terrain", terrain.positions, terrain.indices.tolist(),
+               terrain.normals, ("phong", (0.7, 0.7, 0.7)))]
+    for name, quads in walls.items():
+        meshes.append((name, np.concatenate([np.stack(q) for q in quads]),
+                       [list(range(4 * k, 4 * k + 4))
+                        for k in range(len(quads))],
+                       None, ("phong", albedo[name])))
+    spheres = [
+        ("mirror", v(-0.45, 0.45, -0.1), 0.3, ("mirror", (0.9, 0.9, 0.9))),
+        ("glass", v(0.45, 0.45, 0.2), 0.3,
+         ("glass", (0.9, 0.9, 0.9), (0.9, 0.9, 0.9), 0.0, 1.5)),
+    ]
+    return meshes, spheres
+
+
+def _doc(points):
+    """World points as the Z_UP document writes them: the inverse of the
+    parser's basis, which maps a document's (x, y, z) to (-x, z, y)."""
+    import numpy as np
+
+    p = np.asarray(points, dtype=np.float64).reshape(-1, 3)
+    return np.stack([-p[:, 0], p[:, 2], p[:, 1]], axis=1)
+
+
+def _text(values) -> str:
+    import numpy as np
+
+    return " ".join(repr(float(x)) for x in np.asarray(values).reshape(-1))
+
+
+def run_c_document(n) -> str:
+    """Run C's COLLADA document (Z_UP, floats written with repr)."""
+    meshes, spheres = run_c_objects(n)
+    effects, materials, geometries, nodes = [], [], [], []
+
+    def material(name, mat):
+        kind, *par = mat
+        if kind == "phong":
+            body = ('<profile_COMMON><technique sid="common"><phong><diffuse>'
+                    f'<color>{_text(par[0])} 1.0</color></diffuse></phong>'
+                    '</technique></profile_COMMON>')
+        elif kind == "mirror":
+            body = ('<extra><technique profile="CMU462"><mirror><reflectance>'
+                    f'{_text(par[0])}</reflectance></mirror></technique>'
+                    '</extra>')
+        else:
+            body = ('<extra><technique profile="CMU462"><glass>'
+                    f'<transmittance>{_text(par[0])}</transmittance>'
+                    f'<reflectance>{_text(par[1])}</reflectance>'
+                    f'<roughness>{par[2]!r}</roughness><ior>{par[3]!r}</ior>'
+                    '</glass></technique></extra>')
+        effects.append(f'<effect id="fx-{name}">{body}</effect>')
+        materials.append(f'<material id="mat-{name}"><instance_effect '
+                         f'url="#fx-{name}"/></material>')
+        return (f'<bind_material><technique_common><instance_material '
+                f'symbol="m" target="#mat-{name}"/></technique_common>'
+                f'</bind_material>')
+
+    for name, pos, polys, normals, mat in meshes:
+        src = (f'<source id="{name}-pos"><float_array id="{name}-pos-arr" '
+               f'count="{3 * len(pos)}">{_text(_doc(pos))}</float_array>'
+               f'</source>')
+        vin = f'<input semantic="VERTEX" source="#{name}-v" offset="0"/>'
+        if normals is not None:
+            src += (f'<source id="{name}-nrm"><float_array id="{name}-nrm-arr"'
+                    f' count="{3 * len(normals)}">{_text(_doc(normals))}'
+                    f'</float_array></source>')
+            prim = (f'<triangles count="{len(polys)}">{vin}<input '
+                    f'semantic="NORMAL" source="#{name}-nrm" offset="1"/><p>'
+                    + " ".join(f"{i} {i}" for p in polys for i in p)
+                    + "</p></triangles>")
+        else:
+            prim = (f'<polylist count="{len(polys)}">{vin}<vcount>'
+                    + " ".join(str(len(p)) for p in polys) + "</vcount><p>"
+                    + " ".join(str(i) for p in polys for i in p)
+                    + "</p></polylist>")
+        geometries.append(
+            f'<geometry id="{name}"><mesh>{src}<vertices id="{name}-v">'
+            f'<input semantic="POSITION" source="#{name}-pos"/></vertices>'
+            f'{prim}</mesh></geometry>')
+        nodes.append(f'<node id="{name}-node"><instance_geometry '
+                     f'url="#{name}">{material(name, mat)}'
+                     f'</instance_geometry></node>')
+    for name, centre, radius, mat in spheres:
+        geometries.append(
+            f'<geometry id="{name}"><extra><technique profile="CMU462">'
+            f'<sphere><radius>{radius!r}</radius></sphere></technique>'
+            f'</extra></geometry>')
+        nodes.append(f'<node id="{name}-node"><translate>'
+                     f'{_text(_doc(centre))}</translate><instance_geometry '
+                     f'url="#{name}">{material(name, mat)}'
+                     f'</instance_geometry></node>')
+    (lx, ly, lz), (ex, ey), rad = RUN_C_LIGHT
+    # the light's default frame (facing -z, up +y) is the world's facing
+    # -y under the Z_UP basis; the scale gives its extents
+    nodes.append(f'<node id="light-node"><scale>{ex!r} {ey!r} 1.0</scale>'
+                 f'<translate>{_text(_doc((lx, ly, lz)))}</translate>'
+                 f'<instance_light url="#light"/></node>')
+    # the camera's rotation is the basis' own inverse, so in the world it
+    # looks down -z with +y up
+    cx, cy, cz = (float(x) for x in _doc(RUN_C_CAMERA)[0])
+    nodes.append(f'<node id="camera-node"><matrix>-1.0 0.0 0.0 {cx!r} '
+                 f'0.0 0.0 1.0 {cy!r} 0.0 1.0 0.0 {cz!r} 0.0 0.0 0.0 1.0'
+                 f'</matrix><instance_camera url="#camera"/></node>')
+    return (
+        '<?xml version="1.0" encoding="utf-8"?>\n<COLLADA xmlns="http://www.'
+        'collada.org/2005/11/COLLADASchema" version="1.4.1"><asset><up_axis>'
+        'Z_UP</up_axis></asset><library_cameras><camera id="camera"><optics>'
+        '<technique_common><perspective><xfov>50.0</xfov><yfov>38.0</yfov>'
+        '<znear>0.01</znear><zfar>100.0</zfar></perspective>'
+        '</technique_common></optics></camera></library_cameras>'
+        '<library_lights><light id="light"><extra><technique '
+        f'profile="CMU462"><area><color>{_text((rad,) * 3)}</color></area>'
+        '</technique></extra></light></library_lights><library_effects>'
+        + "".join(effects) + "</library_effects><library_materials>"
+        + "".join(materials) + "</library_materials><library_geometries>"
+        + "".join(geometries) + "</library_geometries><library_visual_scenes>"
+        '<visual_scene id="vs">' + "".join(nodes) + "</visual_scene>"
+        '</library_visual_scenes><scene><instance_visual_scene url="#vs"/>'
+        "</scene></COLLADA>\n"
+    )
+
+
+def run_c_reference(n):
+    """Run C's scene built in Python from the same objects, as
+    dynamic_scene builds a static mesh (fan triangulation, area-weighted
+    vertex normals; a document's NORMAL input is not used)."""
+    import numpy as np
+
+    from cuda_raytracer_tpu_torch.scene import static_scene as st
+    from cuda_raytracer_tpu_torch.scene.bsdf import (
+        DiffuseBSDF,
+        GlassBSDF,
+        MirrorBSDF,
+    )
+    from cuda_raytracer_tpu_torch.scene.mesh import PolygonMesh
+
+    def bsdf(mat):
+        kind, *par = mat
+        return {"phong": DiffuseBSDF, "mirror": MirrorBSDF,
+                "glass": GlassBSDF}[kind](*par)
+
+    meshes, spheres = run_c_objects(n)
+    objects = []
+    for _, pos, polys, _, mat in meshes:
+        pm = PolygonMesh(np.asarray(pos, dtype=np.float64), polys)
+        tris = pm.triangulate()
+        objects.append(st.Mesh(pm.vertices, pm.vertex_normals(tris), tris,
+                               bsdf(mat)))
+    for _, centre, radius, mat in spheres:
+        objects.append(st.SphereObject(centre, radius, bsdf(mat)))
+    (lx, ly, lz), (ex, ey), rad = RUN_C_LIGHT
+    light = st.AreaLight([rad] * 3, [lx, ly, lz], [0.0, -1.0, 0.0],
+                         [ex, 0.0, 0.0], [0.0, 0.0, ey])
+    return st.Scene(objects, [light])
+
+
+def _cli_run(argv):
+    """render_cli.main(argv) in this process; returns (the renderer it
+    made, its --bench JSON).  The renderer class is wrapped only to keep
+    the instance, each frame's host time (render() waits for its frame)
+    and the dropped rays of every frame."""
+    import contextlib
+    import io
+
+    from cuda_raytracer_tpu_torch.apps import render_cli
+    from cuda_raytracer_tpu_torch.render import engine
+
+    base, made = engine.WavefrontRenderer, []
+
+    class Kept(base):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.frame_ms, self.dropped_sum = [], 0
+            made.append(self)
+
+        def render(self):
+            t0 = time.perf_counter()
+            super().render()
+            self.frame_ms.append((time.perf_counter() - t0) * 1e3)
+            self.dropped_sum += self.dropped
+
+    out = io.StringIO()
+    engine.WavefrontRenderer = Kept
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = render_cli.main(argv)
+    finally:
+        engine.WavefrontRenderer = base
+    for line in out.getvalue().splitlines():
+        print(f"[run C] render_cli: {line}")
+    check(rc == 0 and len(made) == 1, "render_cli did not render")
+    return made[0], json.loads(out.getvalue().splitlines()[0])
+
+
+def _check_tables(where, scene, want_scene, cfg):
+    """Every table of the loaded FlatScene equal to flatten_tables of the
+    scene built in Python under the same config, array for array."""
+    import numpy as np
+
+    from cuda_raytracer_tpu_torch.render.flatscene import flatten_tables
+
+    fields, static, _ = flatten_tables(want_scene, cfg.tree_width,
+                                       cfg.max_leaf_size, cfg.sah_bins)
+    bad = []
+    for name, want in fields.items():
+        obj = scene.bvh if name.startswith("bvh.") else scene
+        got = getattr(obj, name.split(".")[-1]).cpu().numpy()
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            bad.append(name)
+    for name, want in static.items():
+        obj = scene.bvh if name.startswith("bvh.") else scene
+        if getattr(obj, name.split(".")[-1]) != want:
+            bad.append(name)
+    print(f"[run C] {where}: {len(fields)} tables and {len(static)} static "
+          f"fields against the scene built in Python: "
+          f"{'all equal' if not bad else 'differing: ' + ', '.join(bad)}")
+    check(not bad, f"{where}: tables differ from the scene built in Python")
+
+
+def phase_run_c(n=121, size=(WIDTH, HEIGHT), spp=64, small_n=8):
+    """Run C: a COLLADA document of terrain n, the Cornell walls, two
+    spheres, an area light and a camera, rendered through render_cli at
+    full width (fast preset, depth 4, ``spp`` in frames of 32), once per
+    camera mode that reads the document's camera; then the same document
+    at terrain ``small_n`` on the card and on the CPU, per pixel."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cuda_raytracer_tpu_torch.config import RenderConfig, fast_preset_kwargs
+    from cuda_raytracer_tpu_torch.render.engine import WavefrontRenderer
+    from cuda_raytracer_tpu_torch.render.flatscene import flatten_scene
+    from cuda_raytracer_tpu_torch.scene.collada import load_scene_info
+    from cuda_raytracer_tpu_torch.scene.dynamic_scene import (
+        load_from_scene_info,
+    )
+    from cuda_raytracer_tpu_torch.utils.image import load_png
+
+    w, h = size
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "run_c.dae")
+        t0 = time.perf_counter()
+        text = run_c_document(n)
+        with open(path, "w") as f:
+            f.write(text)
+        print(f"[run C] wrote {len(text)} bytes of COLLADA (terrain n={n}) "
+              f"in {time.perf_counter() - t0:.2f} s")
+        want_scene = run_c_reference(n)
+        for mode in ("collada", "cutracer"):
+            out = os.path.join(tmp, f"{mode}.png")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            r, bench = _cli_run([
+                path, "-w", out, "-s", str(spp), "-m", "4",
+                "--size", f"{w}x{h}", "--preset", "fast",
+                "--camera-mode", mode, "--bench", "--device", DEVICE])
+            torch.cuda.synchronize()
+            launches = read_launches()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            frames = len(r.frame_ms)
+            want = expected_launches(r, frames)
+            levels = [len(lv[0]) for lv in r.scene.bvh.wf_sched]
+            steady = r.mrays_per_frame / (r.frame_ms[-1] / 1e3)
+            print(f"[run C] {mode}: {r.scene.num_prims} prims, wavefront "
+                  f"segments per level {levels}, {frames} frames of "
+                  f"{r.config.samples_per_frame} spp, ms per frame "
+                  f"{[round(x, 1) for x in r.frame_ms]}, Mrays/s (bench.py's "
+                  f"accounting) {bench['mrays_per_s']} over the render, "
+                  f"{steady:.3f} over its last frame; load_s "
+                  f"{bench['load_s']}; dropped {r.dropped_sum}; "
+                  f"torch.cuda.max_memory_allocated {peak:.2f} GiB; launches "
+                  f"{launches} (want {want})")
+            _check_tables(f"{mode}: loaded scene", r.scene, want_scene,
+                          r.config)
+            check(r.dropped_sum == 0, f"run C {mode}: dropped rays")
+            check(launches == want, f"run C {mode}: kernel launches "
+                  f"{launches} != the schedule's {want}")
+            for k in COUNTERS:
+                if k not in OFF_PATH:
+                    check(launches[k] > 0, f"run C {mode} never launched {k}")
+            png = load_png(out)
+            mean = float(png.mean())
+            print(f"[run C] {mode}: the PNG decodes to {png.shape}, mean "
+                  f"{mean:.6f} (floor {RUN_C_PNG_FLOOR})")
+            check(png.shape == (h, w, 3), f"run C {mode}: PNG shape")
+            check(bool(np.isfinite(png).all()) and mean > RUN_C_PNG_FLOOR,
+                  f"run C {mode}: PNG mean {mean} at or below the floor")
+
+        # the CLI's load_scene, step by step
+        cfg = r.config
+        t0 = time.perf_counter()
+        info = load_scene_info(path)
+        t1 = time.perf_counter()
+        sscene = load_from_scene_info(info)[0].get_static_scene()
+        t2 = time.perf_counter()
+        flatten_scene(sscene, tree_width=cfg.tree_width,
+                      max_leaf_size=cfg.max_leaf_size, sah_bins=cfg.sah_bins,
+                      device=DEVICE)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        print(f"[run C] load_s by step: parse {t1 - t0:.3f} s, dynamic scene "
+              f"+ get_static_scene {t2 - t1:.3f} s, flatten (BVH build and "
+              f"tables onto the card) {t3 - t2:.3f} s; total {t3 - t0:.3f} s")
+
+        # the card against the CPU on the same document at terrain small_n
+        small = os.path.join(tmp, "run_c_small.dae")
+        with open(small, "w") as f:
+            f.write(run_c_document(small_n))
+        sw, sh, spf, frames = 64, 32, 2, 2
+        kw = fast_preset_kwargs(sw, sh, spf * frames)
+        kw.update(samples_per_frame=spf, max_leaf_size=4)
+        small_cfg = RenderConfig(width=sw, height=sh,
+                                 total_samples=spf * frames, max_depth=4,
+                                 nee_schedule=((1, 1.0),) * 4, **kw)
+        for mode in ("collada", "cutracer"):
+            imgs = []
+            for dev in (DEVICE, "cpu"):
+                rr = WavefrontRenderer(small_cfg, camera_mode=mode,
+                                       device=dev)
+                rr.load_scene(small)
+                for _ in range(frames):
+                    rr.render()
+                    check(rr.dropped == 0, f"run C small {mode}: dropped")
+                imgs.append(rr.get_raw_image())
+            a, b = imgs
+            bad = ~np.isclose(a, b, rtol=PIXEL_RTOL, atol=PIXEL_ATOL).all(-1)
+            nlev = len(rr.scene.bvh.wf_sched)
+            print(f"[run C] card vs CPU, terrain n={small_n} document, "
+                  f"max_leaf_size=4 ({nlev} wavefront levels), {mode}, "
+                  f"{sw}x{sh}, {frames} frames of {spf} spp: "
+                  f"{int(bad.sum())} of {sw * sh} pixels outside "
+                  f"rtol={PIXEL_RTOL} atol={PIXEL_ATOL}; max |diff| "
+                  f"{float(np.abs(a - b).max()):.3g}")
+            check(nlev > 1, "run C small: the wavefront has one level")
+            check(float(bad.mean()) <= MAX_BAD,
+                  f"run C small {mode}: card and CPU frames differ")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "cuda_raytracer_tpu_torch")):
         fail("run from a checkout of the repository (package missing)")
@@ -1031,6 +1414,7 @@ def main() -> int:
     kernels = phase_slice()
     kernels[0]["max_abs_err"] = max(err, kernels[0]["max_abs_err"])
     phase_cpu_vs_cuda()
+    phase_run_c()
 
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

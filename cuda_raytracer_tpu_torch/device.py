@@ -10,11 +10,10 @@ def resolve_device(device=None) -> torch.device:
 
     There is no silent CPU fallback: without CUDA the caller has to ask
     for the CPU by name (as the tests do)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device available; pass device='cpu' to run the "
-                "port's plain PyTorch versions on the CPU"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass device='cpu' to run the "
+            "port's plain PyTorch versions on the CPU"
+        )
+    return device

@@ -160,6 +160,43 @@ def generate_camera_rays(
     return o, d
 
 
+def generate_camera_rays_cutracer(
+    key,
+    width: int,
+    height: int,
+    spp: int,
+    origin,
+    look_at,
+    up,
+    left,
+    pix_order=None,
+    device=None,
+):
+    """Reference-compat camera rays: the fixed +-0.5 frustum over the
+    cutracer basis (origin/look_at/up/left; see the JAX function).  The
+    sample layouts are generate_camera_rays'.  Returns (o, d) [N, 3]
+    float32 on ``device``."""
+    n = width * height * spp
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    pslot = i % (width * height) if pix_order == "tiles32s" else i // spp
+    pix = _pix_from_slot(pslot, width, height, pix_order)
+    px = (pix % width).float()
+    py = (pix // width).float()
+    u = rng.uniform(key, (n, 2), device)
+    xs = (px + u[:, 0]) / width
+    ys = (py + u[:, 1]) / height
+    k = _norm(torch.stack([xs - 0.5, ys - 0.5, torch.ones_like(xs)], dim=-1))
+    basis = torch.as_tensor(
+        np.stack([np.asarray(left, np.float32), np.asarray(up, np.float32),
+                  np.asarray(look_at, np.float32)]), device=device)
+    # k @ basis over the rows (left, up, look_at), written out per
+    # component
+    d = (k[:, 0:1] * basis[0] + k[:, 1:2] * basis[1]
+         + k[:, 2:3] * basis[2])
+    o = torch.as_tensor(np.asarray(origin, np.float32), device=device)
+    return o.expand(d.shape), d
+
+
 # ---------------------------------------------------------------------------
 # hit records
 # ---------------------------------------------------------------------------

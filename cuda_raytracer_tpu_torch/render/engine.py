@@ -7,10 +7,12 @@ threshold-gated median filter.  PyTorch runs eagerly, so there is no
 fuse/jit split: a frame is raygen, the bounce loop of render/bounce.py
 and the film, launched in order on the device.
 
-Camera modes "canonical" and "collada" are ported ("collada" without a
-.dae transform places the camera canonically, then set_viewpoint moves
-it, as bench.py does).  ``load_scene`` (COLLADA) and the "cutracer"
-mode are not ported yet.
+``load_scene`` reads a COLLADA document (scene/collada.py) into the
+dynamic scene, flattens its static form and places the camera.  Camera
+modes: "canonical" (the Scotty3D orbit placement), "collada" (the .dae
+camera node; without one the camera is placed canonically, then
+set_viewpoint moves it, as bench.py does) and "cutracer" (the CUDA
+renderer's basis with its fixed frustum; needs a .dae camera).
 """
 
 from __future__ import annotations
@@ -27,28 +29,37 @@ from ..device import resolve_device
 from ..ops import filters as F
 from ..ops import shade as S
 from ..scene import static_scene as st
-from ..scene.camera import Camera
+from ..scene.camera import Camera, CutracerCamera
+from ..scene.collada import load_scene_info
+from ..scene.dynamic_scene import load_from_scene_info
 from .bounce import make_stage_fns, run_bounce_loop
 from .flatscene import FlatScene, flatten_scene
 
 
+#: "canonical" = the Scotty3D orbit placement; "collada" = the .dae
+#: camera node transform; "cutracer" = the CUDA renderer's basis with
+#: its fixed frustum
+CAMERA_MODES = ("canonical", "collada", "cutracer")
+
+
 class WavefrontRenderer:
-    """End-to-end renderer: load_static_scene / setup / render /
-    get_image / set_viewpoint, on ``device`` (the GPU unless the caller
-    names another)."""
+    """End-to-end renderer: load_scene / load_static_scene / setup /
+    render / get_image / set_viewpoint, on ``device`` (the GPU unless the
+    caller names another)."""
 
     def __init__(self, config: RenderConfig = DEFAULT_CONFIG,
                  camera_mode: str = "canonical", device=None):
-        if camera_mode not in ("canonical", "collada"):
-            raise NotImplementedError(
-                f"camera_mode {camera_mode!r} is not ported yet "
-                "(ROADMAP queue 1 item 8)"
-            )
+        if camera_mode not in CAMERA_MODES:
+            raise ValueError(f"camera_mode {camera_mode!r} is not one of "
+                             f"{CAMERA_MODES}")
         self.config = config
         self.camera_mode = camera_mode
         self.device = resolve_device(device)
         self.scene: Optional[FlatScene] = None
+        self.static_scene: Optional[st.Scene] = None
+        self.dynamic_scene = None
         self.camera: Optional[Camera] = None
+        self.cutracer_camera: Optional[CutracerCamera] = None
         self.bvh = None
         self.frame_index = 0
         self.image_samples = 0
@@ -57,8 +68,17 @@ class WavefrontRenderer:
         self._stages = None
         self._dropped = 0
 
+    def load_scene(self, path: str) -> None:
+        """Load a COLLADA document: its dynamic scene, then the static
+        scene, camera and cutracer camera (load_static_scene)."""
+        info = load_scene_info(path)
+        dscene, cam_info, cam_xf, cut_cam = load_from_scene_info(info)
+        self.dynamic_scene = dscene
+        self.load_static_scene(dscene.get_static_scene(), cam_info, cam_xf,
+                               cut_cam)
+
     def load_static_scene(self, sscene: st.Scene, cam_info=None,
-                          cam_transform=None) -> None:
+                          cam_transform=None, cut_cam=None) -> None:
         cfg = self.config
         self.scene, self.bvh = flatten_scene(
             sscene,
@@ -67,6 +87,7 @@ class WavefrontRenderer:
             sah_bins=cfg.sah_bins,
             device=self.device,
         )
+        self.static_scene = sscene
 
         camera = Camera()
         if cam_info is not None:
@@ -98,6 +119,7 @@ class WavefrontRenderer:
                 c_dir = np.array([0.0, 0.0, 1.0])
             camera.place_canonical(bb_min, bb_max, c_dir)
         self.camera = camera
+        self.cutracer_camera = cut_cam
         self._reset_accumulation()
         self._stages = None
 
@@ -118,6 +140,14 @@ class WavefrontRenderer:
 
     def _raygen(self, key):
         cfg = self.config
+        if self.camera_mode == "cutracer":
+            return S.generate_camera_rays_cutracer(
+                rng.fold_in(key, 0),
+                cfg.width, cfg.height, cfg.samples_per_frame,
+                *self._cutracer_arrays(),
+                pix_order=self._pix_order,
+                device=self.device,
+            )
         return S.generate_camera_rays(
             rng.fold_in(key, 0),
             cfg.width, cfg.height, cfg.samples_per_frame,
@@ -127,6 +157,11 @@ class WavefrontRenderer:
             pix_order=self._pix_order,
             device=self.device,
         )
+
+    def _cutracer_arrays(self):
+        if self.cutracer_camera is None:
+            raise ValueError("scene has no collada camera for cutracer mode")
+        return self.cutracer_camera.as_arrays()
 
     def _film(self, light, with_median: bool):
         cfg = self.config
@@ -198,6 +233,12 @@ class WavefrontRenderer:
         y = np.cross(z, x)
         cam.pos = origin
         cam.c2w = np.stack([x, y, z], axis=1)
+        if self.cutracer_camera is not None:
+            # as the JAX engine does: only origin and look_at move (left
+            # and up keep the .dae basis), and look_at takes the forward
+            # direction -z
+            self.cutracer_camera.origin = origin
+            self.cutracer_camera.look_at = -z
         self._reset_accumulation()
 
     # -- checkpoint / resume: the JAX engine's .npz keys, so a checkpoint

@@ -1,9 +1,23 @@
-"""Scene layer: static scene graph, camera, BSDFs (numpy host types).
+"""Scene layer: COLLADA I/O, scene graph, camera, BSDFs (numpy host types).
 
-Copies of the JAX package's jax-free scene modules; COLLADA loading and
-the dynamic scene are not ported yet (ROADMAP queue 1).
+Copies of the JAX package's jax-free scene modules, with its exports.
+The interactive session (``session``, ``skeleton``, ``widgets``) is not
+ported yet (ROADMAP queue 1).
 """
 
+from .collada_info import (  # noqa: F401
+    CameraInfo,
+    Instance,
+    LightInfo,
+    LightType,
+    MaterialInfo,
+    Node,
+    PolymeshInfo,
+    Polygon,
+    SceneInfo,
+    SphereInfo,
+)
+from .collada import ColladaParser, load_scene_info  # noqa: F401
 from .bsdf import (  # noqa: F401
     BSDF,
     DiffuseBSDF,
@@ -14,3 +28,4 @@ from .bsdf import (  # noqa: F401
 )
 from .camera import Camera  # noqa: F401
 from . import static_scene  # noqa: F401
+from . import dynamic_scene  # noqa: F401

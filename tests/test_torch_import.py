@@ -32,6 +32,9 @@ def test_modules_import_without_jax():
     mods = _modules()
     for name in ("_build", "packet_dfs", "partition", "wavefront2"):
         assert f"cuda_raytracer_tpu_torch.ops.{name}" in mods
+    for name in ("apps.render_cli", "scene.collada", "scene.dynamic_scene",
+                 "geometry.meshedit", "utils.image"):
+        assert f"cuda_raytracer_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where a frame of the PyTorch port goes on the GPU.
 
-    python3 tools/torch_profile_frame.py [--scene cornell|terrain]
+    python3 tools/torch_profile_frame.py [--scene cornell|terrain|run_c]
                                          [--traversal-rr pallas|dfs]
 
-Runs chip_smoke.py's run-A (cornell) or run-B (terrain) configuration
-(the fast preset as shipped, or with the roulette depths through
+Runs chip_smoke.py's run-A (cornell), run-B (terrain) or run-C (its
+COLLADA document, loaded through load_scene with the document's camera)
+configuration (the fast preset as shipped, or with the roulette depths through
 packet-DFS; 800x600, 32 spp per frame, depth 4, NEE 1x1.0) on one card:
 a warm-up frame, then one frame with every bounce-loop stage timed by
 CUDA events around it (trace, shade_hit, nee_prep, nee_accum, scatter,
@@ -26,6 +27,7 @@ import argparse
 import collections
 import os
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -34,7 +36,7 @@ sys.path.insert(0, HERE)
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", choices=("cornell", "terrain"),
+    ap.add_argument("--scene", choices=("cornell", "terrain", "run_c"),
                     default="cornell")
     ap.add_argument("--traversal-rr", choices=("pallas", "dfs"),
                     default="pallas")
@@ -58,6 +60,12 @@ def main() -> int:
     if args.scene == "cornell":
         r.load_static_scene(cornell_box_scene(with_spheres=True))
         r.set_viewpoint(*cs.VIEW_A)
+    elif args.scene == "run_c":
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "run_c.dae")
+            with open(path, "w") as f:
+                f.write(cs.run_c_document(121))
+            r.load_scene(path)
     else:
         r.load_static_scene(terrain_scene(n=121))
         r.set_viewpoint(*cs.VIEW_B)
