@@ -53,7 +53,23 @@ prints one JSON line for the kernels and, last, the device line.  Phases:
    scene built in Python, dropped == 0, the launches the schedule gives,
    the PNG read back by the port's load_png; the load time by step; and
    the same document at terrain n=8 under max_leaf_size=4 on the card
-   and on the CPU, per pixel, in both camera modes.
+   and on the CPU, per pixel, in both camera modes; the BVH built by
+   the native builder;
+6. run D, the viewer, session and animation apps on run C's file, at
+   800x600, fast preset, 32 spp per frame: the native BVH builder against
+   the numpy one on run C's prims (bit for bit) and the load time by step
+   (parse, dynamic scene, BVH build, wide flatten, upload); the viewer
+   (``InteractiveViewer``): 2 progressive frames, the orbit key, a session
+   saved and reloaded through its W/L keys in a temporary working
+   directory (the tables equal after the reload but for the BSDF table:
+   the session keeps no materials), the launches of each frame as the
+   schedule gives; ``raytrace_video`` on run C's terrain rigged with a
+   three-joint skeleton, 4 frames of 32 spp, each re-skinned, rebuilt
+   natively and rendered by the kernels, read back with load_png; and
+   tree width 16 through ``traversal="auto"`` (the torch traversal of
+   ops/traverse.py, no kernel): its traces against trace_bruteforce on
+   262,144 terrain n=121 rays, a full frame, and card vs CPU on terrain
+   n=8 under max_leaf_size=4.
 
 Needs one CUDA card; exits non-zero (and prints no result) without one,
 or when run outside a checkout of the repository.  Imports nothing of
@@ -207,6 +223,36 @@ def phase_setup():
             print(f"[setup] ptxas, {name}.cu: {line}")
 
 
+def closest_ray_set(r, g):
+    """N_RAYS closest-hit rays for renderer r's scene on its device: camera
+    rays of r's camera (half), random incoherent rays drawn from numpy
+    generator g, and invalid lanes (the last N_RAYS // 32)."""
+    import numpy as np
+    import torch
+
+    from cuda_raytracer_tpu_torch import rng
+    from cuda_raytracer_tpu_torch.ops import shade as S
+
+    dev = r.device
+    n_cam, n_inv = N_RAYS // 2, N_RAYS // 32
+    n_rnd = N_RAYS - n_cam - n_inv
+    o_c, d_c = S.generate_camera_rays(
+        rng.PRNGKey(7), 512, n_cam // 512, 1, r.camera.pos, r.camera.c2w,
+        math.tan(math.radians(r.camera.hFov) / 2),
+        math.tan(math.radians(r.camera.vFov) / 2),
+        pix_order="tiles32s", device=dev,
+    )
+    o_r = g.uniform([-1.0, -0.2, -1.0], [1.0, 0.6, 1.0], (n_rnd + n_inv, 3))
+    d_r = g.standard_normal((n_rnd + n_inv, 3))
+    d_r /= np.linalg.norm(d_r, axis=1, keepdims=True)
+    o = torch.cat([o_c, torch.as_tensor(o_r, dtype=torch.float32,
+                                         device=dev)])
+    d = torch.cat([d_c, torch.as_tensor(d_r, dtype=torch.float32,
+                                         device=dev)])
+    valid = torch.arange(N_RAYS, device=dev) < n_cam + n_rnd
+    return o, d, valid
+
+
 def terrain_ray_set(dev, n=121, **over):
     """262,144 rays on terrain n (fast_config(**over)): camera rays of
     the slice, random incoherent rays and invalid lanes (closest-hit
@@ -214,7 +260,6 @@ def terrain_ray_set(dev, n=121, **over):
     import numpy as np
     import torch
 
-    from cuda_raytracer_tpu_torch import rng
     from cuda_raytracer_tpu_torch.models.terrain import terrain_scene
     from cuda_raytracer_tpu_torch.ops import packet_dfs
     from cuda_raytracer_tpu_torch.ops import shade as S
@@ -224,23 +269,8 @@ def terrain_ray_set(dev, n=121, **over):
     r.load_static_scene(terrain_scene(n=n))
     r.setup()
     scene = r.scene
-    n_cam, n_inv = N_RAYS // 2, N_RAYS // 32
-    n_rnd = N_RAYS - n_cam - n_inv
-    o_c, d_c = S.generate_camera_rays(
-        rng.PRNGKey(7), 512, n_cam // 512, 1, r.camera.pos, r.camera.c2w,
-        math.tan(math.radians(r.camera.hFov) / 2),
-        math.tan(math.radians(r.camera.vFov) / 2),
-        pix_order="tiles32s", device=dev,
-    )
     g = np.random.default_rng(11)
-    o_r = g.uniform([-1.0, -0.2, -1.0], [1.0, 0.6, 1.0], (n_rnd + n_inv, 3))
-    d_r = g.standard_normal((n_rnd + n_inv, 3))
-    d_r /= np.linalg.norm(d_r, axis=1, keepdims=True)
-    o = torch.cat([o_c, torch.as_tensor(o_r, dtype=torch.float32,
-                                         device=dev)])
-    d = torch.cat([d_c, torch.as_tensor(d_r, dtype=torch.float32,
-                                         device=dev)])
-    valid = torch.arange(N_RAYS, device=dev) < n_cam + n_rnd
+    o, d, valid = closest_ray_set(r, g)
 
     # shadow rays: camera hits of the closest set toward the light
     res = packet_dfs.trace_closest_packets(scene, o, d, valid)
@@ -1336,6 +1366,10 @@ def phase_run_c(n=121, size=(WIDTH, HEIGHT), spp=64, small_n=8):
                   f"{launches} (want {want})")
             _check_tables(f"{mode}: loaded scene", r.scene, want_scene,
                           r.config)
+            print(f"[run C] {mode}: BVH built by the {r.bvh.backend_used} "
+                  f"builder")
+            check(r.bvh.backend_used == "native",
+                  f"run C {mode}: the CLI did not build the BVH natively")
             check(r.dropped_sum == 0, f"run C {mode}: dropped rays")
             check(launches == want, f"run C {mode}: kernel launches "
                   f"{launches} != the schedule's {want}")
@@ -1400,7 +1434,396 @@ def phase_run_c(n=121, size=(WIDTH, HEIGHT), spp=64, small_n=8):
                   f"run C small {mode}: card and CPU frames differ")
 
 
+#: the FlatScene tables that hold the BSDFs: the session's COLLADA writer
+#: keeps no materials (in both packages), so a session reload gives every
+#: object the parser's default diffuse BSDF and changes only these
+MATERIAL_TABLES = ("bsdf_fn", "bsdf_albedo", "bsdf_radiance", "bsdf_ior")
+#: the video's camera, held fixed (VIEW_A's origin, looking down -z)
+VIDEO_POS = (0.0, 0.75, 2.5)
+#: t of the width-16 traversal against trace_bruteforce on the card
+W16_RTOL, W16_ATOL = 1e-5, 1e-6
+
+
+def _flat_fields(scene):
+    """Every field of a FlatScene and of its FlatBVH, tensors on the CPU."""
+    import dataclasses
+
+    import torch
+
+    out = {}
+    for obj, prefix in ((scene, ""), (scene.bvh, "bvh.")):
+        for f in dataclasses.fields(obj):
+            if f.name != "bvh":
+                x = getattr(obj, f.name)
+                out[prefix + f.name] = (x.cpu() if isinstance(x, torch.Tensor)
+                                        else x)
+    return out
+
+
+def _differing(a, b):
+    import torch
+
+    return [k for k, x in a.items() if not (
+        torch.equal(x, b[k]) if isinstance(x, torch.Tensor) else x == b[k])]
+
+
+def _tree_nodes(bvh):
+    """A binary BVH's nodes in preorder: (bounds as int64 bits, start,
+    range, is_leaf)."""
+    import numpy as np
+
+    out, stack = [], [bvh.root]
+    while stack:
+        n = stack.pop()
+        out.append((np.concatenate([n.bb_min, n.bb_max]).view(np.int64)
+                    .tolist(), n.start, n.range, n.is_leaf))
+        if not n.is_leaf:
+            stack += [n.r, n.l]
+    return out
+
+
+def _native_vs_numpy(path, cfg):
+    """Run C's prims built by the native and the numpy builder: the same
+    tree, bit for bit; each one's build time."""
+    import numpy as np
+
+    from cuda_raytracer_tpu_torch import native
+    from cuda_raytracer_tpu_torch.accel.bvh import BVHAccel
+    from cuda_raytracer_tpu_torch.render.flatscene import flatten_tables
+    from cuda_raytracer_tpu_torch.scene.collada import load_scene_info
+    from cuda_raytracer_tpu_torch.scene.dynamic_scene import (
+        load_from_scene_info,
+    )
+
+    # the library is built and loaded by now (every load since phase 2
+    # builds natively); a fresh build into a scratch path times g++
+    t0 = time.perf_counter()
+    native.build._compile(os.path.join(os.path.dirname(path), "bvh.so"))
+    print(f"[run D] native builder: one g++ build of bvh_builder.cpp "
+          f"{time.perf_counter() - t0:.3f} s (a process pays it once, at its "
+          f"first BVH build, unless {native.build.library_path()} exists); "
+          f"loaded {native.load_library() is not None}")
+    sscene = load_from_scene_info(load_scene_info(path))[0].get_static_scene()
+    _, _, bvh = flatten_tables(sscene, cfg.tree_width, cfg.max_leaf_size,
+                               cfg.sah_bins)
+    trees = {b: BVHAccel(bvh.prim_min, bvh.prim_max, cfg.max_leaf_size,
+                         cfg.sah_bins, backend=b) for b in ("native", "numpy")}
+    nat, num = trees["native"], trees["numpy"]
+    same_order = np.array_equal(nat.sorted_order, num.sorted_order)
+    nodes_n, nodes_p = _tree_nodes(nat), _tree_nodes(num)
+    print(f"[run D] BVH build of {len(bvh.prim_min)} prims (leaf "
+          f"{cfg.max_leaf_size}, {cfg.sah_bins} bins): native "
+          f"{nat.build_s * 1e3:.2f} ms, numpy {num.build_s * 1e3:.2f} ms; "
+          f"{len(nodes_n)} nodes; sorted_order equal {same_order}, nodes "
+          f"equal bit for bit {nodes_n == nodes_p}")
+    check(nat.backend_used == "native", "the native builder did not run")
+    check(same_order and nodes_n == nodes_p,
+          "native and numpy BVH trees differ")
+
+
+def _load_by_step(path, cfg):
+    """load_scene's steps on run C's file: parse, dynamic scene, and
+    flatten_scene's BVH build, wide flatten and upload."""
+    import torch
+
+    from cuda_raytracer_tpu_torch.render.flatscene import flatten_scene
+    from cuda_raytracer_tpu_torch.scene.collada import load_scene_info
+    from cuda_raytracer_tpu_torch.scene.dynamic_scene import (
+        load_from_scene_info,
+    )
+
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = load_scene_info(path)
+        t1 = time.perf_counter()
+        sscene = load_from_scene_info(info)[0].get_static_scene()
+        t2 = time.perf_counter()
+        times = {}
+        _, bvh = flatten_scene(sscene, tree_width=cfg.tree_width,
+                               max_leaf_size=cfg.max_leaf_size,
+                               sah_bins=cfg.sah_bins, device=DEVICE,
+                               times=times)
+        t3 = time.perf_counter()
+        print(f"[run D] load_s by step ({bvh.backend_used} build): parse "
+              f"{t1 - t0:.3f} s, dynamic scene + get_static_scene "
+              f"{t2 - t1:.3f} s, BVH build {times['bvh_build']:.3f} s, wide "
+              f"flatten and tables {times['flatten']:.3f} s, upload "
+              f"{times['upload']:.3f} s; total {t3 - t0:.3f} s")
+        check(bvh.backend_used == "native", "load_scene did not build natively")
+
+
+def _viewer_frames(v, n, where):
+    """n progressive frames; checks the launches against the schedule.
+    Returns each frame's ms (the engine's stage_times["frame"])."""
+    reset_launches()
+    ms = []
+    for _ in range(n):
+        v.frame()
+        ms.append(v.renderer.stage_times["frame"] * 1e3)
+        check(v.renderer.dropped == 0, f"viewer {where}: dropped rays")
+    launches, want = read_launches(), expected_launches(v.renderer, n)
+    print(f"[run D] viewer {where}: {n} frame(s), ms {[round(x, 1) for x in ms]}"
+          f", spp {v.status()['spp']:.0f}, launches {launches} (want {want})")
+    check(launches == want, f"viewer {where}: launches {launches} != the "
+          f"schedule's {want}")
+    return ms
+
+
+def _viewer(path):
+    """The viewer on run C's file: progressive frames, a move, a session
+    save and reload through its keys."""
+    import numpy as np
+
+    from cuda_raytracer_tpu_torch.apps.viewer import InteractiveViewer
+
+    t0 = time.perf_counter()
+    v = InteractiveViewer(fast_config(), path, device=DEVICE)
+    r = v.renderer
+    print(f"[run D] viewer: loaded in {time.perf_counter() - t0:.3f} s "
+          f"({r.bvh.backend_used} build {r.stage_times['bvh_build']:.3f} s, "
+          f"flatten {r.stage_times['flatten']:.3f} s, upload "
+          f"{r.stage_times['upload']:.3f} s); {r.scene.num_prims} prims")
+    check(r.bvh.backend_used == "native", "viewer: BVH not built natively")
+    ms = _viewer_frames(v, 2, "first frames")
+    check(v.status()["spp"] == 64, f"viewer: spp {v.status()['spp']} != 64")
+    steady = ms[-1]
+    print(f"[run D] viewer steady frame {steady:.1f} ms, "
+          f"{r.mrays_per_frame / (steady / 1e3):.3f} Mrays/s (bench.py's "
+          f"accounting: {r.mrays_per_frame:.2f} Mrays per frame)")
+    img = v.renderer.get_image()
+    check(img.shape == (HEIGHT, WIDTH, 3) and bool(np.isfinite(img).all())
+          and float(img.mean()) > 0.0, "viewer: bad image")
+
+    check(v.key("h") and v.status()["spp"] == 0, "viewer: h did not reset")
+    _viewer_frames(v, 1, "after the orbit key")
+    before = _flat_fields(r.scene)
+    check(not v.key("W") and not v.key("1"), "viewer: W1 moved the view")
+    check(os.path.exists("Scene_1.dae"), "viewer: W1 wrote no session")
+    check(v.key("w"), "viewer: w did not move")
+    t0 = time.perf_counter()
+    check(not v.key("L") and v.key("1"), "viewer: L1 did not reload")
+    reload_s = time.perf_counter() - t0
+    after = _flat_fields(v.renderer.scene)
+    diff = _differing(before, after)
+    print(f"[run D] viewer: session saved (W1) and reloaded (L1) in "
+          f"{reload_s:.3f} s; of {len(before)} tables and fields, those that "
+          f"differ after the reload: {diff} (the session keeps no materials)")
+    check(sorted(after) == sorted(before), "viewer: reload changed the fields")
+    check(set(diff) <= set(MATERIAL_TABLES),
+          f"viewer: the reload changed {diff}")
+    _viewer_frames(v, 1, "after the reload")
+
+
+def _rigged_run_c(path):
+    """Run C's dynamic scene with its terrain mesh rigged: a three-joint
+    skeleton along x, keyed straight at t=0 and bent at t=3."""
+    import numpy as np
+
+    from cuda_raytracer_tpu_torch.scene.collada import load_scene_info
+    from cuda_raytracer_tpu_torch.scene.dynamic_scene import (
+        Mesh,
+        load_from_scene_info,
+    )
+    from cuda_raytracer_tpu_torch.scene.skeleton import Skeleton
+
+    dscene = load_from_scene_info(load_scene_info(path))[0]
+    terrain = next(o for o in dscene.objects if isinstance(o, Mesh))
+    sk = Skeleton(offset=(-1.0, 0.0, 0.0))
+    j1 = sk.create_joint([2.0 / 3, 0.0, 0.0])
+    j2 = sk.create_joint([2.0 / 3, 0.0, 0.0], parent=j1)
+    j3 = sk.create_joint([2.0 / 3, 0.0, 0.0], parent=j2)
+    terrain.skeleton = sk
+    terrain.keyframe(0.0)
+    j2.angle = np.array([0.0, 0.0, 12.0])
+    j3.angle = np.array([0.0, 0.0, 18.0])
+    terrain.keyframe(3.0)
+    return dscene, len(terrain.mesh.vertices)
+
+
+def _video(path, tmp):
+    """raytrace_video on the rigged run C scene: 4 frames of 32 spp, each
+    re-skinned, rebuilt natively, uploaded and rendered by the kernels."""
+    import numpy as np
+
+    from cuda_raytracer_tpu_torch.apps import animate
+    from cuda_raytracer_tpu_torch.utils.image import load_png
+
+    dscene, n_vert = _rigged_run_c(path)
+    base, frames = animate.WavefrontRenderer, []
+    skin = dscene.get_transformed_static_scene
+
+    def timed_skin(t):
+        t0 = time.perf_counter()
+        out = skin(t)
+        frames.append({"skin": (time.perf_counter() - t0) * 1e3})
+        return out
+
+    class Kept(base):
+        def load_static_scene(self, *args, **kw):
+            super().load_static_scene(*args, **kw)
+            frames[-1].update(backend=self.bvh.backend_used, **{
+                k: self.stage_times[k] * 1e3
+                for k in ("bvh_build", "flatten", "upload")})
+
+        def render(self):
+            reset_launches()
+            super().render()
+            f = frames[-1]
+            f["render"] = self.stage_times["frame"] * 1e3
+            f["launches"], f["want"] = (read_launches(),
+                                        expected_launches(self, 1))
+            f["dropped"] = self.dropped
+
+    dscene.get_transformed_static_scene = timed_skin
+    animate.WavefrontRenderer = Kept
+    try:
+        t0 = time.perf_counter()
+        paths = animate.raytrace_video(
+            dscene, fast_config(), max_frame=4, out_dir=os.path.join(tmp, "v"),
+            prefix="Video_run_c_", spp=32,
+            camera_pose=(np.array(VIDEO_POS), np.eye(3)), device=DEVICE)
+        total = time.perf_counter() - t0
+    finally:
+        animate.WavefrontRenderer = base
+    names = [os.path.basename(p) for p in paths]
+    check(names == [f"Video_run_c_{i:04d}.png" for i in range(4)],
+          f"video: files {names}")
+    pngs = []
+    for i, (p, f) in enumerate(zip(paths, frames)):
+        png = load_png(p)
+        pngs.append(png)
+        print(f"[run D] video frame {i}: skin ({n_vert} vertices x 3 joints) "
+              f"{f['skin']:.1f} ms, BVH build ({f['backend']}) "
+              f"{f['bvh_build']:.1f} ms, wide flatten {f['flatten']:.1f} ms, "
+              f"upload {f['upload']:.1f} ms, render (32 spp) "
+              f"{f['render']:.1f} ms; PNG mean {float(png.mean()):.6f}; "
+              f"launches {f['launches']}")
+        check(f["backend"] == "native", f"video frame {i}: numpy build")
+        check(f["launches"] == f["want"], f"video frame {i}: launches "
+              f"{f['launches']} != the schedule's {f['want']}")
+        check(f["dropped"] == 0, f"video frame {i}: dropped rays")
+        check(png.shape == (HEIGHT, WIDTH, 3) and float(png.mean())
+              > RUN_C_PNG_FLOOR, f"video frame {i}: PNG mean at or below "
+              f"the floor {RUN_C_PNG_FLOOR}")
+        if i:
+            check(not np.array_equal(pngs[i - 1], png),
+                  f"video frames {i - 1} and {i} are the same")
+    print(f"[run D] raytrace_video: {len(paths)} frames in {total:.2f} s")
+
+
+def _width16(n=121, small_n=8):
+    """Tree width 16 through "auto" (the torch traversal): its traces
+    against trace_bruteforce on the card, a full frame, and the card
+    against the CPU on a small frame."""
+    import numpy as np
+    import torch
+
+    from cuda_raytracer_tpu_torch.config import RenderConfig, fast_preset_kwargs
+    from cuda_raytracer_tpu_torch.models.terrain import terrain_scene
+    from cuda_raytracer_tpu_torch.ops.traverse import trace_bruteforce
+    from cuda_raytracer_tpu_torch.render.backends import make_trace_fn
+    from cuda_raytracer_tpu_torch.render.engine import WavefrontRenderer
+
+    # the queue holds 4 entries per ray: at the default 2, run B's view
+    # peaks near 2 per ray at width 16 and a full frame drops entries
+    auto = dict(tree_width=16, traversal="auto", traversal_secondary="",
+                traversal_rr="", queue_multiplier=4)
+    cfg = fast_config(**auto)
+    r = WavefrontRenderer(cfg, camera_mode="collada", device=DEVICE)
+    r.load_static_scene(terrain_scene(n=n))
+    o, d, valid = closest_ray_set(r, np.random.default_rng(11))
+    trace = make_trace_fn(cfg)
+    res, ms = _host_ms(lambda: trace(r.scene, o, d, valid))
+    step = 1 << 16  # rays per brute-force call: bounds its [rays, 512]
+    bf, bf_ms = _host_ms(lambda: [
+        trace_bruteforce(r.scene, o[i:i + step], d[i:i + step],
+                         valid[i:i + step]) for i in range(0, N_RAYS, step)])
+    bt = torch.cat([b.t for b in bf])
+    bp = torch.cat([b.prim for b in bf])
+    hit = res.prim >= 0
+    same_hit = bool(torch.equal(hit, bp >= 0))
+    ok_t = bool(torch.isclose(res.t[hit], bt[hit], rtol=W16_RTOL,
+                              atol=W16_ATOL).all())
+    ulp = int((res.t[hit].view(torch.int32).long()
+               - bt[hit].view(torch.int32).long()).abs().max())
+    differ = hit & (res.prim != bp)
+    ties = bool(torch.equal(res.t[differ], bt[differ]))
+    print(f"[run D] W=16 terrain n={n}: {r.scene.num_prims} prims, "
+          f"{r.scene.bvh.num_levels} levels; trace_closest through \"auto\" "
+          f"on {N_RAYS} rays {ms:.1f} ms, trace_bruteforce {bf_ms:.1f} ms; "
+          f"{int(hit.sum())} hits, hit/miss equal {same_hit}, t max ulp gap "
+          f"{ulp}, prims differing {int(differ.sum())} (all at bit-equal t: "
+          f"{ties}), dropped {int(res.dropped)}")
+    check(same_hit and ok_t and ties and int(res.dropped) == 0,
+          "W=16: trace_closest disagrees with trace_bruteforce")
+
+    r.set_viewpoint(*VIEW_B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    r.render()
+    launches = read_launches()
+    img = r.get_image()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[run D] W=16 frame ({WIDTH}x{HEIGHT}, {cfg.samples_per_frame} "
+          f"spp, every trace through the torch traversal): "
+          f"{r.stage_times['frame'] * 1e3:.1f} ms, dropped {r.dropped}, image "
+          f"mean {float(img.mean()):.6f}, torch.cuda.max_memory_allocated "
+          f"{peak:.2f} GiB, kernel launches {launches}")
+    check(r.dropped == 0 and bool(np.isfinite(img).all())
+          and float(img.mean()) > 0.0, "W=16 frame: bad image")
+    check(not any(launches.values()), "W=16 frame launched a kernel")
+
+    w, h, spf, frames = 64, 32, 2, 2
+    kw = fast_preset_kwargs(w, h, spf * frames)
+    kw.update(samples_per_frame=spf, max_leaf_size=4, **auto)
+    small = RenderConfig(width=w, height=h, total_samples=spf * frames,
+                         max_depth=4, nee_schedule=((1, 1.0),) * 4, **kw)
+    imgs = []
+    for dev in (DEVICE, "cpu"):
+        rr = WavefrontRenderer(small, camera_mode="collada", device=dev)
+        rr.load_static_scene(terrain_scene(n=small_n))
+        rr.set_viewpoint(*VIEW_B)
+        for _ in range(frames):
+            rr.render()
+            check(rr.dropped == 0, f"W=16 small frame on {dev}: dropped")
+        imgs.append(rr.get_raw_image())
+    a, b = imgs
+    bad = ~np.isclose(a, b, rtol=PIXEL_RTOL, atol=PIXEL_ATOL).all(-1)
+    print(f"[run D] W=16 card vs CPU, terrain n={small_n}, max_leaf_size=4 "
+          f"({rr.scene.bvh.num_levels} levels), {w}x{h}, {frames} frames of "
+          f"{spf} spp: {int(bad.sum())} of {w * h} pixels outside "
+          f"rtol={PIXEL_RTOL} atol={PIXEL_ATOL}; max |diff| "
+          f"{float(np.abs(a - b).max()):.3g}")
+    check(rr.scene.bvh.num_levels > 1, "W=16 small: one level")
+    check(float(bad.mean()) <= MAX_BAD, "W=16: card and CPU frames differ")
+
+
+def phase_run_d(n=121):
+    """Run D: the viewer, session and animation apps on run C's file, the
+    native BVH builder, and tree width 16 (phase 6)."""
+    import tempfile
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "run_c.dae")
+        with open(path, "w") as f:
+            f.write(run_c_document(n))
+        os.chdir(tmp)  # the viewer's session slots go to the working dir
+        try:
+            cfg = fast_config()
+            _native_vs_numpy(path, cfg)
+            _load_by_step(path, cfg)
+            _viewer(path)
+            _video(path, tmp)
+        finally:
+            os.chdir(cwd)
+    _width16(n)
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "cuda_raytracer_tpu_torch")):
         fail("run from a checkout of the repository (package missing)")
     import torch
@@ -1415,6 +1838,9 @@ def main() -> int:
     kernels[0]["max_abs_err"] = max(err, kernels[0]["max_abs_err"])
     phase_cpu_vs_cuda()
     phase_run_c()
+    phase_run_d()
+    print(f"[total] {time.perf_counter() - t_start:.1f} s from the start of "
+          f"main, imports of torch and the port included")
 
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

@@ -16,13 +16,15 @@ Instead of re-sorting each node's slice three times per node (the
 reference's O(n log^2 n) approach), we keep one global centroid argsort
 per axis and maintain all three orders through splits by stable
 partition — the classic sweep-SAH build — which changes nothing about
-the produced tree but makes the Python build fast.  (The JAX package's
-optional C++ builder, native/bvh_builder.cpp, is not ported yet.)
+the produced tree but makes the Python build fast.  The C++ builder
+(native/bvh_builder.cpp) builds the same tree, bit for bit, faster:
+``backend="auto"`` takes it when it compiles, numpy otherwise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -58,6 +60,11 @@ class BVHAccel:
     prim_min, prim_max : [P, 3] float64 primitive bounds.
     max_leaf_size : leaf threshold (reference default 32).
     sah_bins : number of partition planes (reference 12).
+    backend : "native" (the C++ builder; raises, with the compiler's
+        output, when it does not build), "numpy", or "auto" (native when
+        it builds, else numpy).  ``backend_used`` says which one ran,
+        ``build_s`` how long the tree build took (seconds, host clock;
+        the library's compile at its first use not included).
     """
 
     def __init__(self, prim_min: np.ndarray, prim_max: np.ndarray,
@@ -70,6 +77,7 @@ class BVHAccel:
         self.sah_bins = sah_bins
         self.centroids = (self.prim_min + self.prim_max) * 0.5
         self.backend_used = "numpy"
+        self.build_s = 0.0
 
         n = len(self.prim_min)
         if n == 0:
@@ -77,14 +85,21 @@ class BVHAccel:
             self.sorted_order = np.zeros(0, dtype=np.int64)
             return
 
+        lib = None
+        if backend in ("auto", "native"):
+            from ..native import NativeBuildError, load_library
+
+            try:
+                lib = load_library()  # compiles at its first use
+            except NativeBuildError:
+                if backend == "native":
+                    raise
+        t0 = time.perf_counter()
+        if lib is not None and self._build_native(lib):
+            self.build_s = time.perf_counter() - t0
+            return
         if backend == "native":
-            # the C++ builder (native/bvh_builder.cpp of the JAX package)
-            # is not ported yet; "auto" takes the numpy path, whose tree
-            # the native builder reproduces bit for bit
-            raise NotImplementedError(
-                "native BVH builder not ported to cuda_raytracer_tpu_torch "
-                "yet (ROADMAP queue 1); use backend='auto' or 'numpy'"
-            )
+            raise RuntimeError("native BVH builder returned no tree")
 
         # one centroid argsort per axis, maintained through splits
         orders = [np.argsort(self.centroids[:, a], kind="stable") for a in range(3)]
@@ -97,6 +112,47 @@ class BVHAccel:
         #: vector in place; getSortedPrimitives(), src/bvh.cpp:384-386).
         self.sorted_order = np.zeros(n, dtype=np.int64)
         self.root = self._build(orders, 0, n, root_min, root_max)
+        self.build_s = time.perf_counter() - t0
+
+    def _build_native(self, lib) -> bool:
+        """Build through the C++ builder (native/bvh_builder.cpp); the
+        tree is bit-identical to the numpy path."""
+        import ctypes
+
+        n = len(self.prim_min)
+        cap = 2 * n + 1
+        pmin = np.ascontiguousarray(self.prim_min)
+        pmax = np.ascontiguousarray(self.prim_max)
+        sorted_order = np.zeros(n, dtype=np.int64)
+        node_bounds = np.zeros((cap, 6), dtype=np.float64)
+        node_info = np.zeros((cap, 4), dtype=np.int64)
+        count = lib.bvh_build(
+            pmin.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            pmax.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            n, self.max_leaf_size, self.sah_bins,
+            sorted_order.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            node_bounds.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            node_info.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            cap,
+        )
+        if count <= 0:
+            return False
+        self.sorted_order = sorted_order
+
+        bounds = node_bounds[:count]
+        info = node_info[:count]
+        nodes = [
+            BVHNode(bounds[i, :3], bounds[i, 3:], int(info[i, 0]),
+                    int(info[i, 1]))
+            for i in range(count)
+        ]
+        left = info[:, 2]
+        for i in np.nonzero(left >= 0)[0]:
+            nodes[i].l = nodes[int(info[i, 2])]
+            nodes[i].r = nodes[int(info[i, 3])]
+        self.root = nodes[0]
+        self.backend_used = "native"
+        return True
 
     # -- recursive split (src/bvh.cpp:48-230) -----------------------------
     def _build(self, orders: np.ndarray, start: int, end: int,

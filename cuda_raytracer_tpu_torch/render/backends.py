@@ -1,12 +1,14 @@
 """Traversal-backend factory for the bounce loop.
 
-The port of ``cuda_raytracer_tpu/render/backends.py``.  ``"dfs"`` and
-``"auto"`` resolve to ``ops.packet_dfs.trace_closest_packets``,
-``"pallas"`` (the JAX package's name for its wavefront2 kernels, kept so
-configs carry over) to ``ops.wavefront2.trace_closest_wavefront``: each
-runs its CUDA kernels on the GPU and its plain versions on the CPU.
-``"xla"`` (ops/traverse.py) is a valid config value that raises until
-it is ported, as do the options that need unported modules.
+The port of ``cuda_raytracer_tpu/render/backends.py``.  ``"dfs"``
+resolves to ``ops.packet_dfs.trace_closest_packets``, ``"pallas"`` (the
+JAX package's name for its wavefront2 kernels, kept so configs carry
+over) to ``ops.wavefront2.trace_closest_wavefront``: each runs its CUDA
+kernels on the GPU and its plain versions on the CPU, for trees up to
+width 8.  ``"xla"`` is ``ops.traverse.trace_closest``, torch ops on
+either device, at any width.  ``"auto"`` is the DFS, and sends a scene
+whose tree is wider than 8 to ``"xla"`` (decided per scene, where the
+JAX package sends such a tree from its DFS to its wavefront).
 
 Seeded bounds (ops/seeds.py) are not ported.  The JAX package seeds a
 wavefront pass only when it is a secondary, non-compacted pass (or the
@@ -14,18 +16,16 @@ camera pass under ``seed_primary``) with ``seed_k > 0`` on a scene that
 has seed rows; such a pass raises here instead of running unseeded
 unasked.  The fast preset reaches the wavefront only through compacted
 passes, which the JAX package never seeds, so nothing on that path is
-lost.
+lost.  The ``"xla"`` traversal takes no seeds in either package.
 """
 
 from __future__ import annotations
 
 from ..config import RenderConfig
 from ..ops.packet_dfs import trace_closest_packets
+from ..ops.traverse import trace_closest
 from ..ops.wavefront2 import trace_closest_wavefront
 
-_NOT_PORTED = {
-    "xla": "ROADMAP queue 1 item 3 (ops/traverse.py trace_closest)",
-}
 _SEEDS = "needs ops/seeds.py, not ported yet (ROADMAP queue 1 item 9)"
 
 
@@ -42,13 +42,16 @@ def make_trace_fn(cfg: RenderConfig, secondary: bool = False,
         kind = cfg.traversal_secondary or cfg.traversal
     else:
         kind = cfg.traversal
-    if kind == "auto":
+    auto = kind == "auto"
+    if auto:
         kind = "dfs"
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"traversal backend {kind!r} is not ported to "
-            f"cuda_raytracer_tpu_torch yet: {_NOT_PORTED[kind]}"
-        )
+    if kind == "xla":
+
+        def trace_xla(scene, o, d, valid, t_limit=None):
+            # the JAX signature: shadow passes trace to the closest hit
+            return trace_closest(scene, o, d, valid, cfg.queue_multiplier)
+
+        return trace_xla
     if kind not in ("dfs", "pallas"):
         raise ValueError(f"unknown traversal backend {kind!r}")
     if cfg.slab_bf16:
@@ -64,6 +67,9 @@ def make_trace_fn(cfg: RenderConfig, secondary: bool = False,
                  if secondary else cfg.packet_size)
 
         def trace_dfs(scene, o, d, valid, t_limit=None):
+            if auto and scene.bvh.width > 8:
+                # trees wider than the kernels take: the torch traversal
+                return trace_closest(scene, o, d, valid, cfg.queue_multiplier)
             tl = None if cfg.reference_compat else t_limit
             return trace_closest_packets(
                 scene, o, d, valid, tl, kill_eps=cfg.shadow_eps,

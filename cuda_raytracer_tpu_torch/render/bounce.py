@@ -106,9 +106,11 @@ def make_stage_fns(cfg: RenderConfig):
 
 
 def run_bounce_loop(J, cfg: RenderConfig, scene: FlatScene, o, d, key,
-                    valid=None):
+                    valid=None, after_depth=None):
     """Trace and shade the camera rays through the full depth/NEE
-    schedule.  Returns (light [N, 3], dropped)."""
+    schedule.  Returns (light [N, 3], dropped).  ``after_depth(depth,
+    carry)``, when given, is called after each depth (the engine's
+    per-depth laps)."""
     n = o.shape[0]
     dev = o.device
     if valid is None:
@@ -121,6 +123,8 @@ def run_bounce_loop(J, cfg: RenderConfig, scene: FlatScene, o, d, key,
     carry = (o, d, valid, importance, light, count_emission, dropped)
     for depth in range(cfg.max_depth):
         carry = run_depth(J, cfg, scene, carry, key, depth)
+        if after_depth is not None:
+            after_depth(depth, carry)
     return carry[4], carry[6]
 
 

@@ -7,6 +7,13 @@ threshold-gated median filter.  PyTorch runs eagerly, so there is no
 fuse/jit split: a frame is raygen, the bounce loop of render/bounce.py
 and the film, launched in order on the device.
 
+``stage_times`` holds host seconds, as the JAX engine's does: ``frame``
+(each render(), up to a device sync), ``bvh_build``, ``flatten`` and
+``upload`` (each scene load, flatten_scene's steps), and, with the
+environment variable ``CRT_TIME_DEPTHS`` set, ``depth{i}`` per depth
+(each behind a device sync).  The JAX engine's ``partition`` laps
+belong to whole-depth compaction, which is not ported.
+
 ``load_scene`` reads a COLLADA document (scene/collada.py) into the
 dynamic scene, flattens its static form and places the camera.  Camera
 modes: "canonical" (the Scotty3D orbit placement), "collada" (the .dae
@@ -18,7 +25,9 @@ renderer's basis with its fixed frustum; needs a .dae camera).
 from __future__ import annotations
 
 import math
-from typing import Optional
+import os
+import time
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -32,6 +41,7 @@ from ..scene import static_scene as st
 from ..scene.camera import Camera, CutracerCamera
 from ..scene.collada import load_scene_info
 from ..scene.dynamic_scene import load_from_scene_info
+from ..utils.timing import LapTimer, block_until_ready
 from .bounce import make_stage_fns, run_bounce_loop
 from .flatscene import FlatScene, flatten_scene
 
@@ -67,6 +77,7 @@ class WavefrontRenderer:
         self._post_image = None
         self._stages = None
         self._dropped = 0
+        self.stage_times: Dict[str, float] = {}
 
     def load_scene(self, path: str) -> None:
         """Load a COLLADA document: its dynamic scene, then the static
@@ -86,6 +97,7 @@ class WavefrontRenderer:
             max_leaf_size=cfg.max_leaf_size,
             sah_bins=cfg.sah_bins,
             device=self.device,
+            times=self.stage_times,
         )
         self.static_scene = sscene
 
@@ -191,14 +203,27 @@ class WavefrontRenderer:
         if self._stages is None:
             self.setup()
         cfg = self.config
+        t0 = time.perf_counter()
         key = rng.fold_in(rng.PRNGKey(cfg.seed), self.frame_index)
         o, d = self._raygen(key)
+        after_depth = None
+        if os.environ.get("CRT_TIME_DEPTHS"):
+            timer = LapTimer()
+            block_until_ready((o, d))
+            timer.start()
+
+            def after_depth(depth, carry):
+                self.stage_times[f"depth{depth}"] = timer.lap(
+                    f"depth{depth}", carry)
+
         light, dropped = run_bounce_loop(
-            self._stages, cfg, self.scene, o, d, key
+            self._stages, cfg, self.scene, o, d, key, after_depth=after_depth
         )
         with_median = self.image_samples < cfg.post_process_threshold
         final, post = self._film(light, with_median)
-        self._dropped = int(dropped)  # waits for the frame
+        self._dropped = int(dropped)
+        block_until_ready((final, post))
+        self.stage_times["frame"] = time.perf_counter() - t0
         self._final_image = final
         self._post_image = post
         self.image_samples += cfg.samples_per_frame

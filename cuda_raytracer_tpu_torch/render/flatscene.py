@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -757,12 +758,24 @@ def flatten_scene(
     max_leaf_size: int = 32,
     sah_bins: int = 12,
     device=None,
+    times: Optional[Dict[str, float]] = None,
 ) -> Tuple[FlatScene, BVHAccel]:
     """Flatten a static scene: build the SAH BVH over all primitives
     (triangles + spheres) and put its tables on ``device`` (the GPU
-    unless the caller names another)."""
+    unless the caller names another).  ``times``, when given, receives
+    the host seconds of each step: ``bvh_build`` (BVHAccel, native or
+    numpy), ``flatten`` (the wide tree and the tables, on the host) and
+    ``upload`` (the tables onto the device, synchronised)."""
     dev = resolve_device(device)
+    t0 = time.perf_counter()
     fields, static, bvh = flatten_tables(
         scene, tree_width, max_leaf_size, sah_bins
     )
-    return from_jax_arrays(fields, static, dev), bvh
+    t1 = time.perf_counter()
+    flat = from_jax_arrays(fields, static, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    if times is not None:
+        times.update(bvh_build=bvh.build_s, flatten=t1 - t0 - bvh.build_s,
+                     upload=time.perf_counter() - t1)
+    return flat, bvh

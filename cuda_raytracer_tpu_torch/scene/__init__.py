@@ -1,8 +1,8 @@
-"""Scene layer: COLLADA I/O, scene graph, camera, BSDFs (numpy host types).
+"""Scene layer: COLLADA I/O, scene graph, camera, BSDFs, the editor's
+session slots, skeletons and widgets (numpy host types).
 
-Copies of the JAX package's jax-free scene modules, with its exports.
-The interactive session (``session``, ``skeleton``, ``widgets``) is not
-ported yet (ROADMAP queue 1).
+Copies of the JAX package's jax-free scene modules, with its exports,
+plus the session manager (``SessionManager``, ``scene_to_info``).
 """
 
 from .collada_info import (  # noqa: F401
@@ -29,3 +29,4 @@ from .bsdf import (  # noqa: F401
 from .camera import Camera  # noqa: F401
 from . import static_scene  # noqa: F401
 from . import dynamic_scene  # noqa: F401
+from .session import SessionManager, scene_to_info  # noqa: F401

@@ -198,6 +198,11 @@ class Mesh(SceneObject):
         return self._hm
 
     def _sync_from_halfedge(self) -> None:
+        if getattr(self, "_hm", None) is None:
+            # never opened for editing: the polygon mesh is current (the
+            # JAX package raises AttributeError here, so its session
+            # save fails on a mesh no edit has touched)
+            return
         positions, polys = self._hm.to_polygon_soup()
         self.mesh = PolygonMesh(positions, polys)
 

@@ -1,9 +1,10 @@
 """Image I/O and conversion.
 
 PNG save/load on the standard library (``zlib`` + ``struct``; no
-Pillow), framebuffers top-row-first as the JAX package writes them, and
-the minimal EXR loader for environment maps (a copy of the JAX
-package's).
+Pillow): ``save_png`` writes 8-bit RGB, ``load_png`` reads every PNG
+layout as the JAX package's Pillow-based reader does.  Framebuffers are
+top-row-first as the JAX package writes them.  The minimal EXR loader
+for environment maps is a copy of the JAX package's.
 """
 
 from __future__ import annotations
@@ -14,8 +15,15 @@ import zlib
 import numpy as np
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-#: PNG colour types read: truecolour (RGB) and truecolour with alpha
-_CHANNELS = {2: 3, 6: 4}
+#: samples per pixel of each PNG colour type: grey, RGB, palette,
+#: grey + alpha, RGBA
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+#: the bit depths the PNG specification allows for each colour type
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+#: Adam7 interlacing: (x0, y0, dx, dy) of each of the seven passes
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def to_uint8(img: np.ndarray) -> np.ndarray:
@@ -78,14 +86,62 @@ def _unfilter(kind: int, line: bytearray, prev: bytes, bpp: int) -> None:
         raise ValueError(f"PNG: unknown filter type {kind}")
 
 
+def _read_pass(raw: bytes, off: int, w: int, h: int, ch: int,
+               depth: int):
+    """Unfilter one (sub)image of h rows at raw[off:] and unpack its
+    samples: ([h, w, ch] int64 array, offset past its rows)."""
+    stride = (w * ch * depth + 7) // 8
+    bpp = max(1, ch * depth // 8)
+    end = off + h * (stride + 1)
+    if len(raw) < end:
+        raise ValueError(f"image data has {len(raw)} bytes, fewer than "
+                         f"the {end} its header needs")
+    out = bytearray(h * stride)
+    prev = bytes(stride)
+    for y in range(h):
+        start = off + y * (stride + 1)
+        line = bytearray(raw[start + 1:start + 1 + stride])
+        _unfilter(raw[start], line, prev, bpp)
+        out[y * stride:(y + 1) * stride] = line
+        prev = line
+    buf = np.frombuffer(bytes(out), np.uint8).reshape(h, stride)
+    if depth == 16:
+        samples = buf.view(">u2")
+    elif depth == 8:
+        samples = buf
+    else:  # 1, 2 or 4 bits per sample, packed from the high bits
+        bits = np.unpackbits(buf, axis=1).reshape(h, -1, depth)
+        weights = 1 << np.arange(depth - 1, -1, -1)
+        samples = (bits * weights).sum(-1)
+    return samples[:, :w * ch].astype(np.int64).reshape(h, w, ch), end
+
+
 def load_png(path: str) -> np.ndarray:
-    """Read an 8-bit RGB or RGBA, non-interlaced PNG as [H, W, 3] float32
-    in [0, 1] (alpha dropped); raise on any other layout."""
+    """Read a PNG as [H, W, 3] float32 in [0, 1], as the JAX package's
+    ``load_png`` does (Pillow's ``convert("RGB")``, divided by 255).
+
+    Every layout the PNG specification allows, interlaced (Adam7) or not:
+
+    * RGB and RGBA, 8 bits: the colour samples (alpha dropped);
+    * RGB and RGBA, 16 bits: the high byte of each sample (0x12ff -> 18);
+    * grey, 8 bits: the sample in all three channels; 1, 2 and 4 bits:
+      scaled to 8 bits (x 255, 85 and 17);
+    * grey, 16 bits: the sample clipped at 255 (5000 -> 255), as Pillow
+      converts its ``I;16`` mode;
+    * grey + alpha: the grey sample (its high byte at 16 bits), alpha
+      dropped;
+    * palette (1, 2, 4, 8 bits): the PLTE colour; an index past the
+      palette gives black.
+
+    A tRNS chunk (transparency) is ignored, as ``convert("RGB")``
+    ignores it.  Raises on anything else: a bad signature or CRC, a
+    missing IHDR, IDAT or (palette images) PLTE, or a depth the colour
+    type does not allow."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
-    off, header, idat = 8, None, []
+    off, header, plte, idat = 8, None, None, []
     while off + 8 <= len(data):
         length, kind = struct.unpack_from(">I4s", data, off)
         body = data[off + 8:off + 8 + length]
@@ -95,6 +151,8 @@ def load_png(path: str) -> np.ndarray:
         off += 12 + length
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            plte = body
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -102,27 +160,44 @@ def load_png(path: str) -> np.ndarray:
     if header is None or not idat:
         raise ValueError(f"{path}: no IHDR or IDAT chunk")
     w, h, depth, color, comp, filt, interlace = header
-    if depth != 8 or color not in _CHANNELS or comp or filt or interlace:
+    if (color not in _CHANNELS or depth not in _DEPTHS[color] or comp
+            or filt or interlace not in (0, 1) or not w or not h):
         raise ValueError(
-            f"{path}: only 8-bit RGB/RGBA non-interlaced PNG is read "
-            f"(bit depth {depth}, colour type {color}, interlace "
-            f"{interlace})")
-    bpp = _CHANNELS[color]
-    stride = w * bpp
+            f"{path}: not a valid PNG header (colour type {color}, bit "
+            f"depth {depth}, compression {comp}, filter {filt}, interlace "
+            f"{interlace}, {w}x{h})")
+    if color == 3 and plte is None:
+        raise ValueError(f"{path}: palette image without a PLTE chunk")
+    ch = _CHANNELS[color]
     raw = zlib.decompress(b"".join(idat))
-    if len(raw) != h * (stride + 1):
+    if interlace:
+        samples = np.zeros((h, w, ch), np.int64)
+        off = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw > 0 and ph > 0:
+                sub, off = _read_pass(raw, off, pw, ph, ch, depth)
+                samples[y0::dy, x0::dx] = sub
+    else:
+        samples, off = _read_pass(raw, 0, w, h, ch, depth)
+    if off != len(raw):
         raise ValueError(f"{path}: image data has {len(raw)} bytes, not "
-                         f"{h * (stride + 1)}")
-    out = bytearray(h * stride)
-    prev = bytes(stride)
-    for y in range(h):
-        start = y * (stride + 1)
-        line = bytearray(raw[start + 1:start + 1 + stride])
-        _unfilter(raw[start], line, prev, bpp)
-        out[y * stride:(y + 1) * stride] = line
-        prev = line
-    img = np.frombuffer(bytes(out), np.uint8).reshape(h, w, bpp)[:, :, :3]
-    return img.astype(np.float32) / 255.0
+                         f"{off}")
+
+    if color == 3:
+        pal = np.zeros((256, 3), np.uint8)
+        n = min(len(plte) // 3, 256)
+        pal[:n] = np.frombuffer(plte[:3 * n], np.uint8).reshape(n, 3)
+        rgb = pal[samples[..., 0]]
+    else:
+        if depth == 16:
+            v = np.minimum(samples, 255) if color == 0 else samples >> 8
+        elif depth < 8:
+            v = samples * (255 // ((1 << depth) - 1))
+        else:
+            v = samples
+        rgb = v[..., :3] if color in (2, 6) else np.repeat(v[..., :1], 3, -1)
+    return rgb.astype(np.float32) / 255.0
 
 
 def load_exr(path: str) -> np.ndarray:

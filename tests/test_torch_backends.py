@@ -89,8 +89,8 @@ def test_unported_options_raise():
         make_trace_fn(RenderConfig(traversal="pallas", slab_bf16=True))
     with pytest.raises(NotImplementedError, match="slab_bf16"):
         make_trace_fn(RenderConfig(traversal="dfs", slab_bf16=True))
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        make_trace_fn(RenderConfig(traversal="xla"))
+    # "xla" is ported (ops/traverse.py), and takes no bf16 slabs
+    make_trace_fn(RenderConfig(traversal="xla", slab_bf16=True))
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         make_trace_fn(RenderConfig(traversal="dfs", seed_primary=True))
     # the camera pass of a pallas config is unseeded by default

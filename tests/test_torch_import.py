@@ -11,10 +11,13 @@ import pytest
 import torch
 
 import cuda_raytracer_tpu_torch
+from cuda_raytracer_tpu_torch.apps.animate import raytrace_video
+from cuda_raytracer_tpu_torch.apps.viewer import InteractiveViewer
 from cuda_raytracer_tpu_torch.models.cornell import cornell_box_scene
 from cuda_raytracer_tpu_torch.ops import packet_dfs
 from cuda_raytracer_tpu_torch.render import flatscene
 from cuda_raytracer_tpu_torch.render.engine import WavefrontRenderer
+from cuda_raytracer_tpu_torch.scene import dynamic_scene
 
 PKG_DIR = os.path.dirname(cuda_raytracer_tpu_torch.__file__)
 REPO = os.path.dirname(PKG_DIR)
@@ -33,7 +36,10 @@ def test_modules_import_without_jax():
     for name in ("_build", "packet_dfs", "partition", "wavefront2"):
         assert f"cuda_raytracer_tpu_torch.ops.{name}" in mods
     for name in ("apps.render_cli", "scene.collada", "scene.dynamic_scene",
-                 "geometry.meshedit", "utils.image"):
+                 "geometry.meshedit", "utils.image", "ops.traverse",
+                 "native.build", "scene.session", "scene.skeleton",
+                 "scene.widgets", "apps.viewer", "apps.timeline",
+                 "apps.animate", "utils.timing"):
         assert f"cuda_raytracer_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -72,6 +78,10 @@ def test_entry_points_need_a_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         WavefrontRenderer()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InteractiveViewer()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        raytrace_video(dynamic_scene.Scene([], []), None, 1)
     with pytest.raises(RuntimeError, match="CUDA"):
         flatscene.flatten_scene(cornell_box_scene())
     scene, _ = flatscene.flatten_scene(cornell_box_scene(), device="cpu")

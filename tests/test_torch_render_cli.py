@@ -77,6 +77,34 @@ def test_cli_envmap(doc_path, tmp_path, monkeypatch):
     assert lights[-1][-1] == "EnvironmentLight" and len(lights) == 2
 
 
+def test_cli_envmap_palette_png(doc_path, tmp_path, monkeypatch,
+                                pil_image):
+    """-e takes a palette PNG (which the port's reader once refused), read
+    as the JAX package's load_png reads it."""
+    from cuda_raytracer_tpu.utils.image import load_png as jax_load_png
+
+    env = str(tmp_path / "env.png")
+    idx = np.random.default_rng(5).integers(0, 4, (8, 16), np.uint8)
+    im = pil_image.frombytes("P", (16, 8), idx.tobytes())
+    im.putpalette(bytes([200, 180, 160, 40, 60, 90, 250, 250, 250, 0, 0,
+                         0]))
+    im.save(env)
+    maps = []
+    load = engine.WavefrontRenderer.load_static_scene
+
+    def spy(self, sscene, *args, **kw):
+        maps.extend(l.envmap for l in sscene.lights
+                    if type(l).__name__ == "EnvironmentLight")
+        return load(self, sscene, *args, **kw)
+
+    monkeypatch.setattr(engine.WavefrontRenderer, "load_static_scene", spy)
+    out = str(tmp_path / "o.png")
+    assert render_cli.main([doc_path, "-w", out, "--device", "cpu",
+                            "--size", "16x8", "-s", "1", "-e", env]) == 0
+    assert np.array_equal(np.asarray(maps[-1]), jax_load_png(env))
+    assert image.load_png(out).mean() > 0.0
+
+
 def test_bench_keys_match_jax_cli(doc_path, tmp_path, monkeypatch, capsys):
     """Both CLIs print the same --bench keys (the JAX CLI here drives a
     stand-in renderer: only its printing is under test)."""
@@ -113,9 +141,14 @@ def test_cli_refuses(doc_path, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         render_cli.main([doc_path, "-w", out, "-s", "1"])
+    # tree width 16: the default traversal ("auto") takes the torch
+    # traversal; the fast preset's explicit "dfs" refuses it
+    assert render_cli.main([doc_path, "-w", out, "--device", "cpu", "-s",
+                            "1", "--size", "8x8", "--tree-width", "16"]) == 0
     with pytest.raises(ValueError, match="tree_width <= 8"):
         render_cli.main([doc_path, "-w", out, "--device", "cpu", "-s", "1",
-                         "--size", "8x8", "--tree-width", "16"])
+                         "--size", "8x8", "--tree-width", "16",
+                         "--preset", "fast"])
 
 
 def _chunk(kind, data):
@@ -185,11 +218,15 @@ def test_png_round_trip_and_refusals(tmp_path):
     assert np.array_equal(image.load_png(path),
                           image.to_uint8(img).astype(np.float32) / 255.0)
     bad = str(tmp_path / "bad.png")
-    rows = [bytes(1 + 4 * 6)] * 4
-    for kw in (dict(depth=16), dict(color=0), dict(color=3),
-               dict(interlace=1)):
+    rows = [bytes(1 + 4 * 3)] * 4
+    # depths the colour type does not allow, an unknown colour type or
+    # interlace method; a palette image without its PLTE; short data
+    for kw, msg in ((dict(depth=4), "header"), (dict(color=3, depth=16),
+                    "header"), (dict(color=5), "header"),
+                    (dict(interlace=2), "header"), (dict(color=3), "PLTE"),
+                    (dict(depth=16), "fewer")):
         _write_png(bad, 4, 4, rows, **kw)
-        with pytest.raises(ValueError, match="8-bit RGB/RGBA"):
+        with pytest.raises(ValueError, match=msg):
             image.load_png(bad)
     with pytest.raises(ValueError, match="not a PNG"):
         image.load_png(__file__)
