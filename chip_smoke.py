@@ -69,7 +69,25 @@ prints one JSON line for the kernels and, last, the device line.  Phases:
    tree width 16 through ``traversal="auto"`` (the torch traversal of
    ops/traverse.py, no kernel): its traces against trace_bruteforce on
    262,144 terrain n=121 rays, a full frame, and card vs CPU on terrain
-   n=8 under max_leaf_size=4.
+   n=8 under max_leaf_size=4;
+7. run E, the config fields whose paths the shipped preset does not take,
+   at 800x600, 32 spp, depth 4, on run B's terrain and run C's document,
+   each field on its own beside the shipped preset (a warm-up frame, then
+   a counted one): ``compact_depths=True`` (whole-depth compaction: the
+   payload form of the partition on the frame's path state, n_live and
+   the bucket per roulette depth, the launches the schedule gives, and
+   card vs CPU on the small frames of phase 4 with ``fuse_frame="yes"``);
+   ``traversal_secondary="pallas"`` (seeded wavefront passes) and
+   ``traversal="dfs", seed_primary=True`` (seeded DFS passes): the seeded
+   trace against the unseeded one on all its lanes, the seed sweep's time,
+   and, on run B, the seeded kernels against their seeded plain versions
+   on the frame's first seeded traces, all their lanes (the DFS camera
+   and depth-0 shadow passes; the wavefront's depth-1 bounce and its
+   shadow pass); ``slab_bf16=True``: every trace of the warm-up frame
+   against its f32 twin to the bit, and the bf16 DFS, count and pack
+   against their plain versions and against the f32 forms (time, visits
+   per ray, entries per level) on run B's camera trace and depth-2
+   closest-hit trace, all their lanes.
 
 Needs one CUDA card; exits non-zero (and prints no result) without one,
 or when run outside a checkout of the repository.  Imports nothing of
@@ -97,6 +115,21 @@ F32_FLOPS = 67e12
 #: sphere test (a prim is tested by its own type only; pads cost
 #: nothing), and per ray (the three reciprocals of d)
 BOX_FLOPS = 25
+#: bfloat16 FLOP/s outside the tensor cores: twice the float32 rate
+#: (NVIDIA's H100 architecture white paper), the rate of the bf16
+#: products and min/max of a slab_bf16 box test
+BF16_FLOPS = 2 * F32_FLOPS
+#: a bf16 box test (config slab_bf16), split by type: in f32 the 6
+#: differences, their 6 roundings to bf16, the widening of tnear and
+#: tfar (3 each: a product and two sums; |t| is an operand modifier) and
+#: the 3 compares; in bf16 the 6 products and the 10 min/max
+BOX_BF16_F32_OPS = 6 + 6 + 6 + 3
+BOX_BF16_OPS = 6 + 10
+#: and once per ray the roundings of 1/d to bf16, once per DFS node
+#: visit the widening of the bound a child is entered under (the
+#: wavefront's count and pack compare with the bound as it is)
+RAY_BF16_F32_OPS = 3
+VISIT_BF16_F32_OPS = 3
 TRI_FLOPS = 38
 SPH_FLOPS = 37
 RAY_FLOPS = 3
@@ -166,21 +199,27 @@ def fast_config(**over):
                         max_depth=4, nee_schedule=((1, 1.0),) * 4, **kw)
 
 
-#: the kernels: name -> (module of its wrapper, its launch counter there)
+#: the kernels and their bf16 forms: name -> (module of its wrapper, its
+#: launch counter there)
 COUNTERS = {
     "packet_dfs": ("packet_dfs", "launches"),
+    "packet_dfs_bf16": ("packet_dfs", "bf16_launches"),
     "partition_rays": ("partition", "ray_launches"),
     "partition": ("partition", "launches"),
     "wf2_count": ("wavefront2", "count_launches"),
+    "wf2_count_bf16": ("wavefront2", "count_bf16_launches"),
     "wf2_pack": ("wavefront2", "pack_launches"),
+    "wf2_pack_bf16": ("wavefront2", "pack_bf16_launches"),
     "wf2_decode": ("wavefront2", "decode_launches"),
 }
 #: leaf prims a pack block stages in shared memory (WF_STAGE_PRIMS of
 #: ops/csrc/wavefront2.cu); a segment with more reads them from global
 WF_STAGE_PRIMS = 128
-#: kernels the main path does not launch (the partition's payload form,
-#: kept for whole-depth compaction); held on the card all the same
-OFF_PATH = ("partition",)
+#: kernels and forms the shipped preset does not launch: the partition's
+#: payload form (whole-depth compaction) and the bf16 forms (slab_bf16);
+#: phase 7 drives each of them
+OFF_PATH = ("partition", "packet_dfs_bf16", "wf2_count_bf16",
+            "wf2_pack_bf16")
 
 
 def _ops_module(name):
@@ -303,12 +342,15 @@ def _plain_chunked(args, chunk, stats):
             sum(p[2] for p in parts))
 
 
-def measure_kernel(label, scene, rays, chunk=1 << 20):
+def measure_kernel(label, scene, rays, do_kill, chunk=1 << 20, bf16=False,
+                   max_t=None):
     """The kernel against its plain version on one ray set (o, d, valid,
-    t_limit): hit/miss, prim and t bit-equal, shadow decisions equal,
-    dropped == 0.  Then kernel time (CUDA events), plain time (host
-    clock) and the bound from these rays' bytes and the work this data
-    needs, as the plain version counted it."""
+    t_start: a shadow ray's t_limit, or a seeded start bound):
+    hit/miss, prim and t bit-equal, shadow decisions equal (against
+    ``max_t``, by default t_start), dropped == 0.  ``do_kill`` (shadow
+    mode) and ``bf16`` select the form.  Then kernel time (CUDA events),
+    plain time (host clock) and the bound from these rays' bytes and the
+    work this data needs, as the plain version counted it."""
     import torch
 
     from cuda_raytracer_tpu_torch.ops import packet_dfs
@@ -316,8 +358,9 @@ def measure_kernel(label, scene, rays, chunk=1 << 20):
     b = scene.bvh
     rays = tuple(None if x is None else x.contiguous() for x in rays)
     args = (*rays, b.dfs_node_rows, b.dfs_prim_rows, b.node_meta, b.width,
-            1e-3, packet_dfs.stack_entries(b))
-    max_t = rays[3]
+            1e-3, packet_dfs.stack_entries(b), do_kill, bf16)
+    if max_t is None and do_kill:
+        max_t = rays[3]
     tk, pk, dropped = packet_dfs.dfs_trace_cuda(*args)
     stats = {}
     torch.cuda.synchronize()
@@ -352,21 +395,22 @@ def measure_kernel(label, scene, rays, chunk=1 << 20):
     # each input read once, each output (t, prim, dropped) written once
     nbytes = sum(x.numel() * x.element_size()
                  for x in args[:7] if x is not None) + 8 * n + 8
-    flops = (stats["boxes"] * BOX_FLOPS + stats["tris"] * TRI_FLOPS
-             + stats["spheres"] * SPH_FLOPS + n * RAY_FLOPS)
-    bytes_ms = nbytes / HBM_BPS * 1e3
-    ops_ms = flops / F32_FLOPS * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    flops, bf16_ops = box_ops(stats["boxes"], n, bf16, stats["visits"])
+    flops += stats["tris"] * TRI_FLOPS + stats["spheres"] * SPH_FLOPS
+    bound = _bound(nbytes, flops, bf16_ops)
+    bytes_ms, ops_ms, bound_ms = (bound["bytes_ms"], bound["ops_ms"],
+                                  bound["bound_ms"])
     print(f"[kernel] {label}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
           f"bound {bound_ms:.5f} ms, {bound_ms / ms:.3f} of it reached "
-          f"(bytes {nbytes} -> {bytes_ms:.5f} ms; {flops} flops from "
+          f"(bytes {nbytes} -> {bytes_ms:.5f} ms; {flops} f32 and "
+          f"{bf16_ops} bf16 operations from "
           f"{stats['visits']} visits ({stats['visits'] / n:.3f} per ray, "
-          f"stack {args[-1]}), {stats['boxes']} box tests, "
+          f"stack {args[9]}), {stats['boxes']} box tests, "
           f"{stats['tris']} triangle and {stats['spheres']} sphere tests "
           f"-> {ops_ms:.5f} ms)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes" if bytes_ms > ops_ms else "operations",
-                max_abs_err=err)
+                bound_by=bound["bound_by"], max_abs_err=err,
+                visits=stats["visits"] / n, t=tk, prim=pk)
 
 
 def phase_kernel(dev):
@@ -376,8 +420,8 @@ def phase_kernel(dev):
     kernels against their plain versions and the whole wavefront trace
     against the DFS kernel."""
     scene, closest, shadow = terrain_ray_set(dev)
-    a = measure_kernel("terrain closest-hit", scene, closest)
-    b = measure_kernel("terrain shadow", scene, shadow)
+    a = measure_kernel("terrain closest-hit", scene, closest, False)
+    b = measure_kernel("terrain shadow", scene, shadow, True)
     for label, rays in (("terrain closest-hit", closest),
                         ("terrain shadow", shadow)):
         measure_partition(label, rays)
@@ -407,12 +451,23 @@ def expected_launches(r, frames):
     light; a DFS trace is one launch; a wavefront trace is one
     partition, one count if it has a level with inner children (the
     level-0 queue's: each pack counts the level after it), one pack per
-    level it visits and one decode of the keys."""
+    level it visits and one decode of the keys.  Under slab_bf16 the DFS,
+    count and pack launches are their bf16 forms'; under whole-depth
+    compaction the roulette depths' traces have no partition of their
+    own, and the path state's partition runs before the first of them
+    and after each but the last."""
     cfg, bvh = r.config, r.scene.bvh
     inner = [lv.has_inner for lv in bvh.wf_levels]
     n_pack = inner.index(False) + 1 if False in inner else len(inner)
     n_count = int(inner[0])
     want = dict.fromkeys(COUNTERS, 0)
+    bf = "_bf16" if cfg.slab_bf16 else ""
+    # whole-depth compaction: one payload partition before the first
+    # roulette depth and one after each roulette depth but the last; its
+    # depths trace without the ray-form partition
+    compacting = r.compacting
+    if compacting:
+        want["partition"] = cfg.max_depth - cfg.rr_start_depth
     for depth in range(cfg.max_depth):
         num_nee = (cfg.nee_schedule[depth][0]
                    if depth < len(cfg.nee_schedule) else 0)
@@ -424,12 +479,13 @@ def expected_launches(r, frames):
         if rr:
             kind = cfg.traversal_rr or kind
         if kind in ("dfs", "auto"):
-            want["packet_dfs"] += traces
+            want["packet_dfs" + bf] += traces
         else:
-            want["partition_rays"] += (traces if rr and cfg.compact_secondary
-                                       else 0)
-            want["wf2_pack"] += traces * n_pack
-            want["wf2_count"] += traces * n_count
+            want["partition_rays"] += (
+                traces if rr and cfg.compact_secondary and not compacting
+                else 0)
+            want["wf2_pack" + bf] += traces * n_pack
+            want["wf2_count" + bf] += traces * n_count
             want["wf2_decode"] += traces
     return {k: v * frames for k, v in want.items()}
 
@@ -524,9 +580,21 @@ def _host_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def _bound(nbytes, flops):
+def box_ops(boxes, rays, bf16, visits=0):
+    """(f32 ops, bf16 ops) of ``boxes`` box tests of ``rays`` rays (the
+    reciprocals of d included), and of ``visits`` DFS node visits."""
+    if not bf16:
+        return boxes * BOX_FLOPS + rays * RAY_FLOPS, 0
+    return (boxes * BOX_BF16_F32_OPS + rays * (RAY_FLOPS + RAY_BF16_F32_OPS)
+            + visits * VISIT_BF16_F32_OPS), boxes * BOX_BF16_OPS
+
+
+def _bound(nbytes, flops, bf16_ops=0):
+    """The least time for ``nbytes`` of memory traffic and ``flops`` f32
+    and ``bf16_ops`` bf16 operations, each at its own peak (the two types
+    share the issue slots, so their times add)."""
     bytes_ms = nbytes / HBM_BPS * 1e3
-    ops_ms = flops / F32_FLOPS * 1e3
+    ops_ms = (flops / F32_FLOPS + bf16_ops / BF16_FLOPS) * 1e3
     return dict(bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 bytes_ms=bytes_ms, ops_ms=ops_ms)
@@ -536,39 +604,43 @@ def _nbytes(*tensors):
     return sum(x.numel() * x.element_size() for x in tensors)
 
 
-def measure_partition(label, rays):
+def measure_partition(label, rays=None, payload=None):
     """Both forms of the partition kernel against their plain versions on
     one captured trace's rays: n_live equal, the live prefix equal to the
     bit (past it both leave entries undefined).  Payload form: on
-    make_payload's [N, 8] payload, timed beside the one PyTorch call that
+    ``payload`` (a frame's path state, [N, 16]) or else make_payload's
+    [N, 8] payload of the rays, timed beside the one PyTorch call that
     computes the same function (boolean-mask indexing; used nowhere in
-    the port).  Ray form: on the rays, timed beside what it replaces on
-    the main path, make_payload and the payload form.  Returns
-    {"payload": row, "rays": row}."""
+    the port).  Ray form, given rays: on the rays, timed beside what it
+    replaces on the main path, make_payload and the payload form.
+    Returns {"payload": row, "rays": row}."""
     import torch
 
     from cuda_raytracer_tpu_torch.ops import partition
     from cuda_raytracer_tpu_torch.ops import wavefront2 as wf
 
-    rays = tuple(None if x is None else x.contiguous() for x in rays)
-    payload = wf.make_payload(*rays)
+    forms = []
+    if rays is not None:
+        rays = tuple(None if x is None else x.contiguous() for x in rays)
+        forms.append(("rays", partition.partition_rays_cuda,
+                      partition.compact_rays_plain, rays))
+    if payload is None:
+        payload = wf.make_payload(*rays)
+    forms.insert(0, ("payload", partition.partition_cuda,
+                     partition.partition_plain, (payload,)))
     n, rows = payload.shape
     out = {}
-    for form, launch, plain, inputs in (
-        ("payload", partition.partition_cuda, partition.partition_plain,
-         (payload,)),
-        ("rays", partition.partition_rays_cuda, partition.compact_rays_plain,
-         rays),
-    ):
+    for form, launch, plain, inputs in forms:
         q_k, n_k = launch(*inputs)
         (q_p, n_p), plain_ms = _host_ms(lambda: plain(*inputs))
         k = int(n_k)
         bad = int((q_k[:k].view(torch.int32)
                    != q_p[:k].view(torch.int32)).sum())
         err = float((q_k[:k] - q_p[:k]).abs().max()) if k else 0.0
-        print(f"[kernel] partition ({form}), {label}: {n} entries, n_live "
-              f"{k} (plain {int(n_p)}), {bad} words of the live prefix "
-              f"differ")
+        print(f"[kernel] partition ({form}), {label}: {n} entries of "
+              f"{inputs[0].shape[-1] if form == 'payload' else 8} floats, "
+              f"n_live {k} (plain {int(n_p)}), {bad} words of the live "
+              f"prefix differ")
         check(k == int(n_p) and bad == 0,
               f"partition ({form}), {label}: kernel disagrees with its "
               f"plain version")
@@ -635,7 +707,7 @@ def _check_plan(where, plan, counts, lv, cap):
     return int(lost)
 
 
-def measure_wavefront(label, scene, rays):
+def measure_wavefront(label, scene, rays, bf16=False, seed=None):
     """The count and pack kernels against their plain versions, level by
     level, on one captured trace (compacted, as the main path runs it,
     and with fused counts: each pack counts the next level and plans
@@ -647,9 +719,12 @@ def measure_wavefront(label, scene, rays):
     keys (hits) equal to the bit, the region cursors and the next
     level's counts exact, and the next queue equal as a set of entries
     per region (ranks come from atomic cursors, so both sides are sorted
-    by ray id within a region first).  Every level is timed.  Returns
-    the level-0 row (count on the main path), the row of the inner level
-    with the most entries, the sums and the final keys."""
+    by ray id within a region first).  Every level is timed.  ``bf16``:
+    the box_bf16 forms.  ``seed`` = (seed_t, seed_prim): a seeded pass,
+    as the main path runs one (every lane queued, bounds and keys from
+    the seeds, no partition).  Returns the level-0 row (count on the
+    main path), the row of the inner level with the most entries, every
+    row, the sums and the final keys."""
     import torch
 
     from cuda_raytracer_tpu_torch.ops import partition
@@ -663,13 +738,24 @@ def measure_wavefront(label, scene, rays):
     do_kill = rays[3] is not None
     n = rays[0].shape[0]
     cap = wf.queue_capacity(n + (-n) % wf.CHUNK, 2, bvh.wf_sched)
-    queue, n_live = partition.partition_rays_cuda(
-        *(None if x is None else x.contiguous() for x in rays))
+    keys = torch.full((n,), wf.KEY_MISS, dtype=torch.int64, device=DEVICE)
+    if seed is None:
+        queue, n_live = partition.partition_rays_cuda(
+            *(None if x is None else x.contiguous() for x in rays))
+    else:
+        from cuda_raytracer_tpu_torch.ops.seeds import seeded_bound
+
+        o, d, valid, t_limit = rays
+        seed_t, seed_prim = seed
+        queue = wf.make_payload(o, d, valid,
+                                seeded_bound(seed_t, t_limit, 1e-3))
+        n_live = torch.tensor(n, dtype=torch.int32, device=DEVICE)
+        hit = (seed_t < wf.T_NO_LIMIT) & valid & (seed_prim >= 0)
+        keys = torch.where(hit, wf.hit_keys(seed_t, seed_prim), keys)
     zero = torch.zeros_like(n_live)
     seg_base = torch.stack([zero, n_live]).reshape(2)
     tile_base = torch.stack([zero, torch.div(
         n_live + wf.TILE - 1, wf.TILE, rounding_mode="floor")]).reshape(2)
-    keys = torch.full((n,), wf.KEY_MISS, dtype=torch.int64, device=DEVICE)
 
     def zeros(*shape, dtype=torch.int32):
         return torch.zeros(shape, dtype=dtype, device=DEVICE)
@@ -699,12 +785,12 @@ def measure_wavefront(label, scene, rays):
                 zeros(dtype=torch.int64)
             plan_c = _plan_tensors(lv.num_segs * W, lv.num_next)
             cargs = (queue, seg_base, tile_base, lv, node_rows, W, bound,
-                     counts, plan_c, cap, drop_c, ticket)
+                     counts, plan_c, cap, drop_c, ticket, bf16)
             wf.count_cuda(*cargs)
             cstats = {}
             counts_p, row["count_plain_ms"] = _host_ms(
                 lambda: wf.count_plain(queue, seg_base, lv, node_rows, W,
-                                       stats=cstats))
+                                       stats=cstats, bf16=bf16))
             row["count_err"] = int((counts - counts_p).abs().max())
             check(row["count_err"] == 0,
                   f"count, {label} level {lvl}: kernel disagrees with its "
@@ -727,7 +813,7 @@ def measure_wavefront(label, scene, rays):
             row["count_bound"] = _bound(
                 total * 32 + tables + _nbytes(lv.parent, lv.pair)
                 + counts.numel() * 4 + _nbytes(*plan_c),
-                cstats.get("boxes", 0) * BOX_FLOPS + total * RAY_FLOPS)
+                *box_ops(cstats.get("boxes", 0), total, bf16))
             total_next = int(plan.seg_base[-1])
             route, cursor0 = plan.route, plan.cursor.clone()
         else:
@@ -749,14 +835,15 @@ def measure_wavefront(label, scene, rays):
         def pack(cur, drop):
             wf.pack_cuda(queue, seg_base, tile_base, lv, route, cur,
                          node_rows, prim_rows, W, do_kill, 1e-3, out_k,
-                         keys_k, drop, bound, fused)
+                         keys_k, drop, bound, fused, bf16)
 
         pack(cur_k, drop_k)
         pstats = {}
         _, row["pack_plain_ms"] = _host_ms(lambda: wf.pack_plain(
             queue, seg_base, lv, route, cur_p, node_rows, prim_rows, W,
             do_kill, 1e-3, out_p, keys_p, drop_p, stats=pstats,
-            counts_next=counts_np, lv_next=nxt if fuse else None))
+            counts_next=counts_np, lv_next=nxt if fuse else None,
+            bf16=bf16))
         key_bad = int((keys_k != keys_p).sum())
         cur_bad = int((cur_k != cur_p).sum())
         q_bad = cnt_bad = 0
@@ -800,13 +887,14 @@ def measure_wavefront(label, scene, rays):
             fused_bytes = (_nbytes(nxt.seg_node, nxt.child, nxt.parent,
                                    nxt.pair, fused.counts, *fused.plan)
                            + nxt.num_segs * row_bytes)
+        flops, bf16_ops = box_ops(
+            pstats.get("boxes", 0) + pstats.get("fused_boxes", 0), total, bf16)
         row["pack_bound"] = _bound(
             total * 32 + tables + _nbytes(route, cursor0) + leaf_prims * 64
             + pstats.get("survivors", 0) * 32 + pstats.get("hits", 0) * 8
             + fused_bytes,
-            (pstats.get("boxes", 0) + pstats.get("fused_boxes", 0))
-            * BOX_FLOPS + pstats.get("tris", 0) * TRI_FLOPS
-            + pstats.get("spheres", 0) * SPH_FLOPS + total * RAY_FLOPS)
+            flops + pstats.get("tris", 0) * TRI_FLOPS
+            + pstats.get("spheres", 0) * SPH_FLOPS, bf16_ops)
         print(f"[kernel] wavefront, {label}, level {lvl}: {lv.num_segs} "
               f"segments ({over} with more than {WF_STAGE_PRIMS} leaf prims), "
               f"{total} entries in {tiles} tiles ({row['idle']} idle lanes) "
@@ -845,7 +933,7 @@ def measure_wavefront(label, scene, rays):
           f"{n_global} segments read leaf prims from global memory; all "
           f"comparisons equal; the JSON line takes level {best['level']} "
           f"({best['entries']} entries)")
-    return dict(level0=rows[0], best=best, sums=sums, keys=keys,
+    return dict(level0=rows[0], best=best, rows=rows, sums=sums, keys=keys,
                 n_global=n_global)
 
 
@@ -931,6 +1019,18 @@ def compare_traces(label, scene, rays):
     return dict(wf_ms=ms_wf, dfs_ms=ms_dfs, peak_gib=peak)
 
 
+def kernel_row(name, source, replaces, launches, k, err, library_ms=None):
+    """One entry of the kernels JSON line: ``k`` holds ms, plain_ms,
+    bound_ms and bound_by; ``source`` is under ops/csrc, ``replaces``
+    under the JAX package's ops/pallas."""
+    return dict(name=name, route="cuda",
+                source="cuda_raytracer_tpu_torch/ops/csrc/" + source,
+                replaces="cuda_raytracer_tpu/ops/pallas/" + replaces,
+                launches=launches, max_abs_err=err, ms=k["ms"],
+                plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+                bound_by=k["bound_by"], library_ms=library_ms)
+
+
 def phase_slice():
     """Runs A and B as shipped, run B again with traversal_rr="dfs";
     then every kernel against its plain version on the runs' own traces
@@ -954,9 +1054,11 @@ def phase_slice():
             check(run_b["launches"][k] > 0, f"run B never launched {k}")
 
     ra, rb = run_a["r"], run_b["r"]
-    dfs = measure_kernel("run A camera trace", ra.scene, run_a["dfs"][True])
-    measure_kernel("run A first shadow trace", ra.scene, run_a["dfs"][False])
-    measure_kernel("run B camera trace", rb.scene, run_b["dfs"][True],
+    dfs = measure_kernel("run A camera trace", ra.scene, run_a["dfs"][True],
+                         False)
+    measure_kernel("run A first shadow trace", ra.scene, run_a["dfs"][False],
+                   True)
+    measure_kernel("run B camera trace", rb.scene, run_b["dfs"][True], False,
                    chunk=1 << 18)
 
     closest, shadow = run_b["wf"][True], run_b["wf"][False]
@@ -979,16 +1081,11 @@ def phase_slice():
     dec = measure_decode("run B depth-2 closest-hit trace", wfb["keys"])
     measure_decode("run B camera trace", cam["keys"])
 
-    csrc = "cuda_raytracer_tpu_torch/ops/csrc/"
-    tpu = "cuda_raytracer_tpu/ops/pallas/"
     launches = run_b["launches"]
 
     def row(name, source, replaces, k, err, library_ms=None):
-        return dict(name=name, route="cuda", source=csrc + source,
-                    replaces=tpu + replaces, launches=launches[name],
-                    max_abs_err=err, ms=k["ms"], plain_ms=k["plain_ms"],
-                    bound_ms=k["bound_ms"], bound_by=k["bound_by"],
-                    library_ms=library_ms)
+        return kernel_row(name, source, replaces, launches[name], k, err,
+                          library_ms)
 
     # count: the main path's, on the level-0 queue; pack: the level with
     # the most entries
@@ -1013,11 +1110,11 @@ def phase_slice():
             dec["max_abs_err"]),
     ]
 
-def phase_cpu_vs_cuda():
-    """The shipped preset at 64x32 on the card and on the CPU: the
-    Cornell box (one leaf), and terrain n=8 under max_leaf_size=4 (three
-    wavefront levels, so count and routing are on the small frame's path
-    too)."""
+def phase_cpu_vs_cuda(extra=None, tag="cpu-vs-cuda"):
+    """The shipped preset (with ``extra`` config fields) at 64x32 on the
+    card and on the CPU: the Cornell box (one leaf), and terrain n=8
+    under max_leaf_size=4 (three wavefront levels, so count and routing
+    are on the small frame's path too)."""
     import numpy as np
 
     from cuda_raytracer_tpu_torch.config import RenderConfig, fast_preset_kwargs
@@ -1034,7 +1131,7 @@ def phase_cpu_vs_cuda():
     )
     for name, scene_fn, view, over in cases:
         kw = fast_preset_kwargs(w, h, spf * frames)
-        kw.update(samples_per_frame=spf, **over)
+        kw.update(samples_per_frame=spf, **over, **(extra or {}))
         cfg = RenderConfig(width=w, height=h, total_samples=spf * frames,
                            max_depth=4, nee_schedule=((1, 1.0),) * 4, **kw)
         imgs = []
@@ -1042,19 +1139,22 @@ def phase_cpu_vs_cuda():
             r = WavefrontRenderer(cfg, camera_mode="collada", device=dev)
             r.load_static_scene(scene_fn())
             r.set_viewpoint(*view)
+            check(r.compacting == cfg.compact_depths,
+                  f"{tag} {name} on {dev}: compacting {r.compacting}")
             for _ in range(frames):
                 r.render()
-                check(r.dropped == 0, f"cpu-vs-cuda {name}: dropped")
+                check(r.dropped == 0, f"{tag} {name}: dropped")
             imgs.append(r.get_raw_image())
         a, b = imgs
         bad = ~np.isclose(a, b, rtol=PIXEL_RTOL, atol=PIXEL_ATOL).all(-1)
-        print(f"[cpu-vs-cuda] {name}, traversal_rr={cfg.traversal_rr!r}, "
+        print(f"[{tag}] {name}, {extra or 'as shipped'}, "
+              f"traversal_rr={cfg.traversal_rr!r}, "
               f"{len(r.scene.bvh.wf_sched)} wavefront level(s), {w}x{h}, "
               f"{frames} frames of {spf} spp: {int(bad.sum())} of {w * h} "
               f"pixels outside rtol={PIXEL_RTOL} atol={PIXEL_ATOL}; max "
               f"|diff| {float(np.abs(a - b).max()):.3g}")
         check(float(bad.mean()) <= MAX_BAD,
-              f"card and CPU frames differ ({name})")
+              f"{tag}: card and CPU frames differ ({name})")
 
 
 #: run C: the area light (world position, full extents, radiance) and
@@ -1822,6 +1922,303 @@ def phase_run_d(n=121):
     _width16(n)
 
 
+def drive_e(label, load, **over):
+    """Phase 7's run of one config (fast_config(**over)) on one scene
+    (``load(r)`` loads it and places the camera): a warm-up frame whose
+    traces are kept (the first of each traversal, closest-hit and shadow,
+    seeded or not, with its arguments; the first path-state payload) and
+    in which, under slab_bf16, every trace is traced again with f32 box
+    tests and compared to the bit; then one counted frame: its launches
+    against expected_launches, pack launches inside seeded wavefront
+    traces, the compaction's n_live and bucket per depth, dropped, ms."""
+    import numpy as np
+    import torch
+
+    from cuda_raytracer_tpu_torch.ops import partition
+    from cuda_raytracer_tpu_torch.ops import wavefront2 as wf
+    from cuda_raytracer_tpu_torch.render import backends
+    from cuda_raytracer_tpu_torch.render.engine import WavefrontRenderer
+
+    r = WavefrontRenderer(fast_config(**over), camera_mode="collada",
+                          device=DEVICE)
+    load(r)
+    buckets = []
+    real_bucket = r.bucket
+
+    def bucket(depth, n_live, n_cur):
+        m = real_bucket(depth, n_live, n_cur)
+        buckets.append((depth, n_live, n_cur, m))
+        return m
+
+    r.bucket = bucket
+    kept, payloads = {}, []
+    state = dict(warm=True, twins=0, twin_bad=0, seeded_packs=0)
+    real = dict(dfs=backends.trace_closest_packets,
+                pallas=backends.trace_closest_wavefront,
+                part=partition.partition_cuda)
+
+    def hooked(kind, flag):
+        def trace(scene, o, d, valid, t_limit=None, *args, **kw):
+            seeded = kw.get("seed_t") is not None
+            packs = wf.pack_launches + wf.pack_bf16_launches
+            res = real[kind](scene, o, d, valid, t_limit, *args, **kw)
+            if seeded and kind == "pallas":
+                state["seeded_packs"] += (wf.pack_launches
+                                          + wf.pack_bf16_launches - packs)
+            if not state["warm"]:
+                return res
+            kept.setdefault((kind, t_limit is None, seeded),
+                            (scene, (o, d, valid, t_limit), kw))
+            if kw.get(flag):  # the f32 twin of a bf16 trace
+                twin = real[kind](scene, o, d, valid, t_limit, *args,
+                                  **{**kw, flag: False})
+                state["twins"] += 1
+                state["twin_bad"] += int(
+                    (twin.prim != res.prim).sum()
+                    + (twin.t.view(torch.int32)
+                       != res.t.view(torch.int32)).sum())
+            return res
+        return trace
+
+    def keep_payload(payload):
+        if state["warm"] and not payloads:
+            payloads.append(payload)
+        return real["part"](payload)
+
+    backends.trace_closest_packets = hooked("dfs", "slab_bf16")
+    backends.trace_closest_wavefront = hooked("pallas", "box_bf16")
+    partition.partition_cuda = keep_payload
+    try:
+        r.render()
+        r._reset_accumulation()
+        state["warm"] = False
+        buckets.clear()
+        state["seeded_packs"] = 0
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        r.render()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        backends.trace_closest_packets = real["dfs"]
+        backends.trace_closest_wavefront = real["pallas"]
+        partition.partition_cuda = real["part"]
+    launches = read_launches()
+    want = expected_launches(r, 1)
+    img = r.get_image()
+    on = {k: v for k, v in launches.items() if v}
+    print(f"[run E] {label}: {over or 'as shipped'}: {ms:.1f} ms/frame, "
+          f"dropped {r.dropped}, image mean {float(img.mean()):.6f}, "
+          f"launches {on} (as the schedule gives: {want == launches}), "
+          f"compacting {r.compacting}"
+          + (f", buckets (depth, n_live, lanes, m) {buckets}"
+             if buckets else "")
+          + (f", pack launches in seeded traces {state['seeded_packs']}"
+             if state["seeded_packs"] else "")
+          + (f"; warm-up frame: {state['twins']} bf16 traces against their "
+             f"f32 twins, {state['twin_bad']} words differ"
+             if state["twins"] else ""))
+    check(r.dropped == 0 and bool(np.isfinite(img).all())
+          and float(img.mean()) > 0.0, f"run E {label}: bad frame")
+    check(launches == want, f"run E {label}: launches {launches} != the "
+          f"schedule's {want}")
+    check(state["twin_bad"] == 0, f"run E {label}: a bf16 trace differs "
+          f"from its f32 twin")
+    cfg = r.config
+    if cfg.compact_depths:
+        check(r.compacting
+              and len(buckets) == cfg.max_depth - cfg.rr_start_depth,
+              f"run E {label}: not compacted")
+    if cfg.slab_bf16:
+        check(state["twins"] == r.traces_per_frame,
+              f"run E {label}: {state['twins']} bf16 traces checked")
+    return dict(r=r, ms=ms, launches=launches, kept=kept, payloads=payloads,
+                buckets=buckets, seeded_packs=state["seeded_packs"])
+
+
+def _seeded_vs_unseeded(label, kept, kind, measure):
+    """The first seeded closest-hit and shadow trace of a run, traced
+    again without their seeds on all their lanes: closest hit, hit/miss
+    must agree (a seed is a real hit); shadow, the decisions (a seeded
+    shadow ray reports its seed even beyond its light, an unseeded one a
+    miss there); rays whose t or prim differ are counted.  The seed
+    sweep is timed on their rays.  With ``measure``, the seeded kernels
+    against their seeded plain versions on those traces, all their
+    lanes.  Returns the sweep times and the kernel rows (by closest-hit
+    or not)."""
+    import torch
+
+    from cuda_raytracer_tpu_torch.ops import packet_dfs
+    from cuda_raytracer_tpu_torch.ops import wavefront2 as wf
+    from cuda_raytracer_tpu_torch.ops.seeds import seed_hits, seeded_bound
+
+    trace = (packet_dfs.trace_closest_packets if kind == "dfs"
+             else wf.trace_closest_wavefront)
+    out = dict(sweep_ms=[], rows={})
+    for closest in (True, False):
+        scene, rays, kw = kept[(kind, closest, True)]
+        o, d, valid, t_limit = rays
+        base = {k: v for k, v in kw.items()
+                if k not in ("seed_t", "seed_prim")}
+        a = trace(scene, o, d, valid, t_limit, **kw)
+        b = trace(scene, o, d, valid, t_limit, **base)
+        hm = int(((a.prim < 0) != (b.prim < 0)).sum())
+        t_bad = int((a.t.view(torch.int32) != b.t.view(torch.int32)).sum())
+        p_bad = int((a.prim != b.prim).sum())
+        sweep_ms = cuda_time_ms(lambda: seed_hits(scene, o, d, valid, 16), 3)
+        out["sweep_ms"].append(sweep_ms)
+        dec = ""
+        if t_limit is not None:
+            eps = 1e-3
+            n_dec = int(((a.t > t_limit - eps)
+                         != (b.t > t_limit - eps)).sum())
+            dec = f", shadow decisions differing {n_dec}"
+            check(n_dec == 0, f"{label}: seeded shadow decisions differ")
+        seeded = int((kw["seed_prim"] >= 0).sum())
+        what = "closest-hit" if closest else "shadow"
+        print(f"[run E] {label}, {what} trace, seeded against unseeded on "
+              f"{o.shape[0]} lanes ({int(valid.sum())} valid, {seeded} with "
+              f"a seed hit): hit/miss mismatches {hm}, rays whose t differs "
+              f"{t_bad}, whose prim differs {p_bad}{dec}; the seed sweep "
+              f"(K=16) {sweep_ms:.3f} ms")
+        check(hm == 0 or t_limit is not None,
+              f"{label}: the seeded trace loses or adds hits")
+        if not measure:
+            continue
+        tag = f"{label}, seeded {what}"
+        if kind == "dfs":
+            start = seeded_bound(kw["seed_t"], t_limit, 1e-3)
+            out["rows"][closest] = measure_kernel(
+                tag, scene, (o, d, valid, start), t_limit is not None,
+                chunk=1 << 18, max_t=t_limit)
+        else:
+            out["rows"][closest] = measure_wavefront(
+                tag, scene, rays, seed=(kw["seed_t"], kw["seed_prim"]))
+    return out
+
+
+def phase_run_e(n=121):
+    """Run E (phase 7): the configs whose paths the shipped preset does
+    not take, at full width on run B's terrain and run C's document:
+    whole-depth compaction, seeded passes (traversal_secondary="pallas";
+    traversal="dfs" with seed_primary) and slab_bf16, each beside the
+    shipped preset in this call.  Returns the payload partition's
+    measurement on a frame's path state, its launches there, and the
+    kernels JSON rows of the new forms (run B's)."""
+    import tempfile
+
+    from cuda_raytracer_tpu_torch.models.terrain import terrain_scene
+
+    def load_b(r):
+        r.load_static_scene(terrain_scene(n=n))
+        r.set_viewpoint(*VIEW_B)
+
+    configs = (
+        ("shipped", {}),
+        ("compact_depths", dict(compact_depths=True)),
+        ("seeded wavefront", dict(traversal_secondary="pallas")),
+        ("seeded DFS", dict(traversal="dfs", seed_primary=True)),
+        ("slab_bf16", dict(slab_bf16=True)),
+    )
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "run_c.dae")
+        with open(path, "w") as f:
+            f.write(run_c_document(n))
+        for scene_label, load in (("B", load_b),
+                                  ("C", lambda r: r.load_scene(path))):
+            for name, over in configs:
+                runs[scene_label, name] = drive_e(
+                    f"run {scene_label}, {name}", load, **over)
+            print(f"[run E] run {scene_label}: ms per frame "
+                  + ", ".join(f"{name} {runs[scene_label, name]['ms']:.1f}"
+                              for name, _ in configs))
+            # keep only what the checks below read
+            for name, _ in configs:
+                if scene_label == "C" and "seeded" not in name:
+                    runs[scene_label, name].update(kept={}, payloads=[])
+
+    # whole-depth compaction: the payload partition on the frame's state,
+    # and the small frames on the card and on the CPU
+    comp = runs["B", "compact_depths"]
+    part = measure_partition("run B path state before depth 2",
+                             payload=comp["payloads"][0])["payload"]
+    phase_cpu_vs_cuda(dict(compact_depths=True, fuse_frame="yes"),
+                      tag="run E compact_depths, cpu-vs-cuda")
+
+    # seeded passes: on run C's document, whose walls seed most rays, and
+    # on run B's terrain, whose largest prims are terrain triangles; the
+    # kernels against their plain versions on run B's traces, all lanes
+    for scene_label in ("C", "B"):
+        seeded_wf = _seeded_vs_unseeded(
+            f"run {scene_label} seeded wavefront",
+            runs[scene_label, "seeded wavefront"].pop("kept"), "pallas",
+            scene_label == "B")
+        seeded_dfs = _seeded_vs_unseeded(
+            f"run {scene_label} seeded DFS",
+            runs[scene_label, "seeded DFS"].pop("kept"), "dfs",
+            scene_label == "B")
+
+    # slab_bf16: the bf16 forms and the f32 forms on the same rays, the
+    # frame's camera trace and depth-2 closest-hit trace
+    bf = runs["B", "slab_bf16"]
+    scene, cam, _ = bf["kept"][("dfs", True, False)]
+    dfs_f32 = measure_kernel("run B camera trace, f32 box tests", scene, cam,
+                             False, chunk=1 << 18)
+    dfs_bf = measure_kernel("run B camera trace, slab_bf16", scene, cam,
+                            False, chunk=1 << 18, bf16=True)
+    same = (int((dfs_f32["prim"] != dfs_bf["prim"]).sum())
+            + int((dfs_f32["t"].view(-1) != dfs_bf["t"].view(-1)).sum()))
+    print(f"[run E] DFS on run B's camera trace: visits per ray f32 "
+          f"{dfs_f32['visits']:.3f}, bf16 {dfs_bf['visits']:.3f}; kernel "
+          f"{dfs_f32['ms']:.4f} against {dfs_bf['ms']:.4f} ms; "
+          f"{same} words of t and prim differ")
+    check(same == 0, "slab_bf16 DFS differs from the f32 DFS")
+    scene, rr, _ = bf["kept"][("pallas", True, False)]
+    wf_f32 = measure_wavefront("run B depth-2 closest-hit, f32 box tests",
+                               scene, rr)
+    wf_bf = measure_wavefront("run B depth-2 closest-hit, box_bf16", scene,
+                              rr, bf16=True)
+    print(f"[run E] wavefront on run B's depth-2 closest-hit trace: entries "
+          f"per level f32 {[x['entries'] for x in wf_f32['rows']]}, bf16 "
+          f"{[x['entries'] for x in wf_bf['rows']]}; count on level 0 "
+          f"{wf_f32['level0']['count_ms']:.4f} against "
+          f"{wf_bf['level0']['count_ms']:.4f} ms; pack, all levels "
+          f"{wf_f32['sums']['pack_ms']:.4f} against "
+          f"{wf_bf['sums']['pack_ms']:.4f} ms")
+    check(bool((wf_f32["keys"] == wf_bf["keys"]).all()),
+          "box_bf16 keys differ from the f32 keys")
+
+    lb = bf["launches"]
+    cnt, pk = wf_bf["level0"], wf_bf["best"]
+    sw = seeded_wf["rows"]
+    sd = seeded_dfs["rows"]
+    return part, comp["launches"]["partition"], [
+        kernel_row("packet_dfs_bf16", "packet_dfs.cu", "packet_dfs.py:99",
+                   lb["packet_dfs_bf16"], dfs_bf, dfs_bf["max_abs_err"]),
+        kernel_row("packet_dfs_seeded", "packet_dfs.cu", "packet_dfs.py:99",
+                   runs["B", "seeded DFS"]["launches"]["packet_dfs"],
+                   sd[True], max(sd[True]["max_abs_err"],
+                                 sd[False]["max_abs_err"])),
+        kernel_row("wf2_count_bf16", "wavefront2.cu", "wavefront2.py:262",
+                   lb["wf2_count_bf16"],
+                   dict(ms=cnt["count_ms"], plain_ms=cnt["count_plain_ms"],
+                        **cnt["count_bound"]), float(cnt["count_err"])),
+        kernel_row("wf2_pack_bf16", "wavefront2.cu", "wavefront2.py:377",
+                   lb["wf2_pack_bf16"],
+                   dict(ms=pk["pack_ms"], plain_ms=pk["pack_plain_ms"],
+                        **pk["pack_bound"]), pk["pack_err"]),
+        kernel_row("wf2_pack_seeded", "wavefront2.cu", "wavefront2.py:377",
+                   runs["B", "seeded wavefront"]["seeded_packs"],
+                   dict(ms=sw[True]["best"]["pack_ms"],
+                        plain_ms=sw[True]["best"]["pack_plain_ms"],
+                        **sw[True]["best"]["pack_bound"]),
+                   max(sw[True]["best"]["pack_err"],
+                       sw[False]["best"]["pack_err"])),
+    ]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "cuda_raytracer_tpu_torch")):
@@ -1839,6 +2236,18 @@ def main() -> int:
     phase_cpu_vs_cuda()
     phase_run_c()
     phase_run_d()
+    part, part_launches, rows_e = phase_run_e()
+    # the payload partition's row: its launches and times on the path that
+    # runs it, whole-depth compaction (the shipped preset launches it 0
+    # times)
+    for k in kernels:
+        if k["name"] == "partition":
+            k.update(launches=part_launches, ms=part["ms"],
+                     plain_ms=part["plain_ms"], bound_ms=part["bound_ms"],
+                     bound_by=part["bound_by"],
+                     max_abs_err=part["max_abs_err"],
+                     library_ms=part["library_ms"])
+    kernels += rows_e
     print(f"[total] {time.perf_counter() - t_start:.1f} s from the start of "
           f"main, imports of torch and the port included")
 

@@ -16,13 +16,22 @@
 //     order.  A leaf job folds its 8-prim groups: per group the min t over
 //     the hit prims, the max orig_id among the hits at that min; strict <
 //     against the job's best, then strict < against tub to update;
-//   * shadow mode: tub starts at min(t_limit, 1e30); after a leaf job the
-//     ray stops once prim >= 0 and best_t < tub0 - kill_eps.
+//   * tub starts at min(t_start, 1e30), or 1e30 without t_start (the
+//     wrapper passes a shadow ray's t_limit, or the bound seeded from
+//     ops/seeds.py, which the TPU kernel reads from its payload row 7);
+//   * shadow mode (do_kill): after a leaf job the ray stops once prim >= 0
+//     and best_t < tub0 - kill_eps, tub0 being that start bound;
+//   * slab_bf16 (the TPU kernel's bf16 slab test, a separate
+//     instantiation): the per-axis differences in f32, rounded to bf16,
+//     times 1/d rounded to bf16, each product rounded to bf16; min/max of
+//     those; then tn, tf and tub widened in f32 by 2% of their magnitude
+//     and 1e-3, so the test only gains false positives (more visits, the
+//     same hits); the compares in f32.
 // Invalid lanes never traverse.  A ray cut off by MAX_VISITS or by an
 // overflow of its stack (never written past) adds one to *dropped.
 //
-// Bound on the H100: per ray it reads o, d (24 B), valid (1 B) and, for
-// shadow rays, t_limit (4 B), and writes t and prim (8 B); the node rows
+// Bound on the H100: per ray it reads o, d (24 B), valid (1 B) and, with
+// one, the start bound (4 B), and writes t and prim (8 B); the node rows
 // (32 B per child) and prim records (64 B per prim) are re-read per visit
 // from L1/L2, where the tables of these scenes stay resident.  So the work
 // is ALU and latency: a box test is 25 flops per child, a prim test 38
@@ -40,8 +49,12 @@
 //     thread's own order of visits and leaf jobs is the one above;
 //   * the stack is a per-thread array of STACK_CAP entries, of which the
 //     caller uses what the tree can need ((W - 1) * D + 1 for depth D);
-//   * trees of width <= 4 and <= 8 are separate instantiations, so the
-//     per-child loops unroll to the width.
+//   * trees of width <= 4 and <= 8, and the f32 and bf16 box tests, are
+//     separate instantiations, so the per-child loops unroll to the width
+//     and the f32 test carries no bf16 code.  The bf16 test rounds as the
+//     TPU's does: f32 products rounded to bf16, plus the widening, so it
+//     does more arithmetic per box than the f32 test and may visit more
+//     nodes; it returns the same hits.
 // Built with -fmad=false and without --use_fast_math: IEEE division and
 // sqrt, no FMA contraction, so it rounds as the plain PyTorch version.
 
@@ -64,7 +77,7 @@ struct Tables {
   int width;
 };
 
-template <int WMAX>
+template <int WMAX, bool BF16>
 struct DfsRay {
   float o_x, o_y, o_z, d_x, d_y, d_z, inv_x, inv_y, inv_z, a_q, kill_lim;
   float tub, best_t, prim;
@@ -80,19 +93,19 @@ struct DfsRay {
   __device__ __forceinline__ void start(int i, const float* __restrict__ o,
                                         const float* __restrict__ d,
                                         const bool* __restrict__ valid,
-                                        const float* __restrict__ t_limit,
-                                        float kill_eps, int* stack_mem,
-                                        int stack_cap) {
+                                        const float* __restrict__ t_start,
+                                        bool do_kill, float kill_eps,
+                                        int* stack_mem, int stack_cap) {
     o_x = o[3 * i];
     o_y = o[3 * i + 1];
     o_z = o[3 * i + 2];
     d_x = d[3 * i];
     d_y = d[3 * i + 1];
     d_z = d[3 * i + 2];
-    kill = t_limit != nullptr;
-    const float tub0 = !valid[i] ? -1.0f
-                                 : (kill ? nan_min(t_limit[i], T_NO_LIMIT)
-                                         : T_NO_LIMIT);
+    kill = do_kill;
+    const float tub0 =
+        !valid[i] ? -1.0f
+                  : (t_start ? nan_min(t_start[i], T_NO_LIMIT) : T_NO_LIMIT);
     inv_x = 1.0f / d_x;
     inv_y = 1.0f / d_y;
     inv_z = 1.0f / d_z;
@@ -164,20 +177,37 @@ struct DfsRay {
     const int ibase = m.x, icnt = m.y;
     row = tb.nodes + 2 * (8 * node);
     unsigned mask = 0;
+    // the bound a child is entered under: tub, or in bf16 mode tub widened
+    const float tub_c = BF16 ? widen_up(tub) : tub;
 #pragma unroll
     for (int w = 0; w < WMAX; ++w) {
       if (w < tb.width) {
         const float4 a = row[2 * w], b = row[2 * w + 1];
-        const float t0x = (a.x - o_x) * inv_x, t1x = (a.w - o_x) * inv_x;
-        const float t0y = (a.y - o_y) * inv_y, t1y = (b.x - o_y) * inv_y;
-        const float t0z = (a.z - o_z) * inv_z, t1z = (b.y - o_z) * inv_z;
-        const float tn =
-            nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)),
-                    nan_min(t0z, t1z));
-        const float tf =
-            nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)),
-                    nan_max(t0z, t1z));
-        if ((tn <= tf) && (tf >= 0.0f) && (tn <= tub)) mask |= 1u << w;
+        float t0x, t1x, t0y, t1y, t0z, t1z;
+        if (BF16) {
+          t0x = slab_bf16(a.x, o_x, inv_x);
+          t1x = slab_bf16(a.w, o_x, inv_x);
+          t0y = slab_bf16(a.y, o_y, inv_y);
+          t1y = slab_bf16(b.x, o_y, inv_y);
+          t0z = slab_bf16(a.z, o_z, inv_z);
+          t1z = slab_bf16(b.y, o_z, inv_z);
+        } else {
+          t0x = (a.x - o_x) * inv_x;
+          t1x = (a.w - o_x) * inv_x;
+          t0y = (a.y - o_y) * inv_y;
+          t1y = (b.x - o_y) * inv_y;
+          t0z = (a.z - o_z) * inv_z;
+          t1z = (b.y - o_z) * inv_z;
+        }
+        float tn = nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)),
+                           nan_min(t0z, t1z));
+        float tf = nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)),
+                           nan_max(t0z, t1z));
+        if (BF16) {
+          tn = widen_down(tn);
+          tf = widen_up(tf);
+        }
+        if ((tn <= tf) && (tf >= 0.0f) && (tn <= tub_c)) mask |= 1u << w;
       }
     }
     // inner children, reverse slot order: a child's place is the number of
@@ -218,21 +248,21 @@ struct DfsRay {
   }
 };
 
-// o, d [n, 3]; valid [n]; t_limit [n] (shadow mode) or null (closest-hit
-// mode).  t [n] (inf on a miss), prim [n] (-1 on a miss), dropped: one
+// o, d [n, 3]; valid [n]; t_start [n] (each ray's start bound) or null
+// (1e30).  t [n] (inf on a miss), prim [n] (-1 on a miss), dropped: one
 // counter.  Each ray's stack holds stack_cap entries.
-template <int WMAX>
+template <int WMAX, bool BF16>
 __global__ void __launch_bounds__(DFS_BLOCK)
 dfs_kernel(const float* __restrict__ o, const float* __restrict__ d,
-           const bool* __restrict__ valid, const float* __restrict__ t_limit,
+           const bool* __restrict__ valid, const float* __restrict__ t_start,
            Tables tb, float* __restrict__ t_out, int* __restrict__ prim_out,
            unsigned long long* __restrict__ dropped, int n, int stack_cap,
-           float kill_eps) {
+           float kill_eps, bool do_kill) {
   const int i = blockIdx.x * DFS_BLOCK + threadIdx.x;
   if (i >= n) return;
   int stack[STACK_CAP];
-  DfsRay<WMAX> r;
-  r.start(i, o, d, valid, t_limit, kill_eps, stack, stack_cap);
+  DfsRay<WMAX, BF16> r;
+  r.start(i, o, d, valid, t_start, do_kill, kill_eps, stack, stack_cap);
   while (r.traversing()) {
     do {
       r.visit(tb);
@@ -243,27 +273,36 @@ dfs_kernel(const float* __restrict__ o, const float* __restrict__ d,
 }
 
 // stack_cap: entries of each ray's stack, 1..STACK_CAP.  dropped: one
-// int64, zeroed by the caller.
+// int64, zeroed by the caller.  do_kill: shadow mode; bf16: the slab_bf16
+// box test.
 extern "C" int packet_dfs_trace(const void* o, const void* d,
-                                const void* valid, const void* t_limit,
+                                const void* valid, const void* t_start,
                                 const void* nodes, const void* prims,
                                 const void* meta, void* t_out,
                                 void* prim_out, void* dropped, int n,
                                 int width, int stack_cap, float kill_eps,
-                                void* stream) {
+                                int do_kill, int bf16, void* stream) {
   if (width < 1 || width > 8 || stack_cap < 1 || stack_cap > STACK_CAP)
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
     const Tables tb{(const float4*)nodes, (const float4*)prims,
                     (const int*)meta, width};
     const int grid = (n + DFS_BLOCK - 1) / DFS_BLOCK;
+    cudaStream_t s = (cudaStream_t)stream;
 #define DFS_ARGS (const float*)o, (const float*)d, (const bool*)valid, \
-                 (const float*)t_limit, tb, (float*)t_out, (int*)prim_out, \
-                 (unsigned long long*)dropped, n, stack_cap, kill_eps
+                 (const float*)t_start, tb, (float*)t_out, (int*)prim_out, \
+                 (unsigned long long*)dropped, n, stack_cap, kill_eps, \
+                 do_kill != 0
     if (width <= 4) {
-      dfs_kernel<4><<<grid, DFS_BLOCK, 0, (cudaStream_t)stream>>>(DFS_ARGS);
+      if (bf16)
+        dfs_kernel<4, true><<<grid, DFS_BLOCK, 0, s>>>(DFS_ARGS);
+      else
+        dfs_kernel<4, false><<<grid, DFS_BLOCK, 0, s>>>(DFS_ARGS);
     } else {
-      dfs_kernel<8><<<grid, DFS_BLOCK, 0, (cudaStream_t)stream>>>(DFS_ARGS);
+      if (bf16)
+        dfs_kernel<8, true><<<grid, DFS_BLOCK, 0, s>>>(DFS_ARGS);
+      else
+        dfs_kernel<8, false><<<grid, DFS_BLOCK, 0, s>>>(DFS_ARGS);
     }
 #undef DFS_ARGS
   }

@@ -4,6 +4,7 @@
 // so they round as the plain PyTorch versions do.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define T_NO_LIMIT 1e30f
@@ -15,6 +16,29 @@ __device__ __forceinline__ float nan_min(float a, float b) {
 }
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+
+// The bf16 slab test (config slab_bf16; the TPU source's bf16 box test):
+// one product (bound - o) * (1/d) with both factors rounded to bf16 and
+// the product rounded to bf16.  The f32 product of two bf16 values is
+// exact (8-bit significands), so one rounding gives the round-to-nearest
+// bf16 product, as torch and XLA compute a bf16 multiply.
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ float slab_bf16(float bound, float o, float inv) {
+  return bf16r(bf16r(bound - o) * bf16r(inv));
+}
+// ... then tnear and tfar (and the DFS's bound) widened in f32 by a few
+// 2^-8 roundings of their magnitude and an absolute floor near 0, so the
+// test only gains false positives: more visits, the same hits
+#define SLAB_EPS 0.02f
+#define SLAB_PAD 1e-3f
+__device__ __forceinline__ float widen_down(float t) {
+  return t - fabsf(t) * SLAB_EPS - SLAB_PAD;
+}
+__device__ __forceinline__ float widen_up(float t) {
+  return t + fabsf(t) * SLAB_EPS + SLAB_PAD;
 }
 
 // The two halves of ops/intersect.py packed_prim_test, each in its own

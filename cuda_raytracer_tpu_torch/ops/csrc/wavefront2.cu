@@ -43,6 +43,16 @@
 //     -1) and their entries are added to dropped.  It writes seg_base,
 //     tile_base and the cursors of the next level and this level's route.
 //   decode: (t, prim) of each ray from its key, one read and one write.
+//   box_bf16 (the TPU source's _box_terms(bf16=True), a separate
+//     instantiation of count and pack): every box test, the fused counts'
+//     included, takes the per-axis differences in f32, rounds them and 1/d
+//     to bf16 and rounds each product to bf16, then widens tnear and tfar
+//     in f32 by 2% of their magnitude and 1e-3, so the mask only gains
+//     false positives (more entries, the same hits); the inside test and
+//     the prim tests stay f32.
+//   seeds (ops/seeds.py) need nothing here: the wrapper starts an entry's
+//     bound and its ray's key from the seed, and pack records only hits
+//     strictly better than an entry's bound.
 //
 // What bounds each on the H100, and what the design does about it.  Count
 // and pack read 32 B per entry; pack writes 32 B per survivor and 8 B per
@@ -98,6 +108,7 @@ struct LevelArgs {
   const int4* child;
   const float* node_rows;
   int node_stride, S, W;
+  int box_bf16;  // read on the host: which instantiation to launch
 };
 
 // The region plan of the level whose counts a launch makes: counts
@@ -149,20 +160,38 @@ struct BoxTerms {
   bool inside;
 };
 
+template <bool BF16>
 __device__ __forceinline__ BoxTerms box_terms(
     const float* row, int W, int w, float o_x, float o_y, float o_z,
     float inv_x, float inv_y, float inv_z) {
   const float mnx = row[3 * w], mny = row[3 * w + 1], mnz = row[3 * w + 2];
   const float mxx = row[3 * W + 3 * w], mxy = row[3 * W + 3 * w + 1],
               mxz = row[3 * W + 3 * w + 2];
-  const float t0x = (mnx - o_x) * inv_x, t1x = (mxx - o_x) * inv_x;
-  const float t0y = (mny - o_y) * inv_y, t1y = (mxy - o_y) * inv_y;
-  const float t0z = (mnz - o_z) * inv_z, t1z = (mxz - o_z) * inv_z;
+  float t0x, t1x, t0y, t1y, t0z, t1z;
+  if (BF16) {
+    t0x = slab_bf16(mnx, o_x, inv_x);
+    t1x = slab_bf16(mxx, o_x, inv_x);
+    t0y = slab_bf16(mny, o_y, inv_y);
+    t1y = slab_bf16(mxy, o_y, inv_y);
+    t0z = slab_bf16(mnz, o_z, inv_z);
+    t1z = slab_bf16(mxz, o_z, inv_z);
+  } else {
+    t0x = (mnx - o_x) * inv_x;
+    t1x = (mxx - o_x) * inv_x;
+    t0y = (mny - o_y) * inv_y;
+    t1y = (mxy - o_y) * inv_y;
+    t0z = (mnz - o_z) * inv_z;
+    t1z = (mxz - o_z) * inv_z;
+  }
   BoxTerms b;
   b.tnear = nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)),
                     nan_min(t0z, t1z));
-  const float tfar = nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)),
-                             nan_max(t0z, t1z));
+  float tfar = nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)),
+                       nan_max(t0z, t1z));
+  if (BF16) {
+    b.tnear = widen_down(b.tnear);
+    tfar = widen_up(tfar);
+  }
   b.inside = (o_x >= mnx) && (o_x <= mxx) && (o_y >= mny) && (o_y <= mxy) &&
              (o_z >= mnz) && (o_z <= mxz);
   b.slab_ok = (b.tnear <= tfar) && (tfar >= 0.0f);
@@ -346,6 +375,7 @@ __device__ __forceinline__ void flush_counts(int* counts, int* s_gc,
   }
 }
 
+template <bool BF16>
 __global__ void __launch_bounds__(WF_TILE)
 wf_count_kernel(const LevelArgs L, const PlanArgs plan) {
   __shared__ __align__(16) float s_row[4 * WF_ROW_F4];
@@ -387,8 +417,8 @@ wf_count_kernel(const LevelArgs L, const PlanArgs plan) {
       if (s_kind[w] != 1) continue;  // the same for the whole block
       bool m = false;
       if (tub >= 0.0f) {
-        const BoxTerms bt =
-            box_terms(s_row, W, w, a.x, a.y, a.z, inv_x, inv_y, inv_z);
+        const BoxTerms bt = box_terms<BF16>(s_row, W, w, a.x, a.y, a.z,
+                                            inv_x, inv_y, inv_z);
         m = enters(bt, tub, s_row[6 * W + w]);
       }
       const unsigned bal = __ballot_sync(FULL_MASK, m);
@@ -402,6 +432,7 @@ wf_count_kernel(const LevelArgs L, const PlanArgs plan) {
   plan_if_last(plan);
 }
 
+template <bool BF16>
 __global__ void __launch_bounds__(WF_TILE)
 wf_pack_kernel(const LevelArgs L, const PackArgs P, const PlanArgs plan) {
   __shared__ __align__(16) float s_row[4 * WF_ROW_F4];
@@ -509,8 +540,8 @@ wf_pack_kernel(const LevelArgs L, const PackArgs P, const PlanArgs plan) {
       for (int w = 0; w < W; ++w) {
         const int4 c = s_child[w];
         if (c.x == 0) continue;
-        const BoxTerms bt =
-            box_terms(s_row, W, w, o_x, o_y, o_z, inv_x, inv_y, inv_z);
+        const BoxTerms bt = box_terms<BF16>(s_row, W, w, o_x, o_y, o_z,
+                                            inv_x, inv_y, inv_z);
         const float outlet = s_row[6 * W + w];
         if (c.x == 1) {
           // inner child: the incoming bound decides, as in count
@@ -597,8 +628,8 @@ wf_pack_kernel(const LevelArgs L, const PackArgs P, const PlanArgs plan) {
         if (s_cchild[w][w2].x != 1) continue;  // the same for these lanes
         bool e = false;
         if (counted) {
-          const BoxTerms bt =
-              box_terms(crow, W, w2, o_x, o_y, o_z, inv_x, inv_y, inv_z);
+          const BoxTerms bt = box_terms<BF16>(crow, W, w2, o_x, o_y, o_z,
+                                              inv_x, inv_y, inv_z);
           e = enters(bt, tub_out, crow[6 * W + w2]);
         }
         const unsigned be = __ballot_sync(bal, e);
@@ -652,8 +683,13 @@ extern "C" int wf2_count(const LevelArgs* L, const PlanArgs* plan, int bound,
                          void* stream) {
   if (!level_ok(*L) || plan->ticket == nullptr)
     return (int)cudaErrorInvalidValue;
-  wf_count_kernel<<<grid_for(tile_bound(*L, bound)), WF_TILE, 0,
-                    (cudaStream_t)stream>>>(*L, *plan);
+  const int grid = grid_for(tile_bound(*L, bound));
+  if (L->box_bf16)
+    wf_count_kernel<true><<<grid, WF_TILE, 0, (cudaStream_t)stream>>>(*L,
+                                                                      *plan);
+  else
+    wf_count_kernel<false><<<grid, WF_TILE, 0, (cudaStream_t)stream>>>(*L,
+                                                                       *plan);
   return (int)cudaGetLastError();
 }
 
@@ -661,8 +697,13 @@ extern "C" int wf2_count(const LevelArgs* L, const PlanArgs* plan, int bound,
 extern "C" int wf2_pack(const LevelArgs* L, const PackArgs* P,
                         const PlanArgs* plan, int bound, void* stream) {
   if (!level_ok(*L)) return (int)cudaErrorInvalidValue;
-  wf_pack_kernel<<<grid_for(tile_bound(*L, bound)), WF_TILE, 0,
-                   (cudaStream_t)stream>>>(*L, *P, *plan);
+  const int grid = grid_for(tile_bound(*L, bound));
+  if (L->box_bf16)
+    wf_pack_kernel<true><<<grid, WF_TILE, 0, (cudaStream_t)stream>>>(*L, *P,
+                                                                     *plan);
+  else
+    wf_pack_kernel<false><<<grid, WF_TILE, 0, (cudaStream_t)stream>>>(*L, *P,
+                                                                      *plan);
   return (int)cudaGetLastError();
 }
 

@@ -12,15 +12,21 @@ the closest hit and, for shadow rays, the same pass/fail decision; the
 * ``trace_closest_packets`` — the wrapper (the JAX function's name and
   contract): launches the kernel for CUDA tensors or runs the plain
   version for CPU tensors.
-* ``dfs_trace_cuda`` — the kernel's launch; ``launches`` counts it.
+* ``dfs_trace_cuda`` — the kernel's launch; ``launches`` counts it
+  (``bf16_launches`` the bf16 instantiation's).
 * ``dfs_trace_plain`` — the same per-ray DFS as vectorized torch ops (an
   [N, stack] stack, one pop per live ray per step), in the kernel's
   visit order and op order, so the two agree bit for bit.
 
-Both take the rays as they come (o, d [N, 3], valid [N], t_limit [N] or
-None) and the stack size (``stack_entries(bvh)``: what the tree can
-need, at most ``STACK_CAP``), and return (t [N] f32, inf on a miss;
-prim [N] int32, -1 on a miss; dropped, a 0-d int64 count).
+Both take the rays as they come (o, d [N, 3], valid [N]), each ray's
+start bound ``t_start`` [N] (a shadow ray's t_limit, or the bound
+seeded from ops/seeds.py; None for 1e30), the stack size
+(``stack_entries(bvh)``: what the tree can need, at most
+``STACK_CAP``), ``do_kill`` (shadow mode: stop a ray once a hit lands
+kill_eps short of its start bound) and ``bf16`` (the ``slab_bf16``
+box test: bf16 products, widened so that it only adds visits), and
+return (t [N] f32, inf on a miss; prim [N] int32, -1 on a miss;
+dropped, a 0-d int64 count).
 
 The kernel builds at first use with nvcc into ``_build/`` beside the
 package (ops/_build.py).
@@ -35,6 +41,7 @@ import torch
 
 from ._build import load_library
 from .intersect import packed_prim_test
+from .seeds import seeded_bound
 
 #: the JAX package's packet size; accepted by the wrapper and ignored
 #: (the kernel has no packets)
@@ -48,8 +55,13 @@ T_NO_LIMIT = 1e30
 STACK_CAP = 64
 MAX_VISITS = 1 << 20
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0: the f32 box test,
+#: and the slab_bf16 one
 launches = 0
+bf16_launches = 0
+#: slab_bf16: relative widening (a few 2^-8 roundings) and absolute pad
+SLAB_EPS = 0.02
+SLAB_PAD = 1e-3
 
 _lib = None
 
@@ -69,7 +81,7 @@ def _load_library():
         fn = lib.packet_dfs_trace
         fn.argtypes = [ctypes.c_void_p] * 10 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         _lib = lib
@@ -91,7 +103,8 @@ def stack_entries(bvh) -> int:
 
 def check_rays(o, d, valid, t_limit, *tables):
     """What the kernels take of rays: o, d [N, 3] float32, valid [N]
-    bool, t_limit [N] float32 or None, all contiguous on o's device;
+    bool, t_limit (or a start bound) [N] float32 or None, all contiguous
+    on o's device;
     ``tables``: more (name, tensor, dtype, shape) to check alike."""
     n = o.shape[0]
     for name, x, dt, shape in (
@@ -132,13 +145,15 @@ def _check_inputs(o, d, valid, t_limit, node_rows, prim_rows, meta,
         raise ValueError("prim_rows must hold whole 8-prim groups")
 
 
-def dfs_trace_cuda(o, d, valid, t_limit, node_rows, prim_rows, meta,
-                   width: int, kill_eps: float, stack: int):
+def dfs_trace_cuda(o, d, valid, t_start, node_rows, prim_rows, meta,
+                   width: int, kill_eps: float, stack: int,
+                   do_kill: bool, bf16: bool = False):
     """Launch the kernel on the current stream; returns (t, prim,
-    dropped).  ``t_limit`` None is a closest-hit trace, else a shadow
-    trace; ``stack`` entries per ray."""
-    global launches
-    _check_inputs(o, d, valid, t_limit, node_rows, prim_rows, meta, width,
+    dropped).  ``t_start`` is each ray's start bound (None: 1e30);
+    ``stack`` entries per ray; ``do_kill`` the shadow mode; ``bf16`` the
+    slab_bf16 box test."""
+    global launches, bf16_launches
+    _check_inputs(o, d, valid, t_start, node_rows, prim_rows, meta, width,
                   stack)
     if o.device.type != "cuda":
         raise ValueError("dfs_trace_cuda needs CUDA tensors")
@@ -149,21 +164,42 @@ def dfs_trace_cuda(o, d, valid, t_limit, node_rows, prim_rows, meta,
     dropped = torch.zeros((), dtype=torch.int64, device=o.device)
     err = lib.packet_dfs_trace(
         o.data_ptr(), d.data_ptr(), valid.data_ptr(),
-        None if t_limit is None else t_limit.data_ptr(),
+        None if t_start is None else t_start.data_ptr(),
         node_rows.data_ptr(), prim_rows.data_ptr(), meta.data_ptr(),
         t.data_ptr(), prim.data_ptr(), dropped.data_ptr(), n, width,
-        int(stack), float(kill_eps),
+        int(stack), float(kill_eps), int(bool(do_kill)), int(bool(bf16)),
         torch.cuda.current_stream(o.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"packet_dfs kernel launch failed: cuda error {err}")
     if n:  # the C side launches nothing for an empty batch
-        launches += 1
+        if bf16:
+            bf16_launches += 1
+        else:
+            launches += 1
     return t, prim, dropped
 
 
-def dfs_trace_plain(o, d, valid, t_limit, node_rows, prim_rows, meta,
+def bf16_slab(lo, hi, o, inv):
+    """One axis of the slab_bf16 test: the differences in f32 rounded
+    to bf16, times 1/d rounded to bf16, each product rounded to bf16
+    (torch's bf16 multiply); returns (t0, t1) as bf16."""
+    ib = inv.to(torch.bfloat16)
+    return ((lo - o).to(torch.bfloat16) * ib,
+            (hi - o).to(torch.bfloat16) * ib)
+
+
+def bf16_widen(tn, tf):
+    """bf16 tn, tf widened in f32 so the test only gains false
+    positives: tn - |tn| eps - pad, tf + |tf| eps + pad."""
+    tn, tf = tn.float(), tf.float()
+    return (tn - tn.abs() * SLAB_EPS - SLAB_PAD,
+            tf + tf.abs() * SLAB_EPS + SLAB_PAD)
+
+
+def dfs_trace_plain(o, d, valid, t_start, node_rows, prim_rows, meta,
                     width: int, kill_eps: float, stack: int,
+                    do_kill: bool, bf16: bool = False,
                     stats: dict = None):
     """The kernel's per-ray DFS in plain torch ops (any device).
 
@@ -176,15 +212,14 @@ def dfs_trace_plain(o, d, valid, t_limit, node_rows, prim_rows, meta,
     non-empty child slots), and prim tests by type, ``tris`` and
     ``spheres`` (pad slots are no test).
     """
-    _check_inputs(o, d, valid, t_limit, node_rows, prim_rows, meta, width,
+    _check_inputs(o, d, valid, t_start, node_rows, prim_rows, meta, width,
                   stack)
     W = width
     dev = o.device
     n = o.shape[0]
-    do_kill = t_limit is not None
     o_x, o_y, o_z = o.unbind(1)
     d_x, d_y, d_z = d.unbind(1)
-    tub0 = (torch.clamp_max(t_limit, T_NO_LIMIT) if do_kill
+    tub0 = (torch.clamp_max(t_start, T_NO_LIMIT) if t_start is not None
             else torch.full((n,), T_NO_LIMIT, dtype=torch.float32,
                             device=dev))
     tub0 = torch.where(valid, tub0, -1.0)
@@ -216,12 +251,17 @@ def dfs_trace_plain(o, d, valid, t_limit, node_rows, prim_rows, meta,
             _count(stats, "boxes", (blk[..., 0] <= blk[..., 3]).sum())
         ox, oy, oz = o_x[idx, None], o_y[idx, None], o_z[idx, None]
         ix, iy, iz = inv_x[idx, None], inv_y[idx, None], inv_z[idx, None]
-        t0x = (blk[..., 0] - ox) * ix
-        t1x = (blk[..., 3] - ox) * ix
-        t0y = (blk[..., 1] - oy) * iy
-        t1y = (blk[..., 4] - oy) * iy
-        t0z = (blk[..., 2] - oz) * iz
-        t1z = (blk[..., 5] - oz) * iz
+        if bf16:
+            t0x, t1x = bf16_slab(blk[..., 0], blk[..., 3], ox, ix)
+            t0y, t1y = bf16_slab(blk[..., 1], blk[..., 4], oy, iy)
+            t0z, t1z = bf16_slab(blk[..., 2], blk[..., 5], oz, iz)
+        else:
+            t0x = (blk[..., 0] - ox) * ix
+            t1x = (blk[..., 3] - ox) * ix
+            t0y = (blk[..., 1] - oy) * iy
+            t1y = (blk[..., 4] - oy) * iy
+            t0z = (blk[..., 2] - oz) * iz
+            t1z = (blk[..., 5] - oz) * iz
         tn = torch.maximum(
             torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
             torch.minimum(t0z, t1z),
@@ -231,7 +271,11 @@ def dfs_trace_plain(o, d, valid, t_limit, node_rows, prim_rows, meta,
             torch.maximum(t0z, t1z),
         )
         ta = tub[idx]
-        m = (tn <= tf) & (tf >= 0.0) & (tn <= ta[:, None])  # [A, W]
+        tc = ta
+        if bf16:
+            tn, tf = bf16_widen(tn, tf)
+            tc = ta + ta.abs() * SLAB_EPS + SLAB_PAD
+        m = (tn <= tf) & (tf >= 0.0) & (tn <= tc[:, None])  # [A, W]
         ibase, icnt = meta4[node, 0], meta4[node, 1]
 
         # inner children, reverse slot order so slot 0 pops first
@@ -305,6 +349,9 @@ def trace_closest_packets(
     t_limit: torch.Tensor = None,
     kill_eps: float = 1e-3,
     packet_size: int = C,
+    slab_bf16: bool = False,
+    seed_t: torch.Tensor = None,
+    seed_prim: torch.Tensor = None,
 ) -> WaveTraceResult:
     """Closest-hit / shadow traversal of N rays (o, d: [N, 3] f32;
     valid: [N] bool).
@@ -316,6 +363,13 @@ def trace_closest_packets(
     once a hit lands kill_eps short of it, so the pass condition
     ``t > maxT - eps`` decides as a full closest-hit trace would.
 
+    ``slab_bf16`` runs the bf16 box test (the same hits, more visits).
+    ``seed_t`` / ``seed_prim`` (ops/seeds.py) seed each ray's start
+    bound: it starts at min(bound, seed_t); a shadow ray whose seed lands
+    more than kill_eps short of its limit is answered without a
+    traversal; the kernel reports only hits strictly better than the
+    bound, and the seed stands where it reported none.
+
     CUDA tensors go through the kernel (or raise); CPU tensors through
     the plain version.  ``packet_size`` is accepted for the JAX
     signature and ignored: the kernel traces one ray per thread.
@@ -326,13 +380,24 @@ def trace_closest_packets(
     if stack > STACK_CAP:
         raise ValueError(f"the tree needs a stack of {stack} entries per "
                          f"ray; the kernel takes at most {STACK_CAP}")
+    do_kill = t_limit is not None
+    t_start = None if t_limit is None else t_limit.float().contiguous()
+    if seed_t is not None:
+        t_start = seeded_bound(seed_t, t_limit, kill_eps).contiguous()
     args = (o.float().contiguous(), d.float().contiguous(),
-            valid.bool().contiguous(),
-            None if t_limit is None else t_limit.float().contiguous(),
+            valid.bool().contiguous(), t_start,
             bvh.dfs_node_rows, bvh.dfs_prim_rows, bvh.node_meta, bvh.width,
-            kill_eps, stack)
+            kill_eps, stack, do_kill, slab_bf16)
     if o.device.type == "cuda":
-        return WaveTraceResult(*dfs_trace_cuda(*args))
-    if o.device.type == "cpu":
-        return WaveTraceResult(*dfs_trace_plain(*args))
-    raise ValueError(f"no packet-DFS path for device {o.device}")
+        t, prim, dropped = dfs_trace_cuda(*args)
+    elif o.device.type == "cpu":
+        t, prim, dropped = dfs_trace_plain(*args)
+    else:
+        raise ValueError(f"no packet-DFS path for device {o.device}")
+    if seed_t is not None:
+        # rays whose seed is final came back as misses: fold it back in
+        # (seed_prim is -1 where the seed missed or the lane is invalid)
+        t = torch.where(prim >= 0, t, seed_t.float())
+        prim = torch.where(prim >= 0, prim, seed_prim.to(torch.int32))
+        t = torch.where(prim >= 0, t, float("inf"))
+    return WaveTraceResult(t, prim, dropped)

@@ -41,6 +41,18 @@ ops/csrc/partition.cu) for CUDA tensors and a plain version
 (``count_plain`` + ``plan_plain``, ``pack_plain`` + ``plan_plain``,
 ``decode_plain``) for CPU tensors.
 
+Two options of the JAX function carry over.  ``box_bf16`` (config
+``slab_bf16``) runs every box test of count and pack, the fused counts
+included, with bf16 products widened so that it only gains false
+positives: more entries, the same hits (the inside test and the prim
+tests stay f32).  ``seed_t`` / ``seed_prim`` (ops/seeds.py) seed a
+trace: each ray's level-0 bound starts at min(bound, seed_t), a shadow
+ray whose seed lands kill_eps short of its limit starts dead, and each
+ray's key starts from its seed hit (t bits, prim) instead of a miss.
+Pack records only hits strictly better than an entry's bound, so a
+recorded hit beats the seed, and a ray with none keeps it: the JAX
+package's merge initialised from the seed, to the bit.
+
 Against the TPU source, the hit log and its merge passes are gone (the
 pack kernel resolves hits with ``atomicMin``, one decode pass reads the
 keys), regions are not chunk-aligned, and entries inside a region come
@@ -48,8 +60,8 @@ in an order that may differ from run to run on the card (atomic
 cursors); results do not depend on it.  Capacity keeps its meaning: a
 level's queue holds at most ``queue_capacity`` entries, a segment whose
 cumulative demand does not fit loses its entries, and they are counted
-in ``dropped``.  Not carried over: ``seed_t``/``seed_prim``,
-``box_bf16``, ``dyn_alloc`` and the ``debug_*`` switches.
+in ``dropped``.  Not carried over: ``dyn_alloc`` (no config reaches
+it) and the ``debug_*`` switches (timing diagnostics).
 """
 
 from __future__ import annotations
@@ -61,8 +73,9 @@ import torch
 
 from ._build import load_library
 from .intersect import packed_prim_test
-from .packet_dfs import WaveTraceResult
+from .packet_dfs import WaveTraceResult, bf16_slab, bf16_widen
 from .partition import compact_live_rays
+from .seeds import seeded_bound
 
 #: finite "no limit" initial bound (must not be inf: inf*0 = nan)
 T_NO_LIMIT = 1e30
@@ -83,9 +96,12 @@ _LOW = 0xFFFFFFFF
 KEY_MISS = (_INF_BITS << 32) | _LOW
 
 #: launches of the count, pack and decode kernels since last set to 0
+#: (f32 box tests), and of count and pack with box_bf16
 count_launches = 0
 pack_launches = 0
 decode_launches = 0
+count_bf16_launches = 0
+pack_bf16_launches = 0
 
 _lib = None
 
@@ -175,7 +191,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 class _LevelArgs(ctypes.Structure):
     _fields_ = [("queue", _P), ("seg_base", _P), ("tile_base", _P),
                 ("seg_node", _P), ("child", _P), ("node_rows", _P),
-                ("node_stride", _I), ("S", _I), ("W", _I)]
+                ("node_stride", _I), ("S", _I), ("W", _I),
+                ("box_bf16", _I)]
 
 
 class _PlanArgs(ctypes.Structure):
@@ -218,11 +235,11 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _level_args(queue, seg_base, tile_base, lv, node_rows, width):
+def _level_args(queue, seg_base, tile_base, lv, node_rows, width, bf16):
     return _LevelArgs(queue.data_ptr(), seg_base.data_ptr(),
                       tile_base.data_ptr(), lv.seg_node.data_ptr(),
                       lv.child.data_ptr(), node_rows.data_ptr(),
-                      node_rows.shape[1], lv.num_segs, width)
+                      node_rows.shape[1], lv.num_segs, width, int(bool(bf16)))
 
 
 def _plan_args(counts, lv, plan, cap, dropped, ticket):
@@ -299,26 +316,30 @@ def _not_cuda(name, x):
 
 def count_cuda(queue, seg_base, tile_base, lv: LevelTables, node_rows,
                width: int, bound: int, counts, plan: Plan, cap: int,
-               dropped, ticket):
+               dropped, ticket, bf16: bool = False):
     """Launch the count kernel on the current stream: accumulates the
     level's counts [S*W] into ``counts`` (zeroed by the caller), and its
     last block fills ``plan`` (the next level's regions) and adds the
     entries that do not fit ``cap`` to ``dropped``.  ``bound`` is the
     most entries the level can hold (it sizes the grid; the kernel reads
-    the real tile count from tile_base[S])."""
-    global count_launches
+    the real tile count from tile_base[S]).  ``bf16``: the box_bf16
+    test."""
+    global count_launches, count_bf16_launches
     _check_level(queue, seg_base, lv, node_rows, width, tile_base)
     _check_plan(counts, lv, plan, width, dropped, ticket, queue.device)
     _not_cuda("count_cuda", queue)
     lib = _load_library()
     bound = min(int(bound), queue.shape[0])
-    la = _level_args(queue, seg_base, tile_base, lv, node_rows, width)
+    la = _level_args(queue, seg_base, tile_base, lv, node_rows, width, bf16)
     pa = _plan_args(counts, lv, plan, cap, dropped, ticket)
     err = lib.wf2_count(ctypes.byref(la), ctypes.byref(pa), bound,
                         _stream(queue))
     if err != 0:
         raise RuntimeError(f"count kernel launch failed: cuda error {err}")
-    count_launches += 1
+    if bf16:
+        count_bf16_launches += 1
+    else:
+        count_launches += 1
 
 
 def _segments(seg_base, lo: int, hi: int):
@@ -327,29 +348,37 @@ def _segments(seg_base, lo: int, hi: int):
     return torch.searchsorted(seg_base[1:].contiguous(), pos, right=True)
 
 
-def _box_terms(rows, width: int, o, inv):
+def _box_terms(rows, width: int, o, inv, bf16: bool = False):
     """The slab test of every child box of ``rows`` [E, >= 7W] against
     rays o, inv = 1/d [E, 3]: (slab_ok, tnear, inside, outlet), each
-    [E, W]; the op order of the kernels' ``box_terms``."""
+    [E, W]; the op order of the kernels' ``box_terms``.  ``bf16``: the
+    TPU source's ``_box_terms(bf16=True)``: bf16 products, tnear and tfar
+    widened in f32 (the inside test stays f32)."""
     w3 = 3 * width
     mn = rows[:, :w3].reshape(-1, width, 3)
     mx = rows[:, w3:2 * w3].reshape(-1, width, 3)
     outlet = rows[:, 2 * w3:2 * w3 + width]
     o_, inv_ = o[:, None, :], inv[:, None, :]
-    t0 = (mn - o_) * inv_
-    t1 = (mx - o_) * inv_
+    if bf16:
+        t0, t1 = bf16_slab(mn, mx, o_, inv_)
+    else:
+        t0 = (mn - o_) * inv_
+        t1 = (mx - o_) * inv_
     lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
     tnear = torch.maximum(torch.maximum(lo[..., 0], lo[..., 1]), lo[..., 2])
     tfar = torch.minimum(torch.minimum(hi[..., 0], hi[..., 1]), hi[..., 2])
+    if bf16:
+        tnear, tfar = bf16_widen(tnear, tfar)
     inside = ((o_ >= mn) & (o_ <= mx)).all(-1)
     slab_ok = (tnear <= tfar) & (tfar >= 0.0)
     return slab_ok, tnear, inside, outlet
 
 
-def _enters(rows, width, o, d, tub):
+def _enters(rows, width, o, d, tub, bf16: bool = False):
     """[E, W]: the entry enters child w of its node row under bound tub
     [E] (the count's test, without the kind)."""
-    slab_ok, tnear, inside, outlet = _box_terms(rows, width, o, 1.0 / d)
+    slab_ok, tnear, inside, outlet = _box_terms(rows, width, o, 1.0 / d,
+                                                bf16)
     tub = tub[:, None]
     return (((slab_ok & (tnear <= tub)) | inside) & (tub >= 0.0)
             & (outlet >= 0.0))
@@ -361,11 +390,12 @@ def _count(stats, key, k):
 
 
 def count_plain(queue, seg_base, lv: LevelTables, node_rows, width: int,
-                bound: int = 0, stats: dict = None, chunk: int = 1 << 20):
+                bound: int = 0, stats: dict = None, chunk: int = 1 << 20,
+                bf16: bool = False):
     """The count kernel's counts [S*W] int32 in plain torch ops (any
     device; reads the level's total on the host).  ``stats``, if given,
     gets the work this data needs: ``entries`` and ``boxes`` (box tests
-    of inner children of live entries)."""
+    of inner children of live entries).  ``bf16``: the box_bf16 test."""
     del bound
     _check_level(queue, seg_base, lv, node_rows, width)
     W = width
@@ -381,7 +411,7 @@ def count_plain(queue, seg_base, lv: LevelTables, node_rows, width: int,
         rows = node_rows[lv.seg_node[seg].long()]
         tub = q[:, 7]
         inner = kind[seg] == 1
-        m = _enters(rows, W, q[:, 0:3], q[:, 3:6], tub) & inner
+        m = _enters(rows, W, q[:, 0:3], q[:, 3:6], tub, bf16) & inner
         counts += torch.bincount((seg[:, None] * W + slot)[m],
                                  minlength=counts.shape[0])
         _count(stats, "entries", hi - lo)
@@ -429,16 +459,17 @@ def plan_plain(counts, lv: LevelTables, cap: int, plan: Plan, dropped):
 
 def count_level(queue, seg_base, tile_base, lv: LevelTables, node_rows,
                 width: int, bound: int, counts, plan: Plan, cap: int,
-                dropped, ticket):
+                dropped, ticket, bf16: bool = False):
     """The level's counts into ``counts`` and the next level's regions
     into ``plan`` (lost entries into ``dropped``).  CUDA tensors go
     through the kernel (or raise); CPU tensors through the plain
     versions."""
     if queue.device.type == "cuda":
         return count_cuda(queue, seg_base, tile_base, lv, node_rows, width,
-                          bound, counts, plan, cap, dropped, ticket)
+                          bound, counts, plan, cap, dropped, ticket, bf16)
     if queue.device.type == "cpu":
-        counts.copy_(count_plain(queue, seg_base, lv, node_rows, width))
+        counts.copy_(count_plain(queue, seg_base, lv, node_rows, width,
+                                 bf16=bf16))
         return plan_plain(counts, lv, cap, plan, dropped)
     raise ValueError(f"no wavefront path for device {queue.device}")
 
@@ -465,12 +496,12 @@ def _check_pack(queue, seg_base, lv, route, cursor, node_rows, prim_rows,
 def pack_cuda(queue, seg_base, tile_base, lv: LevelTables, route, cursor,
               node_rows, prim_rows, width: int, do_kill: bool,
               kill_eps: float, queue_out, keys, dropped, bound: int,
-              fused: Optional[Fused] = None):
+              fused: Optional[Fused] = None, bf16: bool = False):
     """Launch the pack kernel on the current stream.  Updates
     ``queue_out``, ``cursor``, ``keys`` and ``dropped`` in place; with
     ``fused``, also counts for the next level into ``fused.counts`` and
-    its last block fills ``fused.plan``."""
-    global pack_launches
+    its last block fills ``fused.plan``.  ``bf16``: the box_bf16 test."""
+    global pack_launches, pack_bf16_launches
     _check_pack(queue, seg_base, lv, route, cursor, node_rows, prim_rows,
                 width, queue_out, keys, dropped, tile_base)
     _not_cuda("pack_cuda", queue)
@@ -487,7 +518,7 @@ def pack_cuda(queue, seg_base, tile_base, lv: LevelTables, route, cursor,
         child_next = fused.lv.child.data_ptr()
     lib = _load_library()
     bound = min(int(bound), queue.shape[0])
-    la = _level_args(queue, seg_base, tile_base, lv, node_rows, width)
+    la = _level_args(queue, seg_base, tile_base, lv, node_rows, width, bf16)
     pk = _PackArgs(route.data_ptr(), cursor.data_ptr(), prim_rows.data_ptr(),
                    queue_out.data_ptr(), keys.data_ptr(), dropped.data_ptr(),
                    seg_node_next, child_next, queue_out.shape[0],
@@ -496,7 +527,10 @@ def pack_cuda(queue, seg_base, tile_base, lv: LevelTables, route, cursor,
                        bound, _stream(queue))
     if err != 0:
         raise RuntimeError(f"pack kernel launch failed: cuda error {err}")
-    pack_launches += 1
+    if bf16:
+        pack_bf16_launches += 1
+    else:
+        pack_launches += 1
 
 
 def hit_keys(t, prim):
@@ -509,7 +543,7 @@ def pack_plain(queue, seg_base, lv: LevelTables, route, cursor, node_rows,
                prim_rows, width: int, do_kill: bool, kill_eps: float,
                queue_out, keys, dropped, bound: int = 0, stats: dict = None,
                chunk: int = 1 << 18, counts_next=None,
-               lv_next: LevelTables = None):
+               lv_next: LevelTables = None, bf16: bool = False):
     """The pack kernel's function in plain torch ops (any device; reads
     the level's total on the host).  Updates ``queue_out``, ``cursor``,
     ``keys`` and ``dropped`` in place like the kernel; survivors land in
@@ -520,7 +554,7 @@ def pack_plain(queue, seg_base, lv: LevelTables, route, cursor, node_rows,
     this data needs: ``entries``, ``boxes`` (non-empty child boxes of
     live entries), ``tris``/``spheres`` (prim tests by type), ``hits``
     (key updates), ``survivors`` (entries written) and ``fused_boxes``
-    (the fused count's box tests)."""
+    (the fused count's box tests).  ``bf16``: the box_bf16 test."""
     del bound
     _check_pack(queue, seg_base, lv, route, cursor, node_rows, prim_rows,
                 width, queue_out, keys, dropped)
@@ -539,7 +573,8 @@ def pack_plain(queue, seg_base, lv: LevelTables, route, cursor, node_rows,
         rows = node_rows[lv.seg_node[seg].long()]
         o, d = q[:, 0:3], q[:, 3:6]
         tub0 = q[:, 7]
-        slab_ok, tnear, inside, outlet = _box_terms(rows, W, o, 1.0 / d)
+        slab_ok, tnear, inside, outlet = _box_terms(rows, W, o, 1.0 / d,
+                                                    bf16)
         ch = child[seg]  # [E, W, 4]
         kind = ch[..., 0]
         live = tub0 >= 0.0
@@ -614,7 +649,7 @@ def pack_plain(queue, seg_base, lv: LevelTables, route, cursor, node_rows,
             out, c = rows_out[fit], seg_sorted[fit]
             kind_next = lv_next.child[:, 0].view(-1, W)[c] == 1
             m = _enters(node_rows[lv_next.seg_node[c].long()], W,
-                        out[:, 0:3], out[:, 3:6], out[:, 7]) & kind_next
+                        out[:, 0:3], out[:, 3:6], out[:, 7], bf16) & kind_next
             slot = c[:, None] * W + torch.arange(W, device=dev)
             counts_next += torch.bincount(
                 slot[m], minlength=counts_next.shape[0]).to(torch.int32)
@@ -625,7 +660,7 @@ def pack_plain(queue, seg_base, lv: LevelTables, route, cursor, node_rows,
 def pack_level(queue, seg_base, tile_base, lv: LevelTables, route, cursor,
                node_rows, prim_rows, width: int, do_kill: bool,
                kill_eps: float, queue_out, keys, dropped, bound: int,
-               fused: Optional[Fused] = None):
+               fused: Optional[Fused] = None, bf16: bool = False):
     """Leaf intersection, hit keys, shadow kill and survivor routing of
     one level, in place on ``queue_out``, ``cursor``, ``keys`` and
     ``dropped``; with ``fused``, the next level's counts and plan too.
@@ -634,12 +669,12 @@ def pack_level(queue, seg_base, tile_base, lv: LevelTables, route, cursor,
     if queue.device.type == "cuda":
         return pack_cuda(queue, seg_base, tile_base, lv, route, cursor,
                          node_rows, prim_rows, width, do_kill, kill_eps,
-                         queue_out, keys, dropped, bound, fused)
+                         queue_out, keys, dropped, bound, fused, bf16)
     if queue.device.type == "cpu":
         pack_plain(queue, seg_base, lv, route, cursor, node_rows, prim_rows,
                    width, do_kill, kill_eps, queue_out, keys, dropped,
                    counts_next=None if fused is None else fused.counts,
-                   lv_next=None if fused is None else fused.lv)
+                   lv_next=None if fused is None else fused.lv, bf16=bf16)
         if fused is not None:
             plan_plain(fused.counts, fused.lv, fused.cap, fused.plan,
                        dropped)
@@ -773,6 +808,9 @@ def trace_closest_wavefront(
     compact: bool = False,
     want_prim: bool = True,
     fused_counts: bool = True,
+    box_bf16: bool = False,
+    seed_t: torch.Tensor = None,
+    seed_prim: torch.Tensor = None,
 ) -> WaveTraceResult:
     """Closest-hit / shadow traversal of N rays (o, d: [N, 3] f32;
     valid: [N] bool) by the wavefront level loop.
@@ -791,6 +829,9 @@ def trace_closest_wavefront(
     level inside the pack that writes them, so the count kernel runs
     once, on the level-0 queue; ``False`` runs a count sweep at every
     level with inner children.  The result is the same to the bit.
+    ``box_bf16`` runs the bf16 box tests (the same hits, more entries);
+    ``seed_t`` / ``seed_prim`` (ops/seeds.py) seed the trace (see the
+    module's docstring).
     """
     bvh = scene.bvh
     if not bvh.wf_sched:
@@ -807,22 +848,28 @@ def trace_closest_wavefront(
     ws = workspace(levels, W, dev)
 
     valid = valid.bool()
+    do_kill = t_limit is not None
+    keys = torch.full((n_in,), KEY_MISS, dtype=torch.int64, device=dev)
+    t_start = t_limit
+    if seed_t is not None:
+        t_start = seeded_bound(seed_t, t_limit, kill_eps)
+        seeded = (seed_t < T_NO_LIMIT) & valid & (seed_prim >= 0)
+        keys = torch.where(seeded, hit_keys(seed_t.float(), seed_prim),
+                           keys)
     seg_base, tile_base = ws.heads
     if compact:
         queue, n_live = compact_live_rays(
             o.float().contiguous(), d.float().contiguous(),
             valid.contiguous(),
-            None if t_limit is None else t_limit.float().contiguous())
+            None if t_start is None else t_start.float().contiguous())
         seg_base[1:].copy_(n_live.reshape(1))
         tile_base[1:].copy_(torch.div(n_live.reshape(1) + TILE - 1, TILE,
                                       rounding_mode="floor"))
     else:
-        queue = make_payload(o, d, valid, t_limit)
+        queue = make_payload(o, d, valid, t_start)
         seg_base[1:] = n_in
         tile_base[1:] = -(-n_in // TILE)
-    keys = torch.full((n_in,), KEY_MISS, dtype=torch.int64, device=dev)
     dropped = torch.zeros((), dtype=torch.int64, device=dev)
-    do_kill = t_limit is not None
     bound = n_in
 
     plan = None  # the regions of the next level, once a pack counted it
@@ -830,12 +877,13 @@ def trace_closest_wavefront(
         if not lv.has_inner:  # leaves only: nothing is routed
             pack_level(queue, seg_base, tile_base, lv, lv.pair, ws.cursor,
                        node_rows, prim_rows, W, do_kill, kill_eps, ws.queue,
-                       keys, dropped, bound)
+                       keys, dropped, bound, bf16=box_bf16)
             break
         if plan is None:
             plan = ws.plans[L]
             count_level(queue, seg_base, tile_base, lv, node_rows, W, bound,
-                        ws.counts[L], plan, cap, dropped, ws.ticket)
+                        ws.counts[L], plan, cap, dropped, ws.ticket,
+                        bf16=box_bf16)
         nxt = levels[L + 1]
         fused = None
         if fused_counts and nxt.has_inner:
@@ -844,7 +892,7 @@ def trace_closest_wavefront(
         queue_out = torch.empty((cap, ROWS), dtype=torch.float32, device=dev)
         pack_level(queue, seg_base, tile_base, lv, plan.route, plan.cursor,
                    node_rows, prim_rows, W, do_kill, kill_eps, queue_out,
-                   keys, dropped, bound, fused)
+                   keys, dropped, bound, fused, bf16=box_bf16)
         queue, seg_base, tile_base = queue_out, plan.seg_base, plan.tile_base
         bound = cap
         plan = None if fused is None else fused.plan

@@ -10,30 +10,27 @@ either device, at any width.  ``"auto"`` is the DFS, and sends a scene
 whose tree is wider than 8 to ``"xla"`` (decided per scene, where the
 JAX package sends such a tree from its DFS to its wavefront).
 
-Seeded bounds (ops/seeds.py) are not ported.  The JAX package seeds a
-wavefront pass only when it is a secondary, non-compacted pass (or the
-camera pass under ``seed_primary``) with ``seed_k > 0`` on a scene that
-has seed rows; such a pass raises here instead of running unseeded
-unasked.  The fast preset reaches the wavefront only through compacted
-passes, which the JAX package never seeds, so nothing on that path is
-lost.  The ``"xla"`` traversal takes no seeds in either package.
+Both kernel backends take ``cfg.slab_bf16`` (bf16 box tests) and the
+seeded bounds of ``seeds_for``; ``"xla"`` takes neither, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
 from ..config import RenderConfig
 from ..ops.packet_dfs import trace_closest_packets
+from ..ops.seeds import seed_hits
 from ..ops.traverse import trace_closest
 from ..ops.wavefront2 import trace_closest_wavefront
-
-_SEEDS = "needs ops/seeds.py, not ported yet (ROADMAP queue 1 item 9)"
 
 
 def make_trace_fn(cfg: RenderConfig, secondary: bool = False,
                   compact: bool = False, rr_dense: bool = False):
     """The traversal for one class of pass: the camera pass
     (cfg.traversal), bounce and depth>0 shadow passes
-    (cfg.traversal_secondary) or RR-thinned depths (cfg.traversal_rr).
+    (cfg.traversal_secondary) or RR-thinned depths (cfg.traversal_rr;
+    ``rr_dense``: a whole-depth-compacted population, which arrives
+    compacted, so the wavefront runs without its partition).
     Returns trace(scene, o, d, valid, t_limit=None) -> WaveTraceResult.
     """
     if compact or rr_dense:
@@ -54,15 +51,25 @@ def make_trace_fn(cfg: RenderConfig, secondary: bool = False,
         return trace_xla
     if kind not in ("dfs", "pallas"):
         raise ValueError(f"unknown traversal backend {kind!r}")
-    if cfg.slab_bf16:
-        raise NotImplementedError(
-            "slab_bf16=True is not ported (the kernels run f32 box tests; "
-            "ROADMAP queue 2)"
-        )
+
+    def seeds_for(scene, o, d, valid, backend):
+        """Conservative per-ray upper bounds from the seed_k largest prims
+        (ops/seeds.py), or (None, None), by the JAX package's rules:
+        never for compacted or rr_dense passes (the sweep covers every
+        lane while the saving scales with the live ones), nor for DFS
+        passes or the camera pass unless cfg.seed_primary."""
+        use = (cfg.seed_k and scene.seed_rows is not None
+               and not compact and not rr_dense)
+        if use and backend == "dfs" and not cfg.seed_primary:
+            use = False
+        if use and not secondary and not cfg.seed_primary:
+            use = False
+        if use:
+            sd = seed_hits(scene, o, d, valid, k=cfg.seed_k)
+            return sd.t, sd.prim
+        return None, None
 
     if kind == "dfs":
-        if cfg.seed_primary:
-            raise NotImplementedError(f"seed_primary=True {_SEEDS}")
         psize = ((cfg.packet_size_secondary or cfg.packet_size)
                  if secondary else cfg.packet_size)
 
@@ -71,9 +78,11 @@ def make_trace_fn(cfg: RenderConfig, secondary: bool = False,
                 # trees wider than the kernels take: the torch traversal
                 return trace_closest(scene, o, d, valid, cfg.queue_multiplier)
             tl = None if cfg.reference_compat else t_limit
+            st, sp = seeds_for(scene, o, d, valid, "dfs")
             return trace_closest_packets(
                 scene, o, d, valid, tl, kill_eps=cfg.shadow_eps,
-                packet_size=psize,
+                packet_size=psize, slab_bf16=cfg.slab_bf16,
+                seed_t=st, seed_prim=sp,
             )
 
         return trace_dfs
@@ -82,25 +91,20 @@ def make_trace_fn(cfg: RenderConfig, secondary: bool = False,
     # compact=True for depths past rr_start_depth.  rr_dense populations
     # arrive compacted, so no partition inside the trace.
     do_compact = compact and cfg.compact_secondary and not rr_dense
-    # the passes the JAX package would seed (its seeds_for)
-    may_seed = bool(cfg.seed_k) and not compact and not rr_dense and (
-        secondary or cfg.seed_primary)
 
     def trace_wf2(scene, o, d, valid, t_limit=None):
-        if may_seed and scene.seed_rows is not None:
-            raise NotImplementedError(
-                f"a seeded wavefront pass (seed_k={cfg.seed_k}) {_SEEDS}; "
-                "set seed_k=0 to trace it unseeded"
-            )
         # reference-compat shadow semantics need hits beyond maxT, so
         # only prune/kill by t_limit in the default mode
         tl = None if cfg.reference_compat else t_limit
+        st, sp = seeds_for(scene, o, d, valid, "pallas")
         return trace_closest_wavefront(
             scene, o, d, valid, tl, cfg.queue_multiplier,
             kill_eps=cfg.shadow_eps, compact=do_compact,
+            box_bf16=cfg.slab_bf16,
             # shadow passes only consume the t > maxT - eps comparison
             # (nee_accum), so their prim ids are not decoded
             want_prim=tl is None,
+            seed_t=st, seed_prim=sp,
         )
 
     return trace_wf2

@@ -4,8 +4,16 @@ The port of ``cuda_raytracer_tpu/render/bounce.py``: one depth is
 closest-hit trace -> emission -> NEE shadow passes -> BSDF scatter +
 Russian roulette, with the same fold_in key tree (1000+depth for NEE,
 2000+depth for scatter, 3000+depth for roulette, 17 for shared scatter
-draws), so the port draws the JAX package's noise.  Whole-depth
-compaction (cfg.compact_depths) is not ported yet.
+draws), so the port draws the JAX package's noise.
+
+Whole-depth compaction (cfg.compact_depths): at the roulette-thinned
+depths the engine packs the per-lane path state (``pack_state``),
+compacts the live lanes to a prefix (ops/partition.py), reads the live
+count on the host and runs the whole depth (trace, shading, NEE,
+scatter and roulette) over a capacity bucket of ``m`` lanes
+(``run_depth_compacted``); radiance goes back to the full-size ``light``
+by ray id.  Draws over ``m`` lanes are the JAX package's draws over the
+same ``m``, so the compacted frame is the JAX package's compacted frame.
 """
 
 from __future__ import annotations
@@ -23,11 +31,6 @@ from .backends import make_trace_fn
 
 def make_stage_fns(cfg: RenderConfig):
     """The per-frame stage functions."""
-    if cfg.compact_depths:
-        raise NotImplementedError(
-            "compact_depths=True (whole-depth compaction) is not ported "
-            "yet (ROADMAP queue 1 item 10)"
-        )
     trace = make_trace_fn(cfg)
     same_secondary = (
         (cfg.traversal_secondary in ("", cfg.traversal))
@@ -98,6 +101,7 @@ def make_stage_fns(cfg: RenderConfig):
         "trace": trace,
         "trace_secondary": trace_secondary,
         "trace_secondary_compact": trace_secondary_compact,
+        "trace_rr_dense": make_trace_fn(cfg, secondary=True, rr_dense=True),
         "shade_hit": shade_hit,
         "nee_prep": nee_prep,
         "nee_accum": nee_accum,
@@ -105,12 +109,9 @@ def make_stage_fns(cfg: RenderConfig):
     }
 
 
-def run_bounce_loop(J, cfg: RenderConfig, scene: FlatScene, o, d, key,
-                    valid=None, after_depth=None):
-    """Trace and shade the camera rays through the full depth/NEE
-    schedule.  Returns (light [N, 3], dropped).  ``after_depth(depth,
-    carry)``, when given, is called after each depth (the engine's
-    per-depth laps)."""
+def initial_carry(o, d, valid=None):
+    """The carry of camera rays before depth 0: (o, d, valid,
+    importance, light, count_emission, dropped)."""
     n = o.shape[0]
     dev = o.device
     if valid is None:
@@ -119,8 +120,16 @@ def run_bounce_loop(J, cfg: RenderConfig, scene: FlatScene, o, d, key,
     light = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     count_emission = torch.ones((n,), dtype=torch.bool, device=dev)
     dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    return (o, d, valid, importance, light, count_emission, dropped)
 
-    carry = (o, d, valid, importance, light, count_emission, dropped)
+
+def run_bounce_loop(J, cfg: RenderConfig, scene: FlatScene, o, d, key,
+                    valid=None, after_depth=None):
+    """Trace and shade the camera rays through the full depth/NEE
+    schedule.  Returns (light [N, 3], dropped).  ``after_depth(depth,
+    carry)``, when given, is called after each depth (the engine's
+    per-depth laps)."""
+    carry = initial_carry(o, d, valid)
     for depth in range(cfg.max_depth):
         carry = run_depth(J, cfg, scene, carry, key, depth)
         if after_depth is not None:
@@ -176,3 +185,84 @@ def run_depth(J, cfg: RenderConfig, scene: FlatScene, carry, key, depth):
             valid = valid & (u_rr < p)
             importance = importance / p[:, None]
     return (o, d, valid, importance, light, count_emission, dropped)
+
+
+# ---------------------------------------------------------------------------
+# whole-depth compaction (cfg.compact_depths)
+# ---------------------------------------------------------------------------
+
+#: fields of a lane's path state: o.xyz, d.xyz, ray id (an int32 bit
+#: pattern), live flag (1 or -1: ops/partition.py's liveness field 7),
+#: importance.xyz, count_emission, 4 pad fields
+STATE_ROWS = 16
+#: lanes of the JAX package's partition block, to which the state pads
+_BLOCK = 1024
+
+
+def pack_state(o, d, valid, importance, count_emission, ray_id):
+    """Pack per-lane path state into an entry-major [N', 16] payload for
+    ops/partition.compact_live_payload, N' = N padded to the 1024-lane
+    partition block (pad lanes are dead, zero elsewhere): the JAX
+    package's [16, N'] payload, transposed."""
+    n = o.shape[0]
+    n_pad = n + (-n) % _BLOCK
+    payload = torch.zeros((n_pad, STATE_ROWS), dtype=torch.float32,
+                          device=o.device)
+    payload[:n, 0:3] = o
+    payload[:n, 3:6] = d
+    payload.view(torch.int32)[:n, 6] = ray_id.to(torch.int32)
+    payload[:, 7] = -1.0
+    payload[:n, 7] = torch.where(valid, 1.0, -1.0)
+    payload[:n, 8:11] = importance
+    payload[:n, 11] = count_emission.to(torch.float32)
+    return payload
+
+
+def unpack_state(packed, n_live):
+    """Inverse of pack_state over a live prefix: (o, d, alive,
+    importance, count_emission, ray_id).  Lanes at or past ``n_live`` (a
+    0-d tensor or an int) are dead, whatever they hold: the partition
+    leaves them undefined."""
+    m = packed.shape[0]
+    lane = torch.arange(m, device=packed.device)
+    alive = (lane < n_live) & (packed[:, 7] >= 0.0)
+    o = packed[:, 0:3].contiguous()
+    d = packed[:, 3:6].contiguous()
+    ids = packed.view(torch.int32)[:, 6]
+    imp = packed[:, 8:11]
+    ce = packed[:, 11] > 0.5
+    return o, d, alive, imp, ce, ids
+
+
+def run_depth_compacted(J, cfg: RenderConfig, scene: FlatScene,
+                        packed, n_live: int, light, key, depth, m):
+    """One roulette depth over the compacted live prefix packed[:m]
+    (``n_live`` a host int, at most m): ``run_depth`` on those lanes, every
+    trace through the ``trace_rr_dense`` stage.  The radiance it earns is
+    added to the full-size ``light`` in place, by ray id (live ids are
+    unique, so each pixel sample gets one addition: the JAX package's
+    scatter-add, exactly).  Returns (packed' [m, 16], light, dropped);
+    below max depth packed' is the state after scatter and roulette,
+    else the prefix itself."""
+    sl = packed[:m]
+    o, d, alive, importance, ce, ids = unpack_state(sl, n_live)
+    # the population arrives compacted: as in the JAX package, the
+    # wavefront runs without its own partition
+    tr = J["trace_rr_dense"]
+    Jd = dict(J, trace=tr, trace_secondary=tr, trace_secondary_compact=tr)
+    light_m = torch.zeros((m, 3), dtype=torch.float32, device=o.device)
+    zero = torch.zeros((), dtype=torch.int64, device=o.device)
+    o, d, valid, importance, light_m, ce, dropped = run_depth(
+        Jd, cfg, scene, (o, d, alive, importance, light_m, ce, zero),
+        key, depth)
+    if depth + 1 < cfg.max_depth:
+        packed_new = pack_state(o, d, valid & alive, importance, ce, ids)
+    else:
+        packed_new = sl
+    # the live lanes are the prefix; a dead lane there (none, by the
+    # partition's contract) would add +0 to row 0.  No boolean-mask
+    # select: that would read its size back to the host
+    k = min(n_live, m)
+    light.index_add_(0, torch.where(alive[:k], ids[:k], 0).long(),
+                     torch.where(alive[:k, None], light_m[:k], 0.0))
+    return packed_new, light, dropped

@@ -4,15 +4,26 @@ The port of ``cuda_raytracer_tpu/render/engine.py``'s WavefrontRenderer:
 it owns the flattened device scene and accumulates frames of
 ``samples_per_frame`` spp with reset-on-move semantics and the
 threshold-gated median filter.  PyTorch runs eagerly, so there is no
-fuse/jit split: a frame is raygen, the bounce loop of render/bounce.py
-and the film, launched in order on the device.
+jit: a frame is raygen, the bounce loop of render/bounce.py and the
+film, launched in order on the device.
+
+Whole-depth compaction (cfg.compact_depths) takes effect when
+``0 < rr_start_depth < max_depth`` and the frame is "fused":
+``fuse_frame="yes"``, or ``"auto"`` on the GPU (the JAX engine's rule,
+where "auto" means the TPU).  Then the depths from rr_start_depth on
+run over the live lanes only: the path state is partitioned, the live
+count read on the host and rounded up to a per-depth capacity bucket
+(sticky across frames: it grows, never shrinks, and a scene load resets
+it), and each depth runs over that many lanes, re-partitioned between
+depths.  The buckets and so the draws are the JAX engine's.
 
 ``stage_times`` holds host seconds, as the JAX engine's does: ``frame``
 (each render(), up to a device sync), ``bvh_build``, ``flatten`` and
 ``upload`` (each scene load, flatten_scene's steps), and, with the
 environment variable ``CRT_TIME_DEPTHS`` set, ``depth{i}`` per depth
-(each behind a device sync).  The JAX engine's ``partition`` laps
-belong to whole-depth compaction, which is not ported.
+and, under compaction, ``partition`` (the first) and
+``partition{depth}`` (after a compacted depth), each behind a device
+sync.
 
 ``load_scene`` reads a COLLADA document (scene/collada.py) into the
 dynamic scene, flattens its static form and places the camera.  Camera
@@ -42,7 +53,15 @@ from ..scene.camera import Camera, CutracerCamera
 from ..scene.collada import load_scene_info
 from ..scene.dynamic_scene import load_from_scene_info
 from ..utils.timing import LapTimer, block_until_ready
-from .bounce import make_stage_fns, run_bounce_loop
+from ..ops.partition import compact_live_payload
+from .bounce import (
+    initial_carry,
+    make_stage_fns,
+    pack_state,
+    run_bounce_loop,
+    run_depth,
+    run_depth_compacted,
+)
 from .flatscene import FlatScene, flatten_scene
 
 
@@ -77,6 +96,9 @@ class WavefrontRenderer:
         self._post_image = None
         self._stages = None
         self._dropped = 0
+        #: per compacted depth, its capacity bucket (lanes); set up anew
+        #: with the stages, so a scene load resets it
+        self._depth_buckets: Dict[int, int] = {}
         self.stage_times: Dict[str, float] = {}
 
     def load_scene(self, path: str) -> None:
@@ -149,6 +171,54 @@ class WavefrontRenderer:
         self._inv_order = (None if rank is None else
                            torch.as_tensor(rank, device=self.device))
         self._stages = make_stage_fns(cfg)
+        self._depth_buckets = {}
+
+    @property
+    def compacting(self) -> bool:
+        """Whether a frame runs whole-depth compaction (see the module's
+        docstring)."""
+        cfg = self.config
+        fuse = cfg.fuse_frame == "yes" or (
+            cfg.fuse_frame == "auto" and self.device.type == "cuda")
+        return bool(fuse and cfg.compact_depths and cfg.rr_start_depth
+                    and cfg.rr_start_depth < cfg.max_depth)
+
+    def bucket(self, depth: int, n_live: int, n_cur: int) -> int:
+        """The lanes a compacted depth runs over: n_live rounded up to a
+        grain of n_cur / 32 (at least 1024, a multiple of 1024), at most
+        n_cur; sticky per depth (reused while it holds n_live)."""
+        g = max(1024, -(-n_cur // 32 // 1024) * 1024)
+        m = min(n_cur, max(-(-n_live // g) * g, 1024))
+        prev = self._depth_buckets.get(depth)
+        if prev is not None and m <= prev <= n_cur:
+            m = prev
+        self._depth_buckets[depth] = m
+        return m
+
+    def _run_compacted(self, carry, key, lap):
+        """The frame's depths from rr_start_depth on, over the live
+        lanes (``carry``: the state after the dense depths).  Returns
+        (light, dropped)."""
+        cfg, J = self.config, self._stages
+        o, d, valid, importance, light, ce, dropped = carry
+        ids = torch.arange(o.shape[0], dtype=torch.int32, device=o.device)
+        packed, n_live = compact_live_payload(
+            pack_state(o, d, valid, importance, ce, ids))
+        nl = int(n_live)
+        lap("partition", packed)
+        for depth in range(cfg.rr_start_depth, cfg.max_depth):
+            if nl == 0:
+                break
+            m = self.bucket(depth, nl, packed.shape[0])
+            packed_m, light, dr = run_depth_compacted(
+                J, cfg, self.scene, packed, nl, light, key, depth, m)
+            dropped = dropped + dr
+            lap(f"depth{depth}", light)
+            if depth + 1 < cfg.max_depth:
+                packed, n_live = compact_live_payload(packed_m)
+                nl = int(n_live)
+                lap(f"partition{depth}", packed)
+        return light, dropped
 
     def _raygen(self, key):
         cfg = self.config
@@ -206,19 +276,30 @@ class WavefrontRenderer:
         t0 = time.perf_counter()
         key = rng.fold_in(rng.PRNGKey(cfg.seed), self.frame_index)
         o, d = self._raygen(key)
-        after_depth = None
+
+        def lap(name, fence):
+            pass
+
         if os.environ.get("CRT_TIME_DEPTHS"):
             timer = LapTimer()
             block_until_ready((o, d))
             timer.start()
 
-            def after_depth(depth, carry):
-                self.stage_times[f"depth{depth}"] = timer.lap(
-                    f"depth{depth}", carry)
+            def lap(name, fence):
+                self.stage_times[name] = timer.lap(name, fence)
 
-        light, dropped = run_bounce_loop(
-            self._stages, cfg, self.scene, o, d, key, after_depth=after_depth
-        )
+        if self.compacting:
+            carry = initial_carry(o, d)
+            for depth in range(cfg.rr_start_depth):
+                carry = run_depth(self._stages, cfg, self.scene, carry, key,
+                                  depth)
+                lap(f"depth{depth}", carry)
+            light, dropped = self._run_compacted(carry, key, lap)
+        else:
+            light, dropped = run_bounce_loop(
+                self._stages, cfg, self.scene, o, d, key,
+                after_depth=lambda depth, carry: lap(f"depth{depth}", carry),
+            )
         with_median = self.image_samples < cfg.post_process_threshold
         final, post = self._film(light, with_median)
         self._dropped = int(dropped)

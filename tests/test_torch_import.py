@@ -33,7 +33,8 @@ def _modules():
 
 def test_modules_import_without_jax():
     mods = _modules()
-    for name in ("_build", "packet_dfs", "partition", "wavefront2"):
+    for name in ("_build", "packet_dfs", "partition", "wavefront2",
+                 "compact", "seeds"):
         assert f"cuda_raytracer_tpu_torch.ops.{name}" in mods
     for name in ("apps.render_cli", "scene.collada", "scene.dynamic_scene",
                  "geometry.meshedit", "utils.image", "ops.traverse",

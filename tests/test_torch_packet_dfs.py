@@ -190,7 +190,8 @@ def _plain(scene, o, d, valid, t_limit=None, stack=None, stats=None):
         torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(valid),
         None if t_limit is None else torch.from_numpy(t_limit),
         b.dfs_node_rows, b.dfs_prim_rows, b.node_meta, b.width, 1e-3,
-        pdfs.stack_entries(b) if stack is None else stack, stats=stats)
+        pdfs.stack_entries(b) if stack is None else stack,
+        t_limit is not None, stats=stats)
 
 
 def test_stack_overflow_counted():
@@ -269,7 +270,7 @@ def test_cuda_tensors_never_take_plain_path(monkeypatch):
         real_cuda(torch.from_numpy(o), torch.from_numpy(d),
                   torch.from_numpy(valid), None, b.dfs_node_rows,
                   b.dfs_prim_rows, b.node_meta, b.width, 1e-3,
-                  pdfs.stack_entries(b))
+                  pdfs.stack_entries(b), False)
 
 
 def test_work_counts_root_leaf():

@@ -3,6 +3,7 @@
 
     python3 tools/torch_profile_frame.py [--scene cornell|terrain|run_c]
                                          [--traversal-rr pallas|dfs]
+                                         [--compact-depths]
 
 Runs chip_smoke.py's run-A (cornell), run-B (terrain) or run-C (its
 COLLADA document, loaded through load_scene with the document's camera)
@@ -17,8 +18,11 @@ decode kernel of the hit keys (the merge), with the live entries the
 partition found per trace; then the device launches of one wavefront
 closest-hit and one shadow trace of that frame (torch.profiler); then
 one frame under torch.profiler for device time by kernel name and the
-device's busy share of the frame.  Prints the card's name and power
-limit first.
+device's busy share of the frame.  With ``--compact-depths`` the frame
+runs whole-depth compaction (``compact_depths=True``; "auto" fuses the
+frame on the card): the roulette depths' stages run over the live
+lanes, and the path state's packing (``pack_state``) and partition are
+timed too.  Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ def main() -> int:
                     default="cornell")
     ap.add_argument("--traversal-rr", choices=("pallas", "dfs"),
                     default="pallas")
+    ap.add_argument("--compact-depths", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -52,10 +57,13 @@ def main() -> int:
     from cuda_raytracer_tpu_torch.models.terrain import terrain_scene
     from cuda_raytracer_tpu_torch.ops import wavefront2 as wf
     from cuda_raytracer_tpu_torch.render import backends
+    from cuda_raytracer_tpu_torch.render import bounce, engine
     from cuda_raytracer_tpu_torch.render.engine import WavefrontRenderer
 
-    print(f"card: {cs.smi_line()}; traversal_rr={args.traversal_rr!r}")
-    r = WavefrontRenderer(cs.fast_config(traversal_rr=args.traversal_rr),
+    print(f"card: {cs.smi_line()}; traversal_rr={args.traversal_rr!r}, "
+          f"compact_depths={args.compact_depths}")
+    r = WavefrontRenderer(cs.fast_config(traversal_rr=args.traversal_rr,
+                                         compact_depths=args.compact_depths),
                           camera_mode="collada", device="cuda")
     if args.scene == "cornell":
         r.load_static_scene(cornell_box_scene(with_spheres=True))
@@ -89,6 +97,12 @@ def main() -> int:
     r._stages = {k: timed(k, v) for k, v in r._stages.items()}
     r._raygen = timed("raygen", r._raygen)
     r._film = timed("film", r._film)
+    # whole-depth compaction's own steps (the engine's and the bounce
+    # loop's names for them)
+    engine.pack_state = timed("pack_state", engine.pack_state)
+    bounce.pack_state = timed("pack_state", bounce.pack_state)
+    engine.compact_live_payload = timed("partition (path state)",
+                                        engine.compact_live_payload)
     # inside the wavefront traces (these rows are part of the trace rows)
     live = []
     parts = {"compact_live_rays": "partition (rays)",
