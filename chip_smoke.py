@@ -87,7 +87,24 @@ prints one JSON line for the kernels and, last, the device line.  Phases:
    against its f32 twin to the bit, and the bf16 DFS, count and pack
    against their plain versions and against the f32 forms (time, visits
    per ray, entries per level) on run B's camera trace and depth-2
-   closest-hit trace, all their lanes.
+   closest-hit trace, all their lanes;
+8. run F, multi-card rendering and the PathTracer oracle: run B's terrain
+   through ``parallel/shard.ShardedRenderer`` (fast preset, 800x600, 32
+   spp per frame) over one entry of the card, over four in samples mode
+   (4 shards of 8 spp) and over four in tiles mode (slabs of 150 rows,
+   tiles32s), a warm-up frame then a counted one each, beside the
+   WavefrontRenderer's frame: dropped == 0, launches = shards x one
+   shard's schedule, the frame against its shards traced one by one
+   through ``_render_chunk`` (samples, rtol 1e-6) or ``_trace_slab``
+   (tiles, to the bit), a profiled frame's kernel time and busy share;
+   the small sharded frames of tests/test_torch_shard.py (8 shards) on
+   the card and on the CPU, per pixel; ``render_cli --chips`` past the
+   visible cards (exits naming how many) and ``--chips 1``; and
+   ``render/pathtracer.PathTracer`` on the card: against the CPU
+   (Cornell box 64x48, ns_aa=16, buffers within rtol 1e-9 / atol
+   1e-12), against the card's engine by tests/test_radiance.py's z-test
+   (ns_aa=64, 4 worker threads), and one 32x32 tile of run C's document
+   at ns_aa=16, timed on the card and on this machine's CPU.
 
 Needs one CUDA card; exits non-zero (and prints no result) without one,
 or when run outside a checkout of the repository.  Imports nothing of
@@ -2219,6 +2236,376 @@ def phase_run_e(n=121):
     ]
 
 
+#: run F (phase 8): the sharded frames on the one card, (label, shards,
+#: shard_mode); a mesh may repeat a device, so 4 shards share the card
+RUN_F_MESHES = (("1 shard, samples", 1, "samples"),
+                ("4 shards, samples", 4, "samples"),
+                ("4 shards, tiles", 4, "tiles"))
+#: the small sharded frames of tests/test_torch_shard.py: 32x16, 8 shards
+#: of 1 spp (samples) or of 2 rows (tiles, tiles32s slabs), depth 2
+SMALL_SHARDED = dict(width=32, height=16, samples_per_frame=8, max_depth=2,
+                     nee_schedule=((1, 1.0), (1, 1.0)))
+#: the oracle held against itself on the CPU (rtol, atol: float64 over a
+#: path's few dozen operations, tests/test_torch_pathtracer.py)
+ORACLE_RTOL, ORACLE_ATOL = 1e-9, 1e-12
+#: tests/test_radiance.py's engine frames for the z-test, and its bounds:
+#: mean |z|, share of pixels beyond 4 sigma, max |z|, global mean
+ZTEST_FRAMES, ZTEST_SPF = 12, 4
+ZTEST_BOUNDS = (1.6, 0.01, 10.0, 0.05)
+
+
+def _device_busy(render, frame_ms):
+    """Device kernel ms of one render() under torch.profiler, its share
+    of the unprofiled frame's ``frame_ms``, and the device launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        render()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    return dev_ms, dev_ms / frame_ms, sum(e.count for e in rows)
+
+
+def _drive_sharded(label, n_shards, mode, n, spf):
+    """One ShardedRenderer on run B's terrain (fast_config, ``spf`` spp
+    per frame) over ``n_shards`` entries of the card: a warm-up frame,
+    then one counted frame, its launches against n_shards times one
+    shard's schedule, and the frame against its shards rendered one by
+    one; last, one profiled frame.  Returns (ms, device busy share)."""
+    import numpy as np
+    import torch
+
+    from cuda_raytracer_tpu_torch import rng
+    from cuda_raytracer_tpu_torch.models.terrain import terrain_scene
+    from cuda_raytracer_tpu_torch.parallel import shard
+
+    cfg = fast_config(shard_mode=mode, samples_per_frame=spf)
+    sr = shard.ShardedRenderer(cfg, [torch.device(DEVICE)] * n_shards)
+    sr.load_static_scene(terrain_scene(n=n))
+    sr.set_viewpoint(*VIEW_B)
+    sr.render()  # warm-up
+    sr._reset_accumulation()  # the counted frame alone: raw == its image
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    sr.render()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    want = {k: v * n_shards for k, v in expected_launches(sr._host, 1).items()}
+    img = sr.get_raw_image()
+    check(img.shape == (cfg.height, cfg.width, 3)
+          and bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
+          f"run F {label}: image")
+    check(sr.dropped == 0, f"run F {label}: dropped {sr.dropped}")
+    check(launches == want, f"run F {label}: launches {launches} != "
+          f"{n_shards} x one shard's schedule {want}")
+
+    key = rng.fold_in(rng.PRNGKey(cfg.seed), sr.frame_index - 1)
+    cam = sr._camera_arrays()
+    if mode == "samples":
+        spp = max(cfg.samples_per_frame // n_shards, 1)
+        chunks = [shard._render_chunk(sr._scenes[i], cfg, cam,
+                                      rng.fold_in(key, i), *sr._tan, spp)
+                  for i in range(n_shards)]
+        want_img = torch.stack(chunks).mean(0).cpu().numpy()
+        close = np.isclose(img, want_img, rtol=1e-6, atol=0)
+        what = (f"the mean of {n_shards} chunk(s) of {spp} spp traced one "
+                f"by one: {int((~close).sum())} values off rtol 1e-6")
+        check(bool(close.all()), f"run F {label}: frame != its chunks")
+    else:
+        rows = cfg.height // n_shards
+        tile_cfg = shard._slab_config(cfg, rows)
+        diff = 0
+        for i in range(n_shards):
+            slab, _ = shard._trace_slab(
+                sr._scenes[i], tile_cfg, cam, rng.fold_in(key, i), *sr._tan,
+                cfg.samples_per_frame, row_offset=i * rows,
+                full_height=cfg.height)
+            diff += int((slab.cpu().numpy()
+                         != img[i * rows:(i + 1) * rows]).sum())
+        what = (f"{n_shards} slabs of {rows} rows ({tile_cfg.sample_order}) "
+                f"traced alone: {diff} values differ")
+        check(diff == 0, f"run F {label}: slabs differ")
+    dev_ms, busy, dev_launches = _device_busy(sr.render, ms)
+    print(f"[run F] {label}: {ms:.1f} ms per frame of {cfg.samples_per_frame}"
+          f" spp ({cfg.width}x{cfg.height}, terrain n={n}), "
+          f"{sum(launches.values())} launches ({launches}), dropped "
+          f"{sr.dropped}, image mean {float(img.mean()):.6f}; against {what};"
+          f" profiled frame {dev_ms:.1f} ms of kernel time in {dev_launches} "
+          f"device launches, busy share {busy:.3f} [{smi_line()}]")
+    return ms, busy
+
+
+def _sharded_card_vs_cpu():
+    """tests/test_torch_shard.py's small frames, both modes, on the card
+    (8 shards of the card) and on the CPU (8 of the CPU), per pixel."""
+    import numpy as np
+    import torch
+
+    from cuda_raytracer_tpu_torch import rng
+    from cuda_raytracer_tpu_torch.config import RenderConfig
+    from cuda_raytracer_tpu_torch.models.cornell import cornell_box_scene
+    from cuda_raytracer_tpu_torch.parallel import shard
+    from cuda_raytracer_tpu_torch.render.flatscene import flatten_scene
+
+    cam = (np.array([0.0, 0.75, 2.5], np.float32), np.eye(3, dtype=np.float32))
+    tan = (math.tan(math.radians(50.0) / 2), math.tan(math.radians(35.0) / 2))
+    for mode, over in (("samples", {}),
+                       ("tiles", dict(sample_order="tiles32s",
+                                      rng_granule=128))):
+        cfg = RenderConfig(**SMALL_SHARDED, shard_mode=mode, **over)
+        imgs = []
+        for dev in (DEVICE, "cpu"):
+            scene, _ = flatten_scene(cornell_box_scene(with_spheres=True),
+                                     device=dev)
+            imgs.append(shard.render_frame_sharded(
+                [torch.device(dev)] * 8, scene, cfg, cam, rng.PRNGKey(7),
+                *tan).cpu().numpy())
+        a, b = imgs
+        bad = ~np.isclose(a, b, rtol=PIXEL_RTOL, atol=PIXEL_ATOL).all(-1)
+        print(f"[run F] cpu-vs-cuda, sharded {mode} ({cfg.sample_order}), "
+              f"8 shards, 32x16: {int(bad.sum())} of {bad.shape[0] * bad.shape[1]}"
+              f" pixels outside rtol={PIXEL_RTOL} atol={PIXEL_ATOL}; max "
+              f"|diff| {float(np.abs(a - b).max()):.3g}")
+        check(float(bad.mean()) <= MAX_BAD,
+              f"run F: sharded {mode} frames differ on the card and the CPU")
+
+
+def _cli_chips(small_n):
+    """render_cli --chips past the visible cards exits naming how many
+    there are; --chips 1 renders with the WavefrontRenderer."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cuda_raytracer_tpu_torch.apps import render_cli
+    from cuda_raytracer_tpu_torch.utils.image import load_png
+
+    visible = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "run_c.dae")
+        with open(path, "w") as f:
+            f.write(run_c_document(small_n))
+        png = os.path.join(tmp, "out.png")
+        args = [path, "-w", png, "-s", "2", "--size", "64x32", "-m", "4",
+                "--preset", "fast"]
+        try:
+            render_cli.main(args + ["--chips", str(visible + 1)])
+            msg = ""
+        except SystemExit as e:
+            msg = str(e)
+        print(f"[run F] render_cli --chips {visible + 1}: {msg}")
+        check(f"only {visible} device" in msg,
+              "render_cli --chips past the visible cards did not exit")
+        # _cli_run keeps the WavefrontRenderer the CLI makes (and fails
+        # if it made none)
+        r, bench = _cli_run(args + ["--chips", "1", "--bench"])
+        img = load_png(png)
+        check(r.dropped_sum == 0 and img.shape == (32, 64, 3)
+              and bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
+              "render_cli --chips 1 did not render")
+        print(f"[run F] render_cli --chips 1: {bench}")
+
+
+def _pinhole(w, h, pos, target):
+    """tests/test_pathtracer.py's camera: at pos, looking at target."""
+    import numpy as np
+
+    from cuda_raytracer_tpu_torch.scene.camera import Camera
+
+    cam = Camera()
+    cam.ar = w / h
+    cam.pos = np.array(pos, dtype=np.float64)
+    back = cam.pos - np.array(target, dtype=np.float64)
+    back /= np.linalg.norm(back)
+    right = np.cross(np.array([0.0, 1.0, 0.0]), back)
+    right /= np.linalg.norm(right)
+    up = np.cross(back, right)
+    cam.c2w = np.stack([right, up, back], axis=1)
+    return cam
+
+
+def _oracle(scene, size, ns_aa, threads, device, depth=3):
+    """A PathTracer's full render of ``scene`` at ``size`` (VIEW_A's
+    camera); returns (tracer, seconds)."""
+    from cuda_raytracer_tpu_torch.render.pathtracer import PathTracer
+
+    w, h = size
+    pt = PathTracer(ns_aa=ns_aa, max_ray_depth=depth, num_threads=threads,
+                    device=device)
+    pt.set_frame_size(w, h)
+    pt.set_camera(_pinhole(w, h, *VIEW_A))
+    pt.set_scene(scene)
+    pt.raytrace_pixel(0, 0)  # untimed: the first calls' library set-up
+    t0 = time.perf_counter()
+    pt.start_raytracing()
+    deadline = time.time() + 300
+    while not pt.is_done():
+        check(time.time() < deadline, "PathTracer render timed out")
+        time.sleep(0.005)
+    return pt, time.perf_counter() - t0
+
+
+def _oracle_close(a, b):
+    """Values of the two tracers' buffers outside the float64 tolerance,
+    and the largest difference."""
+    import numpy as np
+
+    off, worst = 0, 0.0
+    for name in ("sample_buffer", "se2_buffer"):
+        x, y = getattr(a, name), getattr(b, name)
+        off += int((~np.isclose(x, y, rtol=ORACLE_RTOL,
+                                atol=ORACLE_ATOL)).sum())
+        worst = max(worst, float(np.abs(x - y).max()))
+    return off, worst
+
+
+def _oracle_card_vs_cpu(size, ns_aa):
+    from cuda_raytracer_tpu_torch.models.cornell import cornell_box_scene
+
+    scene = cornell_box_scene(with_spheres=True)
+    card, s_card = _oracle(scene, size, ns_aa, 1, DEVICE)
+    cpu, s_cpu = _oracle(scene, size, ns_aa, 1, "cpu")
+    tiles = card.update_screen()[1]
+    off, worst = _oracle_close(card, cpu)
+    print(f"[run F] PathTracer, cornell {size[0]}x{size[1]}, ns_aa={ns_aa}, "
+          f"depth 3, 1 thread: {s_card * 1e3 / tiles:.1f} ms per tile on the "
+          f"card [{smi_line()}], {s_cpu * 1e3 / tiles:.1f} ms per tile on "
+          f"this machine's CPU ({tiles} tiles); {off} buffer values outside "
+          f"rtol={ORACLE_RTOL} atol={ORACLE_ATOL}, max |diff| {worst:.3g}")
+    check(off == 0, "PathTracer: card and CPU buffers differ")
+
+
+def _oracle_ztest(size, ns_aa):
+    """The card's engine against the card's oracle: tests/test_radiance.py's
+    per-pixel z statistic and bounds."""
+    import numpy as np
+
+    from cuda_raytracer_tpu_torch.config import RenderConfig
+    from cuda_raytracer_tpu_torch.models.cornell import cornell_box_scene
+    from cuda_raytracer_tpu_torch.render.engine import WavefrontRenderer
+
+    w, h = size
+    scene = cornell_box_scene(with_spheres=True)
+    pt, s_pt = _oracle(scene, size, ns_aa, 4, DEVICE)
+    r = WavefrontRenderer(RenderConfig(width=w, height=h,
+                                       samples_per_frame=ZTEST_SPF,
+                                       max_depth=3), device=DEVICE)
+    r.load_static_scene(scene)
+    r.set_viewpoint(*VIEW_A)
+    per_frame, prev = [], np.zeros((h, w, 3))
+    for k in range(1, ZTEST_FRAMES + 1):
+        r.render()
+        check(r.dropped == 0, "z-test engine frame dropped rays")
+        acc = r.get_raw_image().astype(np.float64)
+        per_frame.append(acc * k - prev * (k - 1))
+        prev = acc
+    per_frame = np.stack(per_frame)
+    eng_mean = per_frame.mean(axis=0)
+    eng_se2 = per_frame.var(axis=0, ddof=1) / ZTEST_FRAMES
+    z = (eng_mean - pt.sample_buffer) / np.sqrt(eng_se2 + pt.se2_buffer
+                                                + 1e-12)
+    stats = (float(np.abs(z).mean()), float((np.abs(z) > 4.0).mean()),
+             float(np.abs(z).max()),
+             abs(eng_mean.mean() - pt.sample_buffer.mean())
+             / pt.sample_buffer.mean())
+    print(f"[run F] z-test, the card's engine ({ZTEST_FRAMES} frames of "
+          f"{ZTEST_SPF} spp) against the card's PathTracer (ns_aa={ns_aa}, "
+          f"4 threads, {s_pt:.2f} s), cornell {w}x{h}, depth 3: mean |z| "
+          f"{stats[0]:.3f} (< {ZTEST_BOUNDS[0]}), beyond 4 sigma "
+          f"{stats[1]:.4f} (< {ZTEST_BOUNDS[1]}), max |z| {stats[2]:.2f} "
+          f"(< {ZTEST_BOUNDS[2]}), global mean off by {stats[3]:.4f} "
+          f"(< {ZTEST_BOUNDS[3]})")
+    check(all(s < b for s, b in zip(stats, ZTEST_BOUNDS)),
+          "z-test: the card's engine and oracle disagree")
+
+
+def _oracle_large_tile(n, ns_aa):
+    """One 32x32 tile of run C's document (terrain n) at ns_aa on the card
+    and on the CPU (the same generator): ms per tile, buffers compared."""
+    import tempfile
+
+    import numpy as np
+
+    from cuda_raytracer_tpu_torch.render.pathtracer import (
+        PathTracer,
+        WorkItem,
+    )
+    from cuda_raytracer_tpu_torch.scene.collada import load_scene_info
+    from cuda_raytracer_tpu_torch.scene.dynamic_scene import (
+        load_from_scene_info,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "run_c.dae")
+        with open(path, "w") as f:
+            f.write(run_c_document(n))
+        scene = load_from_scene_info(load_scene_info(path))[0]
+    scene = scene.get_static_scene()
+    item = WorkItem(WIDTH // 2 - 16, HEIGHT // 2 - 16, 32, 32)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        pt = PathTracer(ns_aa=ns_aa, max_ray_depth=3, num_threads=1,
+                        device=dev)
+        pt.set_frame_size(WIDTH, HEIGHT)
+        pt.set_camera(_pinhole(WIDTH, HEIGHT, *VIEW_A))
+        pt.set_scene(scene)
+        pt.raytrace_pixel(0, 0)  # untimed: the first calls' library set-up
+        t0 = time.perf_counter()
+        pt.raytrace_tile(item, np.random.default_rng(15618))
+        out[dev] = (pt, (time.perf_counter() - t0) * 1e3)
+    (card, ms_card), (cpu, ms_cpu) = out[DEVICE], out["cpu"]
+    off, worst = _oracle_close(card, cpu)
+    tile = card.sample_buffer[item.tile_y:item.tile_y + 32,
+                              item.tile_x:item.tile_x + 32]
+    print(f"[run F] PathTracer, run C's document ({card._flat['v0'].shape[0]}"
+          f" prims), one 32x32 tile at ns_aa={ns_aa}, depth 3: "
+          f"{ms_card:.1f} ms on the card [{smi_line()}], {ms_cpu:.1f} ms on "
+          f"this machine's CPU; tile mean {float(tile.mean()):.6f}; {off} "
+          f"buffer values outside rtol={ORACLE_RTOL} atol={ORACLE_ATOL}, "
+          f"max |diff| {worst:.3g}")
+    check(bool(np.isfinite(tile).all()) and float(tile.mean()) > 0.0,
+          "PathTracer: run C tile")
+    check(off == 0, "PathTracer: run C tile differs on the card and the CPU")
+
+
+def phase_run_f(n=121, small_n=8, spf=32, oracle_size=(64, 48),
+                big_ns=16):
+    """Run F (phase 8): sharded frames and the PathTracer oracle.  Run B's
+    terrain n through ShardedRenderer over 1 and 4 entries of the card
+    (``spf`` spp per frame), beside the WavefrontRenderer's frame; the
+    small sharded frames on the card and on the CPU; render_cli --chips;
+    the PathTracer on the card against the CPU, against the card's engine
+    (z-test), and on one tile of run C's document."""
+    from cuda_raytracer_tpu_torch.models.terrain import terrain_scene
+
+    base = run_slice("B terrain, beside the sharded frames",
+                     lambda: terrain_scene(n=n), 1, viewpoint=VIEW_B,
+                     samples_per_frame=spf)
+    dev_ms, busy, dev_launches = _device_busy(base["r"].render, base["ms"])
+    print(f"[run F] WavefrontRenderer: {base['ms']:.1f} ms per frame; "
+          f"profiled frame {dev_ms:.1f} ms of kernel time in {dev_launches} "
+          f"device launches, busy share {busy:.3f} [{smi_line()}]")
+    runs = {label: _drive_sharded(label, shards, mode, n, spf)
+            for label, shards, mode in RUN_F_MESHES}
+    print(f"[run F] ms per frame (terrain n={n}, {spf} spp): "
+          f"WavefrontRenderer {base['ms']:.1f}, "
+          + ", ".join(f"{label} {ms:.1f}" for label, (ms, _) in runs.items()))
+    _sharded_card_vs_cpu()
+    _cli_chips(small_n)
+    _oracle_card_vs_cpu(oracle_size, 16)
+    _oracle_ztest(oracle_size, 64)
+    _oracle_large_tile(n, big_ns)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "cuda_raytracer_tpu_torch")):
@@ -2237,6 +2624,7 @@ def main() -> int:
     phase_run_c()
     phase_run_d()
     part, part_launches, rows_e = phase_run_e()
+    phase_run_f()
     # the payload partition's row: its launches and times on the path that
     # runs it, whole-depth compaction (the shipped preset launches it 0
     # times)

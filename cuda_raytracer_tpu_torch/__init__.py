@@ -12,7 +12,12 @@ Layout:
   ops/       device ops: intersection, shading, film filters, and the
              packet-DFS traversal with its hand-written CUDA kernel
              (ops/csrc/packet_dfs.cu)
-  render/    flat device scene, traversal backends, bounce loop, engine
+  render/    flat device scene, traversal backends, bounce loop, engine,
+             and the PathTracer oracle (render/pathtracer.py: tile queue,
+             BVH visualize mode, a float64 brute-force integrator)
+  parallel/  multi-card rendering: a mesh of devices, sharded frames
+             (parallel/shard.py, ShardedRenderer)
+  apps/      CLI renderer, viewer, animation
   rng.py     threefry2x32, bit-exact with jax.random
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -6,7 +6,10 @@ environment map, ``-w`` output file, plus --size, --tree-width,
 --chips, --camera-mode, --reference-compat, --bench), with one flag
 added: ``--device`` (default ``cuda``), which is how the port's entry
 points let a caller ask for the CPU.  Without CUDA and without
-``--device cpu`` it exits with resolve_device's error.
+``--device cpu`` it exits with resolve_device's error.  ``--chips N``
+(N > 1) shards each frame over a mesh (parallel/shard.py): the GPUs
+cuda:0 .. cuda:N-1, or, with ``--device cpu``, N shards on the CPU; with
+fewer GPUs visible it exits naming how many there are.
 
 Usage:
     python -m cuda_raytracer_tpu_torch.apps.render_cli scene.dae \
@@ -32,8 +35,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-l", "--light-samples", type=int, default=1,
                    help="area light samples per vertex (main.cpp -l)")
     p.add_argument("-t", "--chips", type=int, default=1,
-                   help="number of GPUs to shard over (one until "
-                        "parallel/shard.py is ported)")
+                   help="number of devices to shard each frame over "
+                        "(parallel/shard.py)")
     p.add_argument("-m", "--max-depth", type=int, default=3,
                    help="path depth in vertices (main.cpp -m)")
     p.add_argument("-e", "--envmap", default=None,
@@ -74,12 +77,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     width, height = (int(x) for x in args.size.lower().split("x"))
-    if args.chips > 1:
-        raise SystemExit(
-            f"--chips {args.chips}: multi-GPU rendering is not ported yet "
-            f"(parallel/shard.py, ROADMAP queue 1 item 12); drop the flag"
-        )
-
     import numpy as np
 
     from ..config import RenderConfig, fast_preset_kwargs
@@ -116,7 +113,24 @@ def main(argv=None) -> int:
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"--device {args.device}: {e}") from e
-    r = WavefrontRenderer(cfg, camera_mode=args.camera_mode, device=device)
+    if args.chips > 1:
+        import torch
+
+        from ..parallel.shard import ShardedRenderer
+
+        if device.type == "cuda":
+            visible = torch.cuda.device_count()
+            if visible < args.chips:
+                raise SystemExit(
+                    f"--chips {args.chips}: only {visible} device(s) "
+                    f"visible; drop the flag or render on fewer chips")
+            mesh = [torch.device("cuda", i) for i in range(args.chips)]
+        else:
+            mesh = [device] * args.chips
+        r = ShardedRenderer(cfg, mesh, camera_mode=args.camera_mode)
+    else:
+        r = WavefrontRenderer(cfg, camera_mode=args.camera_mode,
+                              device=device)
     t0 = time.perf_counter()
     r.load_scene(args.scene)
     t_load = time.perf_counter() - t0

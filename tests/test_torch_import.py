@@ -17,6 +17,7 @@ from cuda_raytracer_tpu_torch.models.cornell import cornell_box_scene
 from cuda_raytracer_tpu_torch.ops import packet_dfs
 from cuda_raytracer_tpu_torch.render import flatscene
 from cuda_raytracer_tpu_torch.render.engine import WavefrontRenderer
+from cuda_raytracer_tpu_torch.render.pathtracer import PathTracer
 from cuda_raytracer_tpu_torch.scene import dynamic_scene
 
 PKG_DIR = os.path.dirname(cuda_raytracer_tpu_torch.__file__)
@@ -40,7 +41,8 @@ def test_modules_import_without_jax():
                  "geometry.meshedit", "utils.image", "ops.traverse",
                  "native.build", "scene.session", "scene.skeleton",
                  "scene.widgets", "apps.viewer", "apps.timeline",
-                 "apps.animate", "utils.timing"):
+                 "apps.animate", "utils.timing", "parallel.shard",
+                 "render.pathtracer"):
         assert f"cuda_raytracer_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -81,6 +83,8 @@ def test_entry_points_need_a_device(monkeypatch):
         WavefrontRenderer()
     with pytest.raises(RuntimeError, match="CUDA"):
         InteractiveViewer()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PathTracer()
     with pytest.raises(RuntimeError, match="CUDA"):
         raytrace_video(dynamic_scene.Scene([], []), None, 1)
     with pytest.raises(RuntimeError, match="CUDA"):

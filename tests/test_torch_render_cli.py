@@ -134,9 +134,21 @@ def test_bench_keys_match_jax_cli(doc_path, tmp_path, monkeypatch, capsys):
 
 
 def test_cli_refuses(doc_path, tmp_path, monkeypatch):
-    """--chips > 1 and a missing GPU exit with an error; no fallback."""
+    """--chips N shards over N devices: on the CPU it renders; with fewer
+    GPUs visible, or with a missing GPU, it exits with an error (no
+    fallback); the cutracer camera is refused by sharded frames."""
     out = str(tmp_path / "o.png")
-    with pytest.raises(SystemExit, match="queue 1 item 12"):
+    assert render_cli.main([doc_path, "-w", out, "--device", "cpu", "-s",
+                            "2", "--size", "8x8", "--chips", "2"]) == 0
+    img = image.load_png(out)
+    assert img.shape == (8, 8, 3) and img.mean() > 0.0
+    with pytest.raises(ValueError, match="cutracer"):
+        render_cli.main([doc_path, "-w", out, "--device", "cpu", "-s", "2",
+                         "--size", "8x8", "--chips", "2", "--camera-mode",
+                         "cutracer"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="only 1 device"):
         render_cli.main([doc_path, "-w", out, "--chips", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
