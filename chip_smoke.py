@@ -104,7 +104,21 @@ prints one JSON line for the kernels and, last, the device line.  Phases:
    (Cornell box 64x48, ns_aa=16, buffers within rtol 1e-9 / atol
    1e-12), against the card's engine by tests/test_radiance.py's z-test
    (ns_aa=64, 4 worker threads), and one 32x32 tile of run C's document
-   at ns_aa=16, timed on the card and on this machine's CPU.
+   at ns_aa=16, timed on the card and on this machine's CPU;
+9. the wavefront's dyn_alloc form (no count: pack places each tile's
+   survivors for a child as one run at a bump cursor, and the next level
+   reads through the runs sorted by segment): what ptxas says of pack's
+   four instantiations, then on run B's 15,360,000 camera rays (all
+   live, six levels) and its warm-up frame's depth-2 closest-hit and
+   shadow traces (compacted) the whole trace with dyn_alloc=True,
+   fused_counts=True and fused_counts=False (t and prim bit-equal across
+   the three, dropped 0, no count launched under dyn_alloc, device
+   launches and times in turns), and the form's pack kernel against its
+   plain version level by level (keys bit-equal, written counts equal to
+   each other and to count_plain's, the run table tiling the positions
+   handed out, the next queue equal as a set per segment; kernel, plain,
+   the next level's table and the bound timed); the box_bf16 and seeded
+   forms once each on the camera trace.
 
 Needs one CUDA card; exits non-zero (and prints no result) without one,
 or when run outside a checkout of the repository.  Imports nothing of
@@ -227,16 +241,18 @@ COUNTERS = {
     "wf2_count_bf16": ("wavefront2", "count_bf16_launches"),
     "wf2_pack": ("wavefront2", "pack_launches"),
     "wf2_pack_bf16": ("wavefront2", "pack_bf16_launches"),
+    "wf2_pack_dyn": ("wavefront2", "pack_dyn_launches"),
+    "wf2_pack_dyn_bf16": ("wavefront2", "pack_dyn_bf16_launches"),
     "wf2_decode": ("wavefront2", "decode_launches"),
 }
 #: leaf prims a pack block stages in shared memory (WF_STAGE_PRIMS of
 #: ops/csrc/wavefront2.cu); a segment with more reads them from global
 WF_STAGE_PRIMS = 128
 #: kernels and forms the shipped preset does not launch: the partition's
-#: payload form (whole-depth compaction) and the bf16 forms (slab_bf16);
-#: phase 7 drives each of them
+#: payload form (whole-depth compaction) and the bf16 forms (slab_bf16),
+#: which phase 7 drives, and pack's dyn_alloc forms, which phase 9 drives
 OFF_PATH = ("partition", "packet_dfs_bf16", "wf2_count_bf16",
-            "wf2_pack_bf16")
+            "wf2_pack_bf16", "wf2_pack_dyn", "wf2_pack_dyn_bf16")
 
 
 def _ops_module(name):
@@ -724,6 +740,38 @@ def _check_plan(where, plan, counts, lv, cap):
     return int(lost)
 
 
+def _level0(rays, seed=None):
+    """The level-0 queue of a captured trace as the main path makes it:
+    the live lanes (the partition kernel's ray form), or with ``seed`` =
+    (seed_t, seed_prim) every lane with its seeded bound and key.
+    Returns (queue, seg_base, tile_base, keys)."""
+    import torch
+
+    from cuda_raytracer_tpu_torch.ops import partition
+    from cuda_raytracer_tpu_torch.ops import wavefront2 as wf
+
+    n = rays[0].shape[0]
+    keys = torch.full((n,), wf.KEY_MISS, dtype=torch.int64, device=DEVICE)
+    if seed is None:
+        queue, n_live = partition.partition_rays_cuda(
+            *(None if x is None else x.contiguous() for x in rays))
+    else:
+        from cuda_raytracer_tpu_torch.ops.seeds import seeded_bound
+
+        o, d, valid, t_limit = rays
+        seed_t, seed_prim = seed
+        queue = wf.make_payload(o, d, valid,
+                                seeded_bound(seed_t, t_limit, 1e-3))
+        n_live = torch.tensor(n, dtype=torch.int32, device=DEVICE)
+        hit = (seed_t < wf.T_NO_LIMIT) & valid & (seed_prim >= 0)
+        keys = torch.where(hit, wf.hit_keys(seed_t, seed_prim), keys)
+    zero = torch.zeros_like(n_live)
+    seg_base = torch.stack([zero, n_live]).reshape(2)
+    tile_base = torch.stack([zero, torch.div(
+        n_live + wf.TILE - 1, wf.TILE, rounding_mode="floor")]).reshape(2)
+    return queue, seg_base, tile_base, keys
+
+
 def measure_wavefront(label, scene, rays, bf16=False, seed=None):
     """The count and pack kernels against their plain versions, level by
     level, on one captured trace (compacted, as the main path runs it,
@@ -744,7 +792,6 @@ def measure_wavefront(label, scene, rays, bf16=False, seed=None):
     row, the sums and the final keys."""
     import torch
 
-    from cuda_raytracer_tpu_torch.ops import partition
     from cuda_raytracer_tpu_torch.ops import wavefront2 as wf
 
     bvh = scene.bvh
@@ -755,24 +802,7 @@ def measure_wavefront(label, scene, rays, bf16=False, seed=None):
     do_kill = rays[3] is not None
     n = rays[0].shape[0]
     cap = wf.queue_capacity(n + (-n) % wf.CHUNK, 2, bvh.wf_sched)
-    keys = torch.full((n,), wf.KEY_MISS, dtype=torch.int64, device=DEVICE)
-    if seed is None:
-        queue, n_live = partition.partition_rays_cuda(
-            *(None if x is None else x.contiguous() for x in rays))
-    else:
-        from cuda_raytracer_tpu_torch.ops.seeds import seeded_bound
-
-        o, d, valid, t_limit = rays
-        seed_t, seed_prim = seed
-        queue = wf.make_payload(o, d, valid,
-                                seeded_bound(seed_t, t_limit, 1e-3))
-        n_live = torch.tensor(n, dtype=torch.int32, device=DEVICE)
-        hit = (seed_t < wf.T_NO_LIMIT) & valid & (seed_prim >= 0)
-        keys = torch.where(hit, wf.hit_keys(seed_t, seed_prim), keys)
-    zero = torch.zeros_like(n_live)
-    seg_base = torch.stack([zero, n_live]).reshape(2)
-    tile_base = torch.stack([zero, torch.div(
-        n_live + wf.TILE - 1, wf.TILE, rounding_mode="floor")]).reshape(2)
+    queue, seg_base, tile_base, keys = _level0(rays, seed)
 
     def zeros(*shape, dtype=torch.int32):
         return torch.zeros(shape, dtype=dtype, device=DEVICE)
@@ -2606,6 +2636,325 @@ def phase_run_f(n=121, small_n=8, spf=32, oracle_size=(64, 48),
     _oracle_large_tile(n, big_ns)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the wavefront's dyn_alloc form
+# ---------------------------------------------------------------------------
+
+#: pack's instantiations by their template arguments <BF16, DYN>, as
+#: ptxas names them
+PACK_FORMS = {"ILb0ELb0E": "f32", "ILb1ELb0E": "box_bf16",
+              "ILb0ELb1E": "dyn_alloc", "ILb1ELb1E": "dyn_alloc box_bf16"}
+
+
+def _dense_order(queue, seg_base, read):
+    """A level's entries in dense order (seg_base's): through its read
+    table, for a level a dyn_alloc pack wrote, or as they lie."""
+    from cuda_raytracer_tpu_torch.ops import wavefront2 as wf
+
+    total = int(seg_base[-1])
+    if read is None:
+        return queue[:total]
+    return queue[wf.queue_positions(read, 0, total)]
+
+
+def _check_runs(where, runs, cap):
+    """A run table as the kernel left it: within its capacity, each run
+    one to TILE entries, the runs covering [0, entries handed out) once,
+    inside the queue's capacity.  Returns the runs."""
+    import torch
+
+    from cuda_raytracer_tpu_torch.ops import wavefront2 as wf
+
+    k, handed = int(runs.cursor[1]), int(runs.cursor[0])
+    check(k <= runs.table.shape[1], f"{where}: {k} runs past the table's "
+          f"{runs.table.shape[1]}")
+    if k == 0:
+        check(handed == 0, f"{where}: entries without runs")
+        return 0
+    start, length = runs.table[1, :k].long(), runs.table[2, :k].long()
+    order = torch.argsort(start)
+    ends = (start + length)[order]
+    ok = (int(length.min()) >= 1 and int(length.max()) <= wf.TILE
+          and int(start[order][0]) == 0
+          and bool((start[order][1:] == ends[:-1]).all())
+          and int(ends[-1]) == handed <= cap)
+    check(ok, f"{where}: the runs do not tile the positions handed out")
+    return k
+
+
+def measure_dyn(label, scene, rays, bf16=False, seed=None, qm=2):
+    """The dyn_alloc form of the pack kernel against its plain version,
+    level by level, on one captured trace (its level-0 queue as
+    ``_level0`` makes it).  Both read the kernel's previous level (its
+    queue and read table).  At each level: the hit keys equal to the
+    bit; the written counts per child slot equal between the two and
+    equal to count_plain of the level's queue (the counts the shipped
+    layout plans from); dropped 0; the run table as ``_check_runs``
+    wants it; the next level (``dyn_next_level``: seg_base equal) read
+    in dense order equal as a set of entries per segment.  Each level's
+    kernel is timed, and the glue that makes the next level's read
+    table.  The bound: the shipped pack's bytes and operations (the
+    form counts nothing for the next level), plus 8 B per run of the
+    read table, 12 B per run written and the written counts.  Returns
+    every row, the row of the inner level with the most entries, the
+    sums and the final keys.  ``qm``: the queue_multiplier that sizes
+    the queues."""
+    import torch
+
+    from cuda_raytracer_tpu_torch.ops import wavefront2 as wf
+
+    bvh = scene.bvh
+    W = bvh.width
+    node_rows, prim_rows = bvh.wf_node_rows, scene.wf_prim_rows
+    row_bytes = node_rows.shape[1] * 4
+    do_kill = rays[3] is not None
+    n = rays[0].shape[0]
+    cap = wf.queue_capacity(n + (-n) % wf.CHUNK, qm, bvh.wf_sched)
+    queue, seg_base, tile_base, keys = _level0(rays, seed)
+
+    def zeros(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=DEVICE)
+
+    read, bound, runs_in = None, n, 0
+    rows, best = [], None
+    sums = dict(pack_ms=0.0, pack_plain=0.0, pack_bound=0.0, glue_ms=0.0)
+    for lvl, lv in enumerate(bvh.wf_levels):
+        last = not lv.has_inner
+        total, tiles = int(seg_base[-1]), int(tile_base[-1])
+        tables = (_nbytes(seg_base, tile_base, lv.seg_node, lv.child, lv.pair)
+                  + lv.num_segs * row_bytes)
+        leaf = torch.where(lv.child[:, 0] == 2, lv.child[:, 2], 0)
+        row = dict(level=lvl, entries=total, idle=tiles * wf.TILE - total)
+
+        def fresh():
+            return (None if last else
+                    wf.dyn_workspace((lv,), W, bound, cap, DEVICE)[0],
+                    torch.empty((1 if last else cap, 8), dtype=torch.float32,
+                                device=DEVICE),
+                    zeros(dtype=torch.int64), keys.clone())
+
+        def pack(runs, out, drop, k):
+            wf.pack_cuda(queue, seg_base, tile_base, lv, lv.pair, None,
+                         node_rows, prim_rows, W, do_kill, 1e-3, out, k, drop,
+                         bound, bf16=bf16, dyn=wf.Dyn(read, runs))
+
+        (runs_k, out_k, drop_k, keys_k), (runs_p, out_p, drop_p, keys_p) = \
+            fresh(), fresh()
+        pack(runs_k, out_k, drop_k, keys_k)
+        pstats = {}
+        _, row["pack_plain_ms"] = _host_ms(lambda: wf.pack_plain(
+            queue, seg_base, lv, lv.pair, None, node_rows, prim_rows, W,
+            do_kill, 1e-3, out_p, keys_p, drop_p, stats=pstats, bf16=bf16,
+            dyn=wf.Dyn(read, runs_p)))
+        key_bad = int((keys_k != keys_p).sum())
+        tk, _ = wf.decode_plain(keys_k)
+        tp, _ = wf.decode_plain(keys_p)
+        hit = torch.isfinite(tp)
+        row["pack_err"] = (float((tk - tp)[hit].abs().max())
+                           if bool(hit.any()) else 0.0)
+        written_bad = q_bad = runs_out = 0
+        if not last:
+            counts = wf.count_plain(_dense_order(queue, seg_base, read),
+                                    seg_base, lv, node_rows, W, bf16=bf16)
+            written_bad = (int((runs_k.written != runs_p.written).sum())
+                           + int((runs_k.written != counts).sum()))
+            runs_out = _check_runs(f"pack (dyn_alloc), {label} level {lvl}",
+                                   runs_k, cap)
+            nxt_k = wf.dyn_next_level(runs_k, lv)
+            nxt_p = wf.dyn_next_level(runs_p, lv)
+            check(torch.equal(nxt_k[0], nxt_p[0]),
+                  f"pack (dyn_alloc), {label} level {lvl}: next seg_base "
+                  f"differs from the plain version's")
+            t_next = int(nxt_k[0][-1])
+            a = _sorted_regions(_dense_order(out_k, nxt_k[0], nxt_k[2]),
+                                nxt_k[0], t_next)
+            b = _sorted_regions(_dense_order(out_p, nxt_p[0], nxt_p[2]),
+                                nxt_p[0], t_next)
+            q_bad = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+        check(key_bad == 0 and written_bad == 0 and q_bad == 0,
+              f"pack (dyn_alloc), {label} level {lvl}: kernel disagrees with "
+              f"its plain version ({key_bad} keys, {written_bad} written "
+              f"counts, {q_bad} queue words)")
+        check(int(drop_k) == 0 and int(drop_p) == 0,
+              f"pack (dyn_alloc), {label} level {lvl}: dropped")
+
+        runs_t, out_t, drop_t, keys_t = fresh()
+
+        def prep():
+            if runs_t is not None:
+                for x in runs_t:
+                    x.zero_()
+
+        row["pack_ms"] = cuda_time_ms(
+            lambda: pack(runs_t, out_t, drop_t, keys_t), 5, prep=prep)
+        row["glue_ms"] = 0.0 if last else cuda_time_ms(
+            lambda: wf.dyn_next_level(runs_k, lv), 5)
+        flops, bf16_ops = box_ops(pstats.get("boxes", 0), total, bf16)
+        row["pack_bound"] = _bound(
+            total * 32 + tables + int(leaf.sum()) * 64
+            + pstats.get("survivors", 0) * 32 + pstats.get("hits", 0) * 8
+            + runs_in * 8 + runs_out * 12
+            + (0 if last else _nbytes(runs_k.written, runs_k.cursor)),
+            flops + pstats.get("tris", 0) * TRI_FLOPS
+            + pstats.get("spheres", 0) * SPH_FLOPS, bf16_ops)
+        print(f"[dyn_alloc] {label}, level {lvl}: {lv.num_segs} segments, "
+              f"{total} entries in {tiles} tiles ({row['idle']} idle lanes), "
+              f"read through {runs_in} runs -> "
+              f"{pstats.get('survivors', 0)} entries in {runs_out} runs; pack "
+              f"{row['pack_ms']:.4f} ms (plain {row['pack_plain_ms']:.1f} ms, "
+              f"bound {row['pack_bound']['bound_ms']:.5f} ms by "
+              f"{row['pack_bound']['bound_by']}), next level's table "
+              f"{row['glue_ms']:.4f} ms; keys, written counts and next queue "
+              f"equal; work {pstats}")
+        sums["pack_ms"] += row["pack_ms"]
+        sums["pack_plain"] += row["pack_plain_ms"]
+        sums["pack_bound"] += row["pack_bound"]["bound_ms"]
+        sums["glue_ms"] += row["glue_ms"]
+        rows.append(row)
+        if best is None or (lv.has_inner and total > best["entries"]):
+            best = row
+        keys = keys_k
+        if last:
+            break
+        queue, bound, runs_in = out_k, cap, runs_out
+        seg_base, tile_base, read = nxt_k
+    print(f"[dyn_alloc] {label}: all levels: pack {sums['pack_ms']:.4f} ms "
+          f"(bound {sums['pack_bound']:.5f} ms), the tables between levels "
+          f"{sums['glue_ms']:.4f} ms, plain {sums['pack_plain']:.1f} ms")
+    return dict(rows=rows, best=best, sums=sums, keys=keys)
+
+
+def _three_layouts(label, scene, rays, compact=True, **kw):
+    """The whole trace with dyn_alloc=True, fused_counts=True (the
+    default) and fused_counts=False on the same rays: t and prim equal to
+    the bit across the three, and (unseeded) t and hit/miss equal to the
+    packet-DFS kernel's (compare_traces' bar), dropped 0, the dyn_alloc
+    trace's kernel launches (no count; one pack of its form per level
+    visited, one partition when compacting, one decode), each layout's
+    device launches (torch.profiler: kernels and glue) and times, in
+    turns.  ``kw`` goes to the trace (queue_multiplier, box_bf16,
+    seeds)."""
+    import torch
+
+    from cuda_raytracer_tpu_torch.ops import packet_dfs
+    from cuda_raytracer_tpu_torch.ops import wavefront2 as wf
+
+    o, d, valid, t_limit = rays
+    layouts = {"dyn_alloc": dict(dyn_alloc=True), "fused": {},
+               "sweep": dict(fused_counts=False)}
+
+    def trace(name):
+        return wf.trace_closest_wavefront(scene, o, d, valid, t_limit,
+                                          compact=compact, **layouts[name],
+                                          **kw)
+
+    res, launches = {}, {}
+    for name in layouts:
+        reset_launches()
+        res[name] = trace(name)
+        torch.cuda.synchronize()
+        launches[name] = read_launches()
+    dropped = {name: int(r.dropped) for name, r in res.items()}
+    check(not any(dropped.values()), f"{label}: dropped {dropped}")
+    if "seed_t" not in kw:  # a seed's t may differ from the kernels' by ulps
+        dfs = packet_dfs.trace_closest_packets(scene, o, d, valid, t_limit)
+        off = {name: int((r.t.view(torch.int32)
+                          != dfs.t.view(torch.int32)).sum())
+               + int(((r.prim < 0) != (dfs.prim < 0)).sum())
+               for name, r in res.items()}
+        print(f"[dyn_alloc] {label}: words of t and hit/miss off "
+              f"packet-DFS's: {off}")
+        check(not any(off.values()), f"{label}: a layout disagrees with "
+              f"packet-DFS: {off}")
+    a = res["dyn_alloc"]
+    for name in ("fused", "sweep"):
+        b = res[name]
+        bad = (int((a.t.view(torch.int32) != b.t.view(torch.int32)).sum())
+               + int((a.prim != b.prim).sum()))
+        check(bad == 0, f"{label}: the dyn_alloc trace differs from the "
+              f"{name} layout's in {bad} words")
+    inner = [lv.has_inner for lv in scene.bvh.wf_levels]
+    want = dict.fromkeys(COUNTERS, 0)
+    bf = "_bf16" if kw.get("box_bf16") else ""
+    want["wf2_pack_dyn" + bf] = (inner.index(False) + 1 if False in inner
+                                 else len(inner))
+    want["wf2_decode"] = 1
+    want["partition_rays"] = int(compact)
+    check(launches["dyn_alloc"] == want, f"{label}: dyn_alloc launches "
+          f"{launches['dyn_alloc']} != {want}")
+    device = {name: _device_busy(lambda: trace(name), 1.0)[2]
+              for name in layouts}
+    ms = {name: [] for name in layouts}
+    for name in ("dyn_alloc", "fused", "sweep", "sweep", "fused",
+                 "dyn_alloc"):
+        ms[name].append(cuda_time_ms(lambda: trace(name), 5))
+    n_live = int(valid.sum())
+    print(f"[dyn_alloc] {label}: whole trace ({o.shape[0]} lanes, {n_live} "
+          f"live, {'compacted' if compact else 'every lane queued'}"
+          + "".join(f", {k}" if k.startswith("seed") else f", {k}={v}"
+                    for k, v in kw.items())
+          + "), ms in turns: "
+          + "; ".join(f"{name} {', '.join(f'{x:.4f}' for x in ms[name])}"
+                      for name in layouts)
+          + "; device launches " + ", ".join(f"{name} {device[name]}"
+                                              for name in layouts)
+          + f"; kernel launches {launches}; t and prim equal across the "
+          f"three, dropped 0 [{smi_line()}]")
+    return dict(ms=ms, launches=launches, device=device)
+
+
+def phase_dyn_alloc(n=121):
+    """Phase 9: pack's dyn_alloc form on run B's terrain n at full size:
+    the camera trace (all lanes live) and the warm-up frame's depth-2
+    closest-hit and shadow traces (compacted), each through the three
+    layouts (``_three_layouts``) and level by level against the plain
+    version (``measure_dyn``); the box_bf16 and seeded forms once each on
+    the camera trace.  Returns the kernels JSON row of the form."""
+    from cuda_raytracer_tpu_torch.models.terrain import terrain_scene
+    from cuda_raytracer_tpu_torch.ops import _build
+    from cuda_raytracer_tpu_torch.ops.seeds import seed_hits
+
+    for line in _build.ptxas_report("wavefront2"):
+        form = next((v for k, v in PACK_FORMS.items()
+                     if "wf_pack_kernel" + k in line), None)
+        if form is not None:
+            print(f"[dyn_alloc] ptxas, pack ({form}): {line.split(': ', 1)[1]}")
+    run_b = run_slice("B terrain, for dyn_alloc", lambda: terrain_scene(n=n),
+                      1, viewpoint=VIEW_B)
+    scene = run_b["r"].scene
+    cam = run_b["dfs"][True]
+    sets = (("run B depth-2 closest-hit trace", run_b["wf"][True]),
+            ("run B depth-2 shadow trace", run_b["wf"][False]),
+            ("run B camera trace", cam))
+    got = {}
+    for label, rays in sets:
+        _three_layouts(label, scene, rays)
+        got[label] = measure_dyn(label, scene, rays)
+    # box_bf16 admits more entries: at queue_multiplier=2 the camera
+    # trace's level 4 overflows its queue (every layout drops)
+    _three_layouts("run B camera trace", scene, cam, box_bf16=True,
+                   queue_multiplier=4)
+    bf = measure_dyn("run B camera trace, box_bf16", scene, cam, bf16=True,
+                     qm=4)
+    sd = seed_hits(scene, *cam[:3])
+    _three_layouts("run B camera trace", scene, cam, compact=False,
+                   seed_t=sd.t, seed_prim=sd.prim)
+    seeded = measure_dyn("run B camera trace, seeded", scene, cam,
+                         seed=(sd.t, sd.prim))
+    check(bool((bf["keys"] == got["run B camera trace"]["keys"]).all()),
+          "run B camera trace: the box_bf16 dyn_alloc keys differ from the "
+          "f32 ones")
+    pk = got["run B depth-2 closest-hit trace"]["best"]
+    err = max(max(r["pack_err"] for r in x["rows"])
+              for x in (*got.values(), bf, seeded))
+    return kernel_row(
+        "wf2_pack_dyn", "wavefront2.cu",
+        "wavefront2.py:444 (_pack_kernel, dyn_alloc)",
+        run_b["launches"]["wf2_pack_dyn"],
+        dict(ms=pk["pack_ms"], plain_ms=pk["pack_plain_ms"],
+             **pk["pack_bound"]), err)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "cuda_raytracer_tpu_torch")):
@@ -2625,6 +2974,7 @@ def main() -> int:
     phase_run_d()
     part, part_launches, rows_e = phase_run_e()
     phase_run_f()
+    row_dyn = phase_dyn_alloc()
     # the payload partition's row: its launches and times on the path that
     # runs it, whole-depth compaction (the shipped preset launches it 0
     # times)
@@ -2636,6 +2986,7 @@ def main() -> int:
                      max_abs_err=part["max_abs_err"],
                      library_ms=part["library_ms"])
     kernels += rows_e
+    kernels.append(row_dyn)
     print(f"[total] {time.perf_counter() - t_start:.1f} s from the start of "
           f"main, imports of torch and the port included")
 

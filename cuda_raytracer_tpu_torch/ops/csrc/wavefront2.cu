@@ -53,6 +53,19 @@
 //   seeds (ops/seeds.py) need nothing here: the wrapper starts an entry's
 //     bound and its ray's key from the seed, and pack records only hits
 //     strictly better than an entry's bound.
+//   dyn_alloc (the TPU source's dyn_alloc mode of _pack_kernel, a separate
+//     instantiation of pack; see DynArgs): no count and no plan.  The
+//     survivors of one tile for one inner child are one run, placed at one
+//     global bump cursor with one atomicAdd per block, tile and child, and
+//     tagged with its next segment in a run table; the entries written per
+//     child slot become the next level's segment counts.  The wrapper sorts
+//     the run table by tag (a torch op, as the TPU source's argsort of its
+//     chunk tags is XLA glue), and the next level reads its entries in
+//     segment order through that table.  The cursor hands out no position
+//     at or past the queue's capacity: what does not fit is lost and added
+//     to dropped, so a level's written + dropped is what count gives for
+//     the same queue (which entries are lost depends on the order in which
+//     blocks run).
 //
 // What bounds each on the H100, and what the design does about it.  Count
 // and pack read 32 B per entry; pack writes 32 B per survivor and 8 B per
@@ -84,6 +97,8 @@
 // it: an entry's computation reads its own fields only, and hits merge by
 // a min over (t bits, ~prim).  Built with -fmad=false, no fast math:
 // rounds as the plain PyTorch versions.
+
+#include <climits>
 
 #include "rt_common.cuh"
 
@@ -149,6 +164,27 @@ struct PackArgs {
   const int4* child_next;
   int out_rows, do_kill;
   float kill_eps;
+};
+
+// What the dyn_alloc form of pack reads and writes beside PackArgs (whose
+// route is then the schedule's pair and whose cursor is unused).  Reading
+// (virt non-null): the level's entries in dense order (seg_base, tile_base
+// made from the written counts) lie in runs of the queue; the n_in runs,
+// sorted by segment, start at dense position virt[j] and queue position
+// phys[j] (runs past the used ones have virt = the level's total).  virt
+// null: the queue is dense itself (level 0).  Writing (runs non-null):
+// runs [3, cap_runs] gets each run's next segment, first position and
+// length in the order the runs are handed out, written [S*W] the entries
+// written per child slot, cursor[0] the entries and cursor[1] the runs
+// handed out (all zeroed by the caller).
+struct DynArgs {
+  const int* virt;
+  const int* phys;
+  int n_in;
+  int* runs;
+  int* written;
+  unsigned long long* cursor;
+  int cap_runs;
 };
 
 // _box_terms of the TPU source: slab test of one child box.  Shared by
@@ -432,9 +468,46 @@ wf_count_kernel(const LevelArgs L, const PlanArgs plan) {
   plan_if_last(plan);
 }
 
-template <bool BF16>
+// dyn_alloc reading: the last run of the table that starts at or before
+// dense position v (virt[0] = 0 <= v)
+__device__ __forceinline__ int first_run(const DynArgs& D, int v) {
+  int lo = 0, hi = D.n_in - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (D.virt[mid] <= v) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+// dyn_alloc writing: n survivors of child slot `slot` bound for next
+// segment `seg` take positions at the bump cursor as one run.  Returns the
+// run's first position, or out_rows when none of it is written; what does
+// not fit the queue (or the run table) is added to dropped.
+__device__ __forceinline__ int alloc_run(const DynArgs& D, const PackArgs& P,
+                                         int seg, int slot, int n) {
+  if (n == 0) return P.out_rows;
+  const unsigned long long cap = (unsigned long long)P.out_rows;
+  const unsigned long long at = atomicAdd(&D.cursor[0], (unsigned long long)n);
+  int fit = at >= cap ? 0 : (int)min((unsigned long long)n, cap - at);
+  if (fit) {
+    const unsigned long long j = atomicAdd(&D.cursor[1], 1ull);
+    if (j < (unsigned long long)D.cap_runs) {
+      D.runs[j] = seg;
+      D.runs[(size_t)D.cap_runs + j] = (int)at;
+      D.runs[2 * (size_t)D.cap_runs + j] = fit;
+      atomicAdd(&D.written[slot], fit);
+    } else {
+      fit = 0;  // never, while cap_runs bounds the level's runs
+    }
+  }
+  if (n > fit) atomicAdd(P.dropped, (unsigned long long)(n - fit));
+  return fit ? (int)at : P.out_rows;
+}
+
+template <bool BF16, bool DYN>
 __global__ void __launch_bounds__(WF_TILE)
-wf_pack_kernel(const LevelArgs L, const PackArgs P, const PlanArgs plan) {
+wf_pack_kernel(const LevelArgs L, const PackArgs P, const PlanArgs plan,
+               const DynArgs D) {
   __shared__ __align__(16) float s_row[4 * WF_ROW_F4];
   __shared__ __align__(16) float s_crow[WF_MAX_W][4 * WF_ROW_F4];
   __shared__ __align__(16) float4 s_prim[4 * WF_STAGE_PRIMS];
@@ -447,17 +520,48 @@ wf_pack_kernel(const LevelArgs L, const PackArgs P, const PlanArgs plan) {
   __shared__ int s_wcnt[WF_MAX_W][WF_WARPS];
   __shared__ int s_gc[WF_MAX_W * WF_MAX_W];
   __shared__ int s_tile[4];
+  // dyn_alloc reading: the table rows from the tile's first run on (a tile
+  // spans at most WF_TILE runs, each of one entry or more), the tile's
+  // first run and the next tile's
+  __shared__ int s_virt[DYN ? WF_TILE + 1 : 1], s_phys[DYN ? WF_TILE + 1 : 1];
+  __shared__ int s_run[2];
   const int W = L.W, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const bool fuse = plan.ticket != nullptr;
+  const bool fuse = !DYN && plan.ticket != nullptr;
+  const bool dense = !DYN || D.virt == nullptr;
   const int row_f4 = (7 * W + 3) / 4;
   if (tid < WF_MAX_W * WF_MAX_W) s_gc[tid] = 0;
   int t0, t1;
   block_tiles(L, &t0, &t1);
   TileWalk walk{-1};
   for (int t = t0; t < t1; ++t) {
-    if (tid == 0) walk.locate(L, t, s_tile);
+    if (tid == 0) {
+      walk.locate(L, t, s_tile);
+      if (!dense) s_run[0] = t == t0 ? first_run(D, s_tile[1]) : s_run[1];
+    }
     __syncthreads();
     const int s = s_tile[0], i = s_tile[1] + tid;
+    int src = i;  // the entry's position in the queue
+    if constexpr (DYN) {
+      if (!dense) {
+        for (int k = tid; k <= WF_TILE; k += WF_TILE) {
+          const int j = s_run[0] + k;
+          s_virt[k] = j < D.n_in ? D.virt[j] : INT_MAX;
+          s_phys[k] = j < D.n_in ? D.phys[j] : 0;
+        }
+        __syncthreads();
+        if (i < s_tile[2]) {
+          int lo = 0, hi = WF_TILE - 1;  // the last run starting <= i
+          while (lo < hi) {
+            const int mid = (lo + hi + 1) >> 1;
+            if (s_virt[mid] <= i) lo = mid; else hi = mid - 1;
+          }
+          src = s_phys[lo] + (i - s_virt[lo]);
+          // the next tile starts at s_tile[2]: in this run, or the next
+          if (i == s_tile[2] - 1)
+            s_run[1] = s_run[0] + lo + (s_virt[lo + 1] <= s_tile[2]);
+        }
+      }
+    }
     if (s_tile[3]) {
       if (fuse && t > t0) {  // the previous segment run's next counts
         flush_counts(plan.counts, s_gc, s_route, W);
@@ -519,8 +623,8 @@ wf_pack_kernel(const LevelArgs L, const PackArgs P, const PlanArgs plan) {
     }
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
     if (i < s_tile[2]) {
-      a = L.queue[2 * (size_t)i];
-      b = L.queue[2 * (size_t)i + 1];
+      a = L.queue[2 * (size_t)src];
+      b = L.queue[2 * (size_t)src + 1];
     } else {
       b.w = -1.0f;
     }
@@ -603,7 +707,11 @@ wf_pack_kernel(const LevelArgs L, const PackArgs P, const PlanArgs plan) {
         s_wcnt[tid][k] = tot;
         tot += v;
       }
-      const int base = tot ? atomicAdd(&P.cursor[s_route[tid]], tot) : 0;
+      int base;
+      if constexpr (DYN)
+        base = alloc_run(D, P, s_route[tid], s * W + tid, tot);
+      else
+        base = tot ? atomicAdd(&P.cursor[s_route[tid]], tot) : 0;
       for (int k = 0; k < WF_WARPS; ++k) s_wcnt[tid][k] += base;
     }
     __syncthreads();
@@ -617,7 +725,7 @@ wf_pack_kernel(const LevelArgs L, const PackArgs P, const PlanArgs plan) {
       if (fits) {
         P.queue_out[2 * (size_t)pos] = a;
         P.queue_out[2 * (size_t)pos + 1] = make_float4(b.x, b.y, b.z, tub_out);
-      } else {
+      } else if (!DYN) {
         atomicAdd(P.dropped, 1ull);  // never, while the plan fits the queue
       }
       if (!fuse) continue;
@@ -693,17 +801,33 @@ extern "C" int wf2_count(const LevelArgs* L, const PlanArgs* plan, int bound,
   return (int)cudaGetLastError();
 }
 
-// plan->ticket null: the launch does not count for the next level
+template <bool BF16, bool DYN>
+static void launch_pack(int grid, void* stream, const LevelArgs& L,
+                        const PackArgs& P, const PlanArgs& plan,
+                        const DynArgs& D) {
+  wf_pack_kernel<BF16, DYN><<<grid, WF_TILE, 0, (cudaStream_t)stream>>>(
+      L, P, plan, D);
+}
+
+// plan->ticket null: the launch does not count for the next level; dyn
+// null: the shipped form, else the dyn_alloc form (which counts nothing)
 extern "C" int wf2_pack(const LevelArgs* L, const PackArgs* P,
-                        const PlanArgs* plan, int bound, void* stream) {
+                        const PlanArgs* plan, const DynArgs* dyn, int bound,
+                        void* stream) {
   if (!level_ok(*L)) return (int)cudaErrorInvalidValue;
+  if (dyn && (plan->ticket != nullptr || (dyn->virt && dyn->n_in < 1) ||
+              (dyn->runs && dyn->cap_runs < 1)))
+    return (int)cudaErrorInvalidValue;
   const int grid = grid_for(tile_bound(*L, bound));
-  if (L->box_bf16)
-    wf_pack_kernel<true><<<grid, WF_TILE, 0, (cudaStream_t)stream>>>(*L, *P,
-                                                                     *plan);
+  const DynArgs D = dyn ? *dyn : DynArgs{};
+  if (dyn && L->box_bf16)
+    launch_pack<true, true>(grid, stream, *L, *P, *plan, D);
+  else if (dyn)
+    launch_pack<false, true>(grid, stream, *L, *P, *plan, D);
+  else if (L->box_bf16)
+    launch_pack<true, false>(grid, stream, *L, *P, *plan, D);
   else
-    wf_pack_kernel<false><<<grid, WF_TILE, 0, (cudaStream_t)stream>>>(*L, *P,
-                                                                      *plan);
+    launch_pack<false, false>(grid, stream, *L, *P, *plan, D);
   return (int)cudaGetLastError();
 }
 

@@ -60,8 +60,27 @@ in an order that may differ from run to run on the card (atomic
 cursors); results do not depend on it.  Capacity keeps its meaning: a
 level's queue holds at most ``queue_capacity`` entries, a segment whose
 cumulative demand does not fit loses its entries, and they are counted
-in ``dropped``.  Not carried over: ``dyn_alloc`` (no config reaches
-it) and the ``debug_*`` switches (timing diagnostics).
+in ``dropped``.
+
+``dyn_alloc`` (the JAX parameter; off by default, no config reaches it
+in either package) replaces count and plan by allocation inside pack
+(``Dyn``): the survivors of one tile for one inner child are one *run*
+of the next queue, placed at one bump cursor and tagged with its next
+segment in a run table (``Runs``), and the entries written per child
+slot become the next level's segment counts.  ``dyn_next_level`` sorts
+the run table by tag (stable, as the JAX package's argsort of its chunk
+tags) into the next level's ``ReadTable``, through which its pack reads
+its entries in segment order.  With nothing dropped the trace equals
+the shipped one to the bit.  Its drops follow another rule: the cursor
+hands out no position at or past ``queue_capacity``, and what does not
+fit is lost and counted, run by run in allocation order (tiles, then
+child slots, in queue order in the plain version; in the order the
+blocks run on the card).  So at the first level that drops, written +
+dropped is what count gives for that level's queue; which entries are
+lost is not the shipped rule's (whole segments from the first that does
+not fit) nor the JAX package's (whole chunks, sticky per child).  Not
+carried over: the ``debug_*`` switches (timing diagnostics that give
+wrong results by design; the port has no hit log to merge).
 """
 
 from __future__ import annotations
@@ -102,6 +121,9 @@ pack_launches = 0
 decode_launches = 0
 count_bf16_launches = 0
 pack_bf16_launches = 0
+#: launches of pack's dyn_alloc form, f32 and box_bf16
+pack_dyn_launches = 0
+pack_dyn_bf16_launches = 0
 
 _lib = None
 
@@ -172,6 +194,39 @@ class Fused(NamedTuple):
     ticket: torch.Tensor
 
 
+class Runs(NamedTuple):
+    """What a dyn_alloc pack writes beside the next queue, all zeroed
+    by the caller: ``table`` [3, R] int32, per run in the order the runs
+    were handed out its next segment, its first position in the queue
+    and its length; ``written`` [S*W] int32, the entries written per
+    child slot; ``cursor`` [2] int64, the entries and the runs handed
+    out."""
+
+    table: torch.Tensor
+    written: torch.Tensor
+    cursor: torch.Tensor
+
+
+class ReadTable(NamedTuple):
+    """How a level that a dyn_alloc pack wrote is read: its runs sorted
+    by segment, ``virt`` [R] int32 the position in the level's dense
+    order (``seg_base``) of each run's first entry, ``phys`` [R] int32
+    its position in the queue; the unused slots last, at the level's
+    total."""
+
+    virt: torch.Tensor
+    phys: torch.Tensor
+
+
+class Dyn(NamedTuple):
+    """A pack in the dyn_alloc form: ``read``, the level's ReadTable
+    (None: the queue is dense, level 0), and ``runs``, where the next
+    level goes (None: the level routes nothing)."""
+
+    read: Optional[ReadTable]
+    runs: Optional[Runs]
+
+
 def queue_capacity(n_padded: int, queue_multiplier, sched) -> int:
     """Entries a level's queue may hold: the JAX package's
     ``cap_chunks * CHUNK`` from the ray count padded to CHUNK."""
@@ -211,6 +266,11 @@ class _PackArgs(ctypes.Structure):
                 ("kill_eps", ctypes.c_float)]
 
 
+class _DynArgs(ctypes.Structure):
+    _fields_ = [("virt", _P), ("phys", _P), ("n_in", _I), ("runs", _P),
+                ("written", _P), ("cursor", _P), ("cap_runs", _I)]
+
+
 def _load_library():
     global _lib
     if _lib is None:
@@ -220,7 +280,7 @@ def _load_library():
         lib.wf2_tile.restype = _I
         lib.wf2_count.argtypes = [ref, ref, _I, _P]
         lib.wf2_count.restype = _I
-        lib.wf2_pack.argtypes = [ref, ref, ref, _I, _P]
+        lib.wf2_pack.argtypes = [ref, ref, ref, ref, _I, _P]
         lib.wf2_pack.restype = _I
         lib.wf2_decode.argtypes = [_P, _I, _I, _P, _P, _P]
         lib.wf2_decode.restype = _I
@@ -480,31 +540,70 @@ def count_level(queue, seg_base, tile_base, lv: LevelTables, node_rows,
 
 
 def _check_pack(queue, seg_base, lv, route, cursor, node_rows, prim_rows,
-                width, queue_out, keys, dropped, tile_base=None):
+                width, queue_out, keys, dropped, tile_base=None, dyn=None):
     _check_level(queue, seg_base, lv, node_rows, width, tile_base)
     _check(
         width, queue.device,
         route=(route, torch.int32, (lv.num_segs * width,)),
-        cursor=(cursor, torch.int32, (max(lv.num_next, 1),)),
         prim_rows=(prim_rows, torch.float32, (prim_rows.shape[0], 16)),
         queue_out=(queue_out, torch.float32, (queue_out.shape[0], ROWS)),
         keys=(keys, torch.int64, (keys.shape[0],)),
         dropped=(dropped, torch.int64, ()),
     )
+    if dyn is None:
+        _check(width, queue.device,
+               cursor=(cursor, torch.int32, (max(lv.num_next, 1),)))
+        return
+    if dyn.read is not None:
+        n = dyn.read.virt.shape[0]
+        _check(width, queue.device,
+               virt=(dyn.read.virt, torch.int32, (n,)),
+               phys=(dyn.read.phys, torch.int32, (n,)))
+        if n < 1:
+            raise ValueError("empty read table")
+    if dyn.runs is not None:
+        table, written, cursor = dyn.runs
+        _check(width, queue.device,
+               runs=(table, torch.int32, (3, max(table.shape[1], 1))),
+               written=(written, torch.int32, (lv.num_segs * width,)),
+               run_cursor=(cursor, torch.int64, (2,)))
+        if queue_out.shape[0] + TILE >= 1 << 31:
+            raise ValueError("queue too long for int32 positions")
+    elif lv.has_inner:
+        raise ValueError("a level with inner children needs dyn.runs")
+
+
+def _dyn_args(dyn: Dyn) -> _DynArgs:
+    a = _DynArgs()
+    if dyn.read is not None:
+        a.virt, a.phys = dyn.read.virt.data_ptr(), dyn.read.phys.data_ptr()
+        a.n_in = dyn.read.virt.shape[0]
+    if dyn.runs is not None:
+        table, written, cursor = dyn.runs
+        a.runs, a.written = table.data_ptr(), written.data_ptr()
+        a.cursor, a.cap_runs = cursor.data_ptr(), table.shape[1]
+    return a
 
 
 def pack_cuda(queue, seg_base, tile_base, lv: LevelTables, route, cursor,
               node_rows, prim_rows, width: int, do_kill: bool,
               kill_eps: float, queue_out, keys, dropped, bound: int,
-              fused: Optional[Fused] = None, bf16: bool = False):
+              fused: Optional[Fused] = None, bf16: bool = False,
+              dyn: Optional[Dyn] = None):
     """Launch the pack kernel on the current stream.  Updates
     ``queue_out``, ``cursor``, ``keys`` and ``dropped`` in place; with
     ``fused``, also counts for the next level into ``fused.counts`` and
-    its last block fills ``fused.plan``.  ``bf16``: the box_bf16 test."""
+    its last block fills ``fused.plan``.  ``bf16``: the box_bf16 test.
+    ``dyn``: the dyn_alloc form (``route`` the level's ``pair``,
+    ``cursor`` unused, no ``fused``): reads through ``dyn.read``, writes
+    runs into ``dyn.runs``."""
     global pack_launches, pack_bf16_launches
+    global pack_dyn_launches, pack_dyn_bf16_launches
     _check_pack(queue, seg_base, lv, route, cursor, node_rows, prim_rows,
-                width, queue_out, keys, dropped, tile_base)
+                width, queue_out, keys, dropped, tile_base, dyn)
     _not_cuda("pack_cuda", queue)
+    if dyn is not None and fused is not None:
+        raise ValueError("the dyn_alloc form counts nothing: no fused")
     pa = _PlanArgs()  # no ticket: the launch counts nothing
     seg_node_next = child_next = 0
     if fused is not None:
@@ -519,15 +618,21 @@ def pack_cuda(queue, seg_base, tile_base, lv: LevelTables, route, cursor,
     lib = _load_library()
     bound = min(int(bound), queue.shape[0])
     la = _level_args(queue, seg_base, tile_base, lv, node_rows, width, bf16)
-    pk = _PackArgs(route.data_ptr(), cursor.data_ptr(), prim_rows.data_ptr(),
+    cursor_p = 0 if cursor is None else cursor.data_ptr()  # dyn: unused
+    pk = _PackArgs(route.data_ptr(), cursor_p, prim_rows.data_ptr(),
                    queue_out.data_ptr(), keys.data_ptr(), dropped.data_ptr(),
                    seg_node_next, child_next, queue_out.shape[0],
                    int(do_kill), float(kill_eps))
+    da = None if dyn is None else ctypes.byref(_dyn_args(dyn))
     err = lib.wf2_pack(ctypes.byref(la), ctypes.byref(pk), ctypes.byref(pa),
-                       bound, _stream(queue))
+                       da, bound, _stream(queue))
     if err != 0:
         raise RuntimeError(f"pack kernel launch failed: cuda error {err}")
-    if bf16:
+    if dyn is not None and bf16:
+        pack_dyn_bf16_launches += 1
+    elif dyn is not None:
+        pack_dyn_launches += 1
+    elif bf16:
         pack_bf16_launches += 1
     else:
         pack_launches += 1
@@ -543,33 +648,40 @@ def pack_plain(queue, seg_base, lv: LevelTables, route, cursor, node_rows,
                prim_rows, width: int, do_kill: bool, kill_eps: float,
                queue_out, keys, dropped, bound: int = 0, stats: dict = None,
                chunk: int = 1 << 18, counts_next=None,
-               lv_next: LevelTables = None, bf16: bool = False):
+               lv_next: LevelTables = None, bf16: bool = False,
+               dyn: Optional[Dyn] = None):
     """The pack kernel's function in plain torch ops (any device; reads
     the level's total on the host).  Updates ``queue_out``, ``cursor``,
     ``keys`` and ``dropped`` in place like the kernel; survivors land in
     their regions in queue order.  With ``counts_next`` (and the next
     level's tables ``lv_next``), adds to it the next level's counts of
     the survivors written: each against its child's inner children,
-    under the bound it carries out.  ``stats``, if given, gets the work
-    this data needs: ``entries``, ``boxes`` (non-empty child boxes of
-    live entries), ``tris``/``spheres`` (prim tests by type), ``hits``
-    (key updates), ``survivors`` (entries written) and ``fused_boxes``
-    (the fused count's box tests).  ``bf16``: the box_bf16 test."""
+    under the bound it carries out.  With ``dyn``, the dyn_alloc form
+    (see ``pack_cuda``): the level read through ``dyn.read``, and the
+    survivors placed as runs into ``dyn.runs`` (``_place_runs``).
+    ``stats``, if given, gets the work this data needs: ``entries``,
+    ``boxes`` (non-empty child boxes of live entries), ``tris``/
+    ``spheres`` (prim tests by type), ``hits`` (key updates),
+    ``survivors`` (entries written), ``fused_boxes`` (the fused count's
+    box tests) and, in the dyn_alloc form, ``runs`` (runs written).
+    ``bf16``: the box_bf16 test."""
     del bound
     _check_pack(queue, seg_base, lv, route, cursor, node_rows, prim_rows,
-                width, queue_out, keys, dropped)
+                width, queue_out, keys, dropped, dyn=dyn)
     W = width
     dev = queue.device
     total = int(seg_base[-1])
     child = lv.child.view(-1, W, 4)
     route2 = route.view(-1, W)
-    rid_all = queue.view(torch.int32)[:, 6]
+    read = None if dyn is None else dyn.read
+    tile_base = None if dyn is None else tile_prefix(seg_base).long()
     inf = float("inf")
-    src, dst_seg, new_tub = [], [], []
+    src, dst_seg, new_tub, akey = [], [], [], []
     for lo in range(0, total, chunk):
         hi = min(lo + chunk, total)
-        q = queue[lo:hi]
         seg = _segments(seg_base, lo, hi)
+        at = None if read is None else queue_positions(read, lo, hi)
+        q = queue[lo:hi] if at is None else queue[at]
         rows = node_rows[lv.seg_node[seg].long()]
         o, d = q[:, 0:3], q[:, 3:6]
         tub0 = q[:, 7]
@@ -614,8 +726,8 @@ def pack_plain(queue, seg_base, lv: LevelTables, route, cursor, node_rows,
         hit = p_run >= 0
         _count(stats, "hits", hit.sum())
         keys.scatter_reduce_(
-            0, rid_all[lo:hi][hit].long(), hit_keys(tub[hit], p_run[hit]),
-            "amin",
+            0, q.view(torch.int32)[:, 6][hit].long(),
+            hit_keys(tub[hit], p_run[hit]), "amin",
         )
         if do_kill:
             tub = torch.where(hit & (tub < tub0 - kill_eps), -1.0, tub)
@@ -625,10 +737,21 @@ def pack_plain(queue, seg_base, lv: LevelTables, route, cursor, node_rows,
                 & live[:, None] & (outlet >= 0.0) & (kind == 1))
         r = route2[seg]
         e, w = (m_in & (r >= 0)).nonzero(as_tuple=True)
-        src.append(e + lo)
+        src.append(e + lo if at is None else at[e])
         dst_seg.append(r[e, w].long())
         new_tub.append(tub[e])
+        if dyn is not None:  # allocation order: tile, child slot, entry
+            s_e = seg[e].long()
+            tile = tile_base[s_e] + torch.div(
+                e + lo - seg_base[s_e].long(), TILE, rounding_mode="floor")
+            akey.append(tile * W + w)
 
+    if dyn is not None:
+        if dyn.runs is not None and src:
+            _place_runs(queue, *(torch.cat(x) for x in (src, dst_seg,
+                                                        new_tub, akey)),
+                        lv, dyn.runs, queue_out, dropped, stats)
+        return
     if src:
         src, dst_seg, new_tub = (torch.cat(x) for x in (src, dst_seg, new_tub))
         order = torch.argsort(dst_seg, stable=True)
@@ -657,24 +780,83 @@ def pack_plain(queue, seg_base, lv: LevelTables, route, cursor, node_rows,
                    (kind_next & (out[:, 7] >= 0.0)[:, None]).sum())
 
 
+def queue_positions(read: ReadTable, lo: int, hi: int):
+    """The queue positions (int64) of a level's dense positions [lo, hi),
+    through its read table: the last run starting at or before each."""
+    pos = torch.arange(lo, hi, dtype=torch.int32, device=read.virt.device)
+    j = torch.searchsorted(read.virt, pos, right=True) - 1
+    return read.phys[j].long() + (pos - read.virt[j]).long()
+
+
+def _place_runs(queue, src, dst_seg, new_tub, akey, lv: LevelTables,
+                runs: Runs, queue_out, dropped, stats):
+    """The dyn_alloc form's placement (``alloc_run`` of the kernel) in
+    plain torch ops: the survivors (queue position ``src``, next segment
+    ``dst_seg``, bound out ``new_tub``) grouped into runs by ``akey``
+    (tile * W + child slot), taken in that order, each run's entries in
+    queue order.  A run takes the next positions of the entry cursor;
+    the part that fits the queue is written, and the run, if any of it
+    is, takes the next slot of the run table (past the table: lost).
+    The rest is added to ``dropped``."""
+    table, written, cursor = runs
+    dev = queue.device
+    n = akey.numel()
+    if n == 0:
+        return
+    order = torch.argsort(akey, stable=True)
+    k = akey[order]
+    head = torch.ones(n, dtype=torch.bool, device=dev)
+    head[1:] = k[1:] != k[:-1]
+    run = torch.cumsum(head, 0) - 1
+    first = head.nonzero()[:, 0]  # each run's first survivor, sorted
+    length = torch.diff(torch.cat([first, first.new_full((1,), n)]))
+    at = cursor[0] + torch.cumsum(length, 0) - length
+    fit = torch.minimum(torch.clamp_min(queue_out.shape[0] - at, 0), length)
+    taken = fit > 0
+    slot = cursor[1] + torch.cumsum(taken, 0) - 1
+    ok = taken & (slot < table.shape[1])
+    fit = torch.where(ok, fit, 0)
+    rank = torch.arange(n, device=dev) - first[run]
+    write = rank < fit[run]
+    rows = queue[src[order]]
+    rows[:, 7] = new_tub[order]
+    queue_out[(at[run] + rank)[write]] = rows[write]
+    seg = dst_seg[order][first]
+    j = slot[ok]
+    table[0, j] = seg[ok].to(torch.int32)
+    table[1, j] = at[ok].to(torch.int32)
+    table[2, j] = fit[ok].to(torch.int32)
+    written.index_add_(0, lv.parent[seg[ok]].long(), fit[ok].to(torch.int32))
+    dropped += (length - fit).sum()
+    cursor[0] += n
+    cursor[1] += taken.sum()
+    _count(stats, "survivors", write.sum())
+    _count(stats, "runs", ok.sum())
+
+
 def pack_level(queue, seg_base, tile_base, lv: LevelTables, route, cursor,
                node_rows, prim_rows, width: int, do_kill: bool,
                kill_eps: float, queue_out, keys, dropped, bound: int,
-               fused: Optional[Fused] = None, bf16: bool = False):
+               fused: Optional[Fused] = None, bf16: bool = False,
+               dyn: Optional[Dyn] = None):
     """Leaf intersection, hit keys, shadow kill and survivor routing of
     one level, in place on ``queue_out``, ``cursor``, ``keys`` and
-    ``dropped``; with ``fused``, the next level's counts and plan too.
-    CUDA tensors go through the kernel (or raise); CPU tensors through
-    the plain versions."""
+    ``dropped``; with ``fused``, the next level's counts and plan too;
+    with ``dyn``, the dyn_alloc form (``pack_cuda``).  CUDA tensors go
+    through the kernel (or raise); CPU tensors through the plain
+    versions."""
     if queue.device.type == "cuda":
         return pack_cuda(queue, seg_base, tile_base, lv, route, cursor,
                          node_rows, prim_rows, width, do_kill, kill_eps,
-                         queue_out, keys, dropped, bound, fused, bf16)
+                         queue_out, keys, dropped, bound, fused, bf16, dyn)
     if queue.device.type == "cpu":
+        if dyn is not None and fused is not None:
+            raise ValueError("the dyn_alloc form counts nothing: no fused")
         pack_plain(queue, seg_base, lv, route, cursor, node_rows, prim_rows,
                    width, do_kill, kill_eps, queue_out, keys, dropped,
                    counts_next=None if fused is None else fused.counts,
-                   lv_next=None if fused is None else fused.lv, bf16=bf16)
+                   lv_next=None if fused is None else fused.lv, bf16=bf16,
+                   dyn=dyn)
         if fused is not None:
             plan_plain(fused.counts, fused.lv, fused.cap, fused.plan,
                        dropped)
@@ -797,6 +979,59 @@ def workspace(levels, width: int, device) -> Workspace:
                                             device=device))
 
 
+def run_capacity(bound: int, lv: LevelTables, width: int, cap: int) -> int:
+    """Slots of the run table a dyn_alloc pack of ``lv`` needs: one run
+    per tile and child slot, tiles as the kernels bound them
+    (ceil(bound / TILE) + S for a level of at most ``bound`` entries),
+    and no more runs than the ``cap`` entries they are written to."""
+    tiles = -(-int(bound) // TILE) + lv.num_segs
+    return max(1, min(tiles * width, int(cap)))
+
+
+def dyn_workspace(levels, width: int, bound: int, cap: int,
+                  device) -> dict:
+    """The ``Runs`` of every level a dyn_alloc trace routes from, in
+    one zeroed allocation: level 0's run table sized from ``bound`` (its
+    queue's entries), the others' from ``cap``."""
+    sizes = []
+    for L, lv in enumerate(levels):
+        if not lv.has_inner:
+            break
+        sizes.append((L, run_capacity(bound if L == 0 else cap, lv, width,
+                                      cap), lv.num_segs * width))
+    k = len(sizes)
+    buf = torch.zeros((4 * k + sum(3 * r + sw for _, r, sw in sizes),),
+                      dtype=torch.int32, device=device)
+    cursors = buf[:4 * k].view(torch.int64).view(k, 2)
+    out, at = {}, 4 * k
+    for i, (L, r, sw) in enumerate(sizes):
+        table = buf[at:at + 3 * r].view(3, r)
+        written = buf[at + 3 * r:at + 3 * r + sw]
+        out[L] = Runs(table, written, cursors[i])
+        at += 3 * r + sw
+    return out
+
+
+def dyn_next_level(runs: Runs, lv: LevelTables):
+    """The next level's layout from what a dyn_alloc pack of ``lv``
+    wrote, in torch ops on the runs' device (no host sync): (seg_base,
+    tile_base, ReadTable).  Its segment counts are the written counts by
+    ``parent``; its read table is the run table sorted by next segment
+    (stable: the JAX package's argsort of its chunk tags), the unused
+    slots last."""
+    table, written, cursor = runs
+    n = table.shape[1]
+    used = torch.arange(n, device=table.device) < cursor[1]
+    order = torch.argsort(torch.where(used, table[0], lv.num_next),
+                          stable=True)
+    length = table[2][order]  # 0 in the unused slots
+    virt = (torch.cumsum(length, 0) - length).to(torch.int32)
+    counts = written[lv.parent.long()].long()
+    seg_base = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]).to(
+        torch.int32)
+    return seg_base, tile_prefix(seg_base), ReadTable(virt, table[1][order])
+
+
 def trace_closest_wavefront(
     scene,
     o: torch.Tensor,
@@ -811,6 +1046,7 @@ def trace_closest_wavefront(
     box_bf16: bool = False,
     seed_t: torch.Tensor = None,
     seed_prim: torch.Tensor = None,
+    dyn_alloc: bool = False,
 ) -> WaveTraceResult:
     """Closest-hit / shadow traversal of N rays (o, d: [N, 3] f32;
     valid: [N] bool) by the wavefront level loop.
@@ -831,7 +1067,13 @@ def trace_closest_wavefront(
     level with inner children.  The result is the same to the bit.
     ``box_bf16`` runs the bf16 box tests (the same hits, more entries);
     ``seed_t`` / ``seed_prim`` (ops/seeds.py) seed the trace (see the
-    module's docstring).
+    module's docstring).  ``dyn_alloc=True`` (the JAX parameter) runs no
+    count at all: each pack places its survivors as runs at a bump
+    cursor and reports the entries written per child, and the next
+    level reads its entries through the runs sorted by segment
+    (``dyn_next_level``); ``fused_counts`` is then ignored.  With
+    ``dropped == 0`` the result is the same to the bit; on overflow the
+    entries past the capacity are lost run by run (module docstring).
     """
     bvh = scene.bvh
     if not bvh.wf_sched:
@@ -871,6 +1113,24 @@ def trace_closest_wavefront(
         tile_base[1:] = -(-n_in // TILE)
     dropped = torch.zeros((), dtype=torch.int64, device=dev)
     bound = n_in
+
+    if dyn_alloc:
+        runs = dyn_workspace(levels, W, bound, cap, dev)
+        read = None  # level 0's queue is dense
+        for L, lv in enumerate(levels):
+            last = not lv.has_inner  # leaves only: nothing is routed
+            queue_out = ws.queue if last else torch.empty(
+                (cap, ROWS), dtype=torch.float32, device=dev)
+            pack_level(queue, seg_base, tile_base, lv, lv.pair, None,
+                       node_rows, prim_rows, W, do_kill, kill_eps, queue_out,
+                       keys, dropped, bound, bf16=box_bf16,
+                       dyn=Dyn(read, runs.get(L)))
+            if last:
+                break
+            seg_base, tile_base, read = dyn_next_level(runs[L], lv)
+            queue, bound = queue_out, cap
+        t, prim = decode_keys(keys, want_prim)
+        return WaveTraceResult(t, prim, dropped)
 
     plan = None  # the regions of the next level, once a pack counted it
     for L, lv in enumerate(levels):
