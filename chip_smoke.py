@@ -118,7 +118,18 @@ prints one JSON line for the kernels and, last, the device line.  Phases:
    each other and to count_plain's, the run table tiling the positions
    handed out, the next queue equal as a set per segment; kernel, plain,
    the next level's table and the bound timed); the box_bf16 and seeded
-   forms once each on the camera trace.
+   forms once each on the camera trace;
+10. run G, render_cli's default preset (``--preset reference``: raster
+   order, a draw per ray, no roulette, ``traversal="auto"``, 2 spp per
+   pass) on run C's document at 800x600: 64 spp at tree width 4 and at
+   width 2, then 4 spp each under ``--hemisphere cosine``,
+   ``--reference-compat --camera-mode cutracer``, ``-l 2 -m 4`` and
+   ``--tree-width 8``: dropped == 0, the DFS launches the NEE schedule
+   gives (no other kernel), the PNG read back; the DFS kernel at tree
+   width 2 against its plain version on that run's camera and depth-0
+   shadow traces (hit/miss, prim and t bit-equal; kernel, plain and
+   bound times); and each setting on the card and on the CPU, per pixel,
+   on the document at terrain n=8 under max_leaf_size=4.
 
 Needs one CUDA card; exits non-zero (and prints no result) without one,
 or when run outside a checkout of the repository.  Imports nothing of
@@ -1393,11 +1404,12 @@ def run_c_reference(n):
     return st.Scene(objects, [light])
 
 
-def _cli_run(argv):
+def _cli_run(argv, tag="run C"):
     """render_cli.main(argv) in this process; returns (the renderer it
     made, its --bench JSON).  The renderer class is wrapped only to keep
     the instance, each frame's host time (render() waits for its frame)
-    and the dropped rays of every frame."""
+    and the dropped rays of every frame.  ``tag`` heads the lines it
+    prints."""
     import contextlib
     import io
 
@@ -1426,7 +1438,7 @@ def _cli_run(argv):
     finally:
         engine.WavefrontRenderer = base
     for line in out.getvalue().splitlines():
-        print(f"[run C] render_cli: {line}")
+        print(f"[{tag}] render_cli: {line}")
     check(rc == 0 and len(made) == 1, "render_cli did not render")
     return made[0], json.loads(out.getvalue().splitlines()[0])
 
@@ -2955,6 +2967,161 @@ def phase_dyn_alloc(n=121):
              **pk["pack_bound"]), err)
 
 
+#: run G: render_cli's default preset (no --preset) on run C's document,
+#: (label, flags, spp): the first two at 64 spp (32 passes of 2), the
+#: flags users turn at 4
+RUN_G = (
+    ("default", [], 64),
+    ("tree width 2", ["--tree-width", "2"], 64),
+    ("cosine", ["--hemisphere", "cosine"], 4),
+    ("compat, cutracer", ["--reference-compat", "--camera-mode",
+                          "cutracer"], 4),
+    ("-l 2 -m 4", ["-l", "2", "-m", "4"], 4),
+    ("tree width 8", ["--tree-width", "8"], 4),
+)
+
+
+def _cli_config(argv, **over):
+    """(RenderConfig, camera mode) that render_cli builds from ``argv``,
+    with ``over`` replaced."""
+    import dataclasses
+
+    from cuda_raytracer_tpu_torch.apps import render_cli
+
+    args = render_cli.build_parser().parse_args(argv)
+    cfg = dataclasses.replace(render_cli.render_config(args), **over)
+    return cfg, args.camera_mode
+
+
+def _run_g_cli(path, tmp, label, flags, spp, size):
+    """One run G setting through render_cli.main, counted; returns the
+    renderer, its launches, and the rays (o, d, valid, t_start) of its
+    first DFS camera trace (``True``) and first shadow trace
+    (``False``)."""
+    import numpy as np
+
+    from cuda_raytracer_tpu_torch.ops import packet_dfs
+    from cuda_raytracer_tpu_torch.utils.image import load_png
+
+    w, h = size
+    out = os.path.join(tmp, "run_g.png")
+    seen, launch = {}, packet_dfs.dfs_trace_cuda
+
+    def keep(*args):
+        seen.setdefault(args[3] is None, args[:4])
+        return launch(*args)
+
+    packet_dfs.dfs_trace_cuda = keep
+    reset_launches()
+    try:
+        r, bench = _cli_run([path, "-w", out, "-s", str(spp),
+                             "--size", f"{w}x{h}", "--bench",
+                             "--device", DEVICE, *flags],
+                            tag=f"run G {label}")
+    finally:
+        packet_dfs.dfs_trace_cuda = launch
+    launches = read_launches()
+    cfg, passes = r.config, len(r.frame_ms)
+    want = expected_launches(r, passes)
+    png = load_png(out)
+    mean = float(png.mean())
+    print(f"[run G] {label}: tree width {r.scene.bvh.width}, "
+          f"{r.scene.num_prims} prims, {r.scene.num_lights} light(s), NEE "
+          f"{cfg.nee_schedule[0]} x {cfg.max_depth} depths, "
+          f"{cfg.hemisphere_sampling} hemisphere, reference_compat "
+          f"{cfg.reference_compat}, {passes} passes of "
+          f"{cfg.samples_per_frame} spp, ms per pass first "
+          f"{r.frame_ms[0]:.1f}, median "
+          f"{float(np.median(r.frame_ms)):.1f}, last {r.frame_ms[-1]:.1f}; "
+          f"Mrays/s {bench['mrays_per_s']} over the render; load_s "
+          f"{bench['load_s']}; dropped {r.dropped_sum}; launches {launches} "
+          f"(want {want}); PNG {png.shape}, mean {mean:.6f}")
+    check((cfg.rng_granule, cfg.rr_start_depth, cfg.traversal,
+           cfg.sample_order) == (1, 0, "auto", "raster"),
+          f"run G {label}: not the reference preset")
+    check(r.dropped_sum == 0, f"run G {label}: dropped rays")
+    check(launches == want and launches["packet_dfs"] > 0,
+          f"run G {label}: kernel launches {launches} != the NEE "
+          f"schedule's {want}")
+    check(png.shape == (h, w, 3), f"run G {label}: PNG shape")
+    check(bool(np.isfinite(png).all()) and mean > RUN_C_PNG_FLOOR,
+          f"run G {label}: PNG mean {mean} at or below the floor")
+    return r, launches, seen
+
+
+def _run_g_card_vs_cpu(small):
+    """Each run G setting on the small document (max_leaf_size=4), 64x32,
+    2 passes of 2 spp, on the card and on the CPU, per pixel."""
+    import numpy as np
+
+    from cuda_raytracer_tpu_torch.render.engine import WavefrontRenderer
+
+    for label, flags, _ in RUN_G:
+        cfg, mode = _cli_config([small, "--size", "64x32", "-s", "4", *flags],
+                                max_leaf_size=4)
+        imgs = []
+        for dev in (DEVICE, "cpu"):
+            rr = WavefrontRenderer(cfg, camera_mode=mode, device=dev)
+            rr.load_scene(small)
+            for _ in range(2):
+                rr.render()
+                check(rr.dropped == 0, f"run G small {label}: dropped")
+            imgs.append(rr.get_raw_image())
+        a, b = imgs
+        bad = ~np.isclose(a, b, rtol=PIXEL_RTOL, atol=PIXEL_ATOL).all(-1)
+        print(f"[run G] card vs CPU, {label}, small document, max_leaf_size=4,"
+              f" tree width {rr.scene.bvh.width}, 64x32, 2 passes of 2 spp: "
+              f"{int(bad.sum())} of {a.shape[0] * a.shape[1]} pixels outside "
+              f"rtol={PIXEL_RTOL} atol={PIXEL_ATOL}; max |diff| "
+              f"{float(np.abs(a - b).max()):.3g}; image mean "
+              f"{float(a.mean()):.6f}")
+        check(float(a.mean()) > 0.0, f"run G small {label}: black image")
+        check(float(bad.mean()) <= MAX_BAD,
+              f"run G small {label}: card and CPU frames differ")
+
+
+def phase_run_g(n=121, size=(WIDTH, HEIGHT), small_n=8):
+    """Run G: render_cli's default preset on run C's document at full
+    width: per setting of RUN_G, dropped == 0, the DFS launches the NEE
+    schedule gives and the PNG read back; the DFS kernel at tree width 2
+    against its plain version on that run's camera and depth-0 shadow
+    traces (and at widths 4 and 8 on their runs' camera traces); and
+    each setting on the card and the CPU on the document at terrain
+    ``small_n``.  Returns the width-2 kernel's JSON row."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "run_c.dae")
+        with open(path, "w") as f:
+            f.write(run_c_document(n))
+        rows = {}
+        for label, flags, spp in RUN_G:
+            rows[label] = _run_g_cli(path, tmp, label, flags, spp, size)
+        r, launches, seen = rows["tree width 2"]
+        check(r.scene.bvh.width == 2 and set(seen) == {True, False},
+              "run G tree width 2: no width-2 DFS traces kept")
+        cam = measure_kernel("run G tree width 2, camera trace", r.scene,
+                             seen[True], False)
+        shadow = measure_kernel("run G tree width 2, depth-0 shadow trace",
+                                r.scene, seen[False], True)
+        # the same document's camera traces at widths 4 and 8, for the
+        # width-2 time beside them
+        for label in ("default", "tree width 8"):
+            rw, _, seen_w = rows[label]
+            measure_kernel(f"run G tree width {rw.scene.bvh.width}, camera "
+                           f"trace", rw.scene, seen_w[True], False)
+        small = os.path.join(tmp, "run_c_small.dae")
+        with open(small, "w") as f:
+            f.write(run_c_document(small_n))
+        _run_g_card_vs_cpu(small)
+    print(f"[run G] phase 10 took {time.perf_counter() - t0:.1f} s")
+    return kernel_row(
+        "packet_dfs_w2", "packet_dfs.cu", "packet_dfs.py:99 (tree width 2)",
+        launches["packet_dfs"], cam,
+        max(cam["max_abs_err"], shadow["max_abs_err"]))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "cuda_raytracer_tpu_torch")):
@@ -2975,6 +3142,7 @@ def main() -> int:
     part, part_launches, rows_e = phase_run_e()
     phase_run_f()
     row_dyn = phase_dyn_alloc()
+    row_w2 = phase_run_g()
     # the payload partition's row: its launches and times on the path that
     # runs it, whole-depth compaction (the shipped preset launches it 0
     # times)
@@ -2987,6 +3155,7 @@ def main() -> int:
                      library_ms=part["library_ms"])
     kernels += rows_e
     kernels.append(row_dyn)
+    kernels.append(row_w2)
     print(f"[total] {time.perf_counter() - t_start:.1f} s from the start of "
           f"main, imports of torch and the port included")
 

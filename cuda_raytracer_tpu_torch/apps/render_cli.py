@@ -74,16 +74,14 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    width, height = (int(x) for x in args.size.lower().split("x"))
-    import numpy as np
-
+def render_config(args):
+    """The RenderConfig of parsed CLI arguments: the reference preset's
+    fields (raster order, per-ray draws, no roulette, ``traversal``
+    "auto", an NEE schedule of (l, 1/l) per depth), or the fast
+    preset's over them."""
     from ..config import RenderConfig, fast_preset_kwargs
-    from ..device import resolve_device
-    from ..render.engine import WavefrontRenderer
-    from ..utils.image import save_png
 
+    width, height = (int(x) for x in args.size.lower().split("x"))
     schedule = tuple(
         (args.light_samples, 1.0 / args.light_samples)
         for _ in range(args.max_depth)
@@ -107,7 +105,19 @@ def main(argv=None) -> int:
         kw.update(fast)
     if args.spp_per_pass is not None:
         kw["samples_per_frame"] = min(args.spp_per_pass, args.spp)
-    cfg = RenderConfig(**kw)
+    return RenderConfig(**kw)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    import numpy as np
+
+    from ..device import resolve_device
+    from ..render.engine import WavefrontRenderer
+    from ..utils.image import save_png
+
+    cfg = render_config(args)
+    width, height = cfg.width, cfg.height
 
     try:
         device = resolve_device(args.device)

@@ -7,7 +7,9 @@ every traversal shares.  The CUDA kernel of ops/csrc/packet_dfs.cu runs
 ``packed_prim_test`` line for line (built with FMA contraction off), so
 the kernel and the plain version round alike.
 
-Every function broadcasts over leading batch dimensions.
+Every function broadcasts over leading batch dimensions.  Their square
+roots come from ``sqrt_rn``, which rounds as IEEE float32 ``sqrt`` on
+every host, so the plain versions are bit-equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -19,6 +21,29 @@ MISS = -1.0
 
 def _dot(a, b):
     return (a * b).sum(-1)
+
+
+def sqrt_rn(x):
+    """float32 square root, rounded to nearest as IEEE 754 asks.
+
+    On a CUDA tensor this is ``torch.sqrt`` (IEEE there: the kernels and
+    the plain versions both round so).  On the CPU torch's vectorized
+    ``sqrt`` is off by one ulp on some hosts (float64 too), so the root
+    is taken in float64, cut to float32 and corrected: a midpoint
+    between two neighbouring floats has 25 significant bits, so its
+    square is exact in float64 and ``x`` past it moves the root one
+    ulp.  No float32 ``x`` equals such a square, so there are no ties.
+    """
+    if x.is_cuda:
+        return torch.sqrt(x)
+    s = torch.sqrt(x.double()).float()
+    lo = torch.nextafter(s, torch.full_like(s, -float("inf")))
+    hi = torch.nextafter(s, torch.full_like(s, float("inf")))
+    xd, sd = x.double(), s.double()
+    mid_lo = (sd + lo.double()) * 0.5
+    mid_hi = (sd + hi.double()) * 0.5
+    s = torch.where((s > 0.0) & (xd < mid_lo * mid_lo), lo, s)
+    return torch.where(xd > mid_hi * mid_hi, hi, s)
 
 
 def intersect_bbox(o, d, bmin, bmax):
@@ -67,7 +92,7 @@ def intersect_sphere(o, d, center, radius):
     c = _dot(oc, oc) - radius * radius
     disc = b * b - 4.0 * a * c
     ok = disc >= 0
-    sq = torch.sqrt(torch.where(ok, disc, 0.0))
+    sq = sqrt_rn(torch.where(ok, disc, 0.0))
     t1 = (-b - sq) / (2.0 * a)
     t2 = (-b + sq) / (2.0 * a)
     t = torch.where(t1 > 0, t1, t2)
@@ -117,7 +142,7 @@ def packed_prim_test(
     b_q = 2.0 * (ocx * d_x + ocy * d_y + ocz * d_z)
     c_q = ocx * ocx + ocy * ocy + ocz * ocz - g_w * g_w
     disc = b_q * b_q - 4.0 * a_q * c_q
-    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    sq = sqrt_rn(torch.clamp_min(disc, 0.0))
     ts1 = (-b_q - sq) / (2.0 * a_q)
     ts2 = (-b_q + sq) / (2.0 * a_q)
     t_sph = torch.where(ts1 > 0, ts1, ts2)

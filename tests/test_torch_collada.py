@@ -372,8 +372,10 @@ VIEW = ([0.3, 1.0, 2.6], [0.0, 0.4, 0.0])
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
-    """Single-threaded torch, as in test_torch_engine.py: these frames
-    are compared to the JAX engine's to the last bits."""
+    """Single-threaded torch, as in test_torch_engine.py, whose fixture
+    names the rounding it once guarded against (torch's CPU float32
+    ``sqrt``, now ``ops.intersect.sqrt_rn`` in the plain versions):
+    these frames are compared to the JAX engine's to the last bits."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

@@ -50,7 +50,10 @@ VIEW = ([0, 0.75, 2.5], [0, 0.75, 0])
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
-    """Single-threaded torch: these tests compare to the bit."""
+    """Single-threaded torch, as in test_torch_engine.py, whose fixture
+    names the rounding it once guarded against (torch's CPU float32
+    ``sqrt``, now replaced by ``ops.intersect.sqrt_rn`` in the plain
+    versions); these tests compare to the bit."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

@@ -49,8 +49,10 @@ EPS = np.float32(1e-3)
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
-    """Single-threaded torch, as in tests/test_torch_wavefront2.py: these
-    tests compare to the bit."""
+    """Single-threaded torch, as in tests/test_torch_wavefront2.py, whose
+    fixture names the rounding it once guarded against (torch's CPU
+    float32 ``sqrt``, now ``ops.intersect.sqrt_rn`` in the plain
+    versions); these tests compare to the bit."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

@@ -34,11 +34,12 @@ RTOL, ATOL = 1e-5, 1e-6
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
-    """Run torch single-threaded here: with its CPU thread pool, the
-    chunk of a large elementwise op that one worker thread computes has
-    been seen to round differently in an occasional process (a block of
-    rays' t off in the last bits, amplified by cancellation), never with
-    one thread; these tests compare to the bit."""
+    """Run torch single-threaded here.  The rounding once put down to
+    threads is torch's vectorized CPU float32 ``sqrt``, one ulp off the
+    IEEE result on some hosts: threads only move where an op's vector
+    body ends and its correctly rounded scalar tail begins.  The shading
+    stages keep torch's ``sqrt`` and are held within RTOL / ATOL; the
+    traversals take theirs from ``ops.intersect.sqrt_rn``."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

@@ -38,7 +38,10 @@ PIX_RTOL, PIX_ATOL, MAX_BAD = 1e-4, 1e-5, 0.01
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
-    """Single-threaded torch: these tests compare t to the bit."""
+    """Single-threaded torch, as in test_torch_engine.py, whose fixture
+    names the rounding it once guarded against (torch's CPU float32
+    ``sqrt``, now replaced by ``ops.intersect.sqrt_rn`` in the plain
+    versions); these tests compare t to the bit."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

@@ -50,10 +50,13 @@ JIT_RTOL, JIT_ATOL = 1e-5, 1e-6
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
-    """Run torch single-threaded here: with its CPU thread pool, the
-    chunk of a large elementwise op that one worker thread computes has
-    been seen to round differently in an occasional process, never with
-    one thread; these tests compare to the bit."""
+    """Run torch single-threaded here.  The rounding once put down to
+    threads is torch's vectorized CPU float32 ``sqrt``, one ulp off the
+    IEEE result on some hosts: threads only move where an op's vector
+    body ends and its correctly rounded scalar tail begins, so one
+    thread made it rarer without curing it.  The plain versions now take
+    their roots from ``ops.intersect.sqrt_rn``; these tests compare to
+    the bit."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

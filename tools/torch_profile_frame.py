@@ -4,6 +4,7 @@
     python3 tools/torch_profile_frame.py [--scene cornell|terrain|run_c]
                                          [--traversal-rr pallas|dfs]
                                          [--compact-depths]
+                                         [--preset fast|reference]
 
 Runs chip_smoke.py's run-A (cornell), run-B (terrain) or run-C (its
 COLLADA document, loaded through load_scene with the document's camera)
@@ -22,7 +23,11 @@ device's busy share of the frame.  With ``--compact-depths`` the frame
 runs whole-depth compaction (``compact_depths=True``; "auto" fuses the
 frame on the card): the roulette depths' stages run over the live
 lanes, and the path state's packing (``pack_state``) and partition are
-timed too.  Prints the card's name and power limit first.
+timed too.  ``--preset reference`` runs render_cli's default preset
+instead (what ``render_cli scene.dae`` renders with no ``--preset``:
+raster order, a draw per ray, no roulette, every trace through
+packet-DFS, 2 spp per frame, depth 3, NEE 1x1.0) at 800x600.  Prints the
+card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ def main() -> int:
     ap.add_argument("--traversal-rr", choices=("pallas", "dfs"),
                     default="pallas")
     ap.add_argument("--compact-depths", action="store_true")
+    ap.add_argument("--preset", choices=("fast", "reference"),
+                    default="fast")
     args = ap.parse_args()
 
     import torch
@@ -60,11 +67,17 @@ def main() -> int:
     from cuda_raytracer_tpu_torch.render import bounce, engine
     from cuda_raytracer_tpu_torch.render.engine import WavefrontRenderer
 
-    print(f"card: {cs.smi_line()}; traversal_rr={args.traversal_rr!r}, "
-          f"compact_depths={args.compact_depths}")
-    r = WavefrontRenderer(cs.fast_config(traversal_rr=args.traversal_rr,
-                                         compact_depths=args.compact_depths),
-                          camera_mode="collada", device="cuda")
+    if args.preset == "reference":
+        cfg = cs._cli_config(["scene.dae", "--size",
+                              f"{cs.WIDTH}x{cs.HEIGHT}"])[0]
+    else:
+        cfg = cs.fast_config(traversal_rr=args.traversal_rr,
+                             compact_depths=args.compact_depths)
+    print(f"card: {cs.smi_line()}; preset {args.preset}: "
+          f"{cfg.samples_per_frame} spp per frame, depth {cfg.max_depth}, "
+          f"traversal_rr={cfg.traversal_rr!r}, "
+          f"compact_depths={cfg.compact_depths}")
+    r = WavefrontRenderer(cfg, camera_mode="collada", device="cuda")
     if args.scene == "cornell":
         r.load_static_scene(cornell_box_scene(with_spheres=True))
         r.set_viewpoint(*cs.VIEW_A)
