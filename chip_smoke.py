@@ -129,7 +129,26 @@ prints one JSON line for the kernels and, last, the device line.  Phases:
    width 2 against its plain version on that run's camera and depth-0
    shadow traces (hit/miss, prim and t bit-equal; kernel, plain and
    bound times); and each setting on the card and on the CPU, per pixel,
-   on the document at terrain n=8 under max_leaf_size=4.
+   on the document at terrain n=8 under max_leaf_size=4;
+11. run H, the infinite lights, whose NEE samples lie at an infinite
+   distance (max_t 1e30, the traversals' no-limit bound): run C's
+   document with a directional light beside its area light and a
+   256x512 sky map written as a float ZIP EXR, through
+   ``render_cli.main`` at 800x600 with ``-e``: the fast preset at 64 spp
+   (2 frames of 32) and the default preset at 4 spp; and the lightless
+   document (the loader's default ambient light, an infinite
+   hemisphere) under the fast preset at 4 spp: dropped == 0, the
+   launches the schedule gives at the scene's lights, the PNG read
+   back, ms per frame and a profiled frame's busy share; the DFS on the
+   fast run's depth-0 shadow traces toward the directional and the
+   environment light, and the ray form of the partition, count, pack
+   and decode on its first roulette depth's, against their plain
+   versions (bit-equal as in phase 3), and the wavefront trace against
+   the DFS there (hit/miss and shadow decisions; any hit may stop a
+   shadow ray, so t is counted); each setting on the card and on the
+   CPU, per pixel, on the document at terrain n=8 under
+   max_leaf_size=4; and the card's engine against the card's
+   PathTracer under the sky map (phase 8's z-test).
 
 Needs one CUDA card; exits non-zero (and prints no result) without one,
 or when run outside a checkout of the repository.  Imports nothing of
@@ -1032,12 +1051,16 @@ def measure_decode(label, keys):
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, **b)
 
 
-def compare_traces(label, scene, rays):
+def compare_traces(label, scene, rays, any_hit=False):
     """The whole compacted wavefront trace against the DFS kernel on the
     same rays: hit/miss equal, t bit-equal (both run packed_prim_test in
     one op order without FMA contraction), prim equal except where two
     prims tie at a bit-equal t (the DFS keeps its first group's winner,
-    the wavefront the largest prim), shadow decisions equal."""
+    the wavefront the largest prim), shadow decisions equal.  With
+    ``any_hit`` the shadow rays' limit is one no hit reaches (an
+    infinite light's): a ray with several occluders may stop at any of
+    them (the DFS at the first it meets, the wavefront at the closest
+    of the level where it meets one), so t is counted, not held."""
     import torch
 
     from cuda_raytracer_tpu_torch.ops import packet_dfs
@@ -1060,7 +1083,8 @@ def compare_traces(label, scene, rays):
           f"hits {int((a.prim >= 0).sum())}, dropped {int(a.dropped)}; "
           f"the wavefront trace took {peak:.3f} GiB of device memory above "
           f"what was allocated before it (torch.cuda.max_memory_allocated)")
-    check(hm == 0 and t_bad == 0, f"{label}: wavefront and DFS disagree")
+    check(hm == 0 and (any_hit or t_bad == 0),
+          f"{label}: wavefront and DFS disagree")
     check(int(a.dropped) == 0, f"{label}: dropped")
     if t_limit is not None:
         eps = 1e-3
@@ -1223,6 +1247,9 @@ RUN_C_CAMERA = (0.0, 0.0, 2.5)
 #: run C's PNG (gamma-2.2 tonemapped) must be brighter than this mean;
 #: a frame that lost its light or its camera reads near 0
 RUN_C_PNG_FLOOR = 0.05
+#: run H's directional light: the world direction toward it (through
+#: run C's open front, above the terrain) and its radiance
+RUN_H_SUN_LIGHT = ((0.3, 0.5, 1.0), (2.0, 1.9, 1.7))
 
 
 def run_c_objects(n):
@@ -1277,8 +1304,11 @@ def _text(values) -> str:
     return " ".join(repr(float(x)) for x in np.asarray(values).reshape(-1))
 
 
-def run_c_document(n) -> str:
-    """Run C's COLLADA document (Z_UP, floats written with repr)."""
+def run_c_document(n, lights=("area",)) -> str:
+    """Run C's COLLADA document (Z_UP, floats written with repr), with
+    the ``lights`` it places: "area" (RUN_C_LIGHT) and "directional"
+    (RUN_H_SUN_LIGHT).  With none the loader adds its default ambient
+    light (an infinite hemisphere)."""
     meshes, spheres = run_c_objects(n)
     effects, materials, geometries, nodes = [], [], [], []
 
@@ -1340,11 +1370,25 @@ def run_c_document(n) -> str:
                      f'url="#{name}">{material(name, mat)}'
                      f'</instance_geometry></node>')
     (lx, ly, lz), (ex, ey), rad = RUN_C_LIGHT
-    # the light's default frame (facing -z, up +y) is the world's facing
-    # -y under the Z_UP basis; the scale gives its extents
-    nodes.append(f'<node id="light-node"><scale>{ex!r} {ey!r} 1.0</scale>'
-                 f'<translate>{_text(_doc((lx, ly, lz)))}</translate>'
-                 f'<instance_light url="#light"/></node>')
+    if "area" in lights:
+        # the light's default frame (facing -z, up +y) is the world's
+        # facing -y under the Z_UP basis; the scale gives its extents
+        nodes.append(f'<node id="light-node"><scale>{ex!r} {ey!r} 1.0'
+                     f'</scale><translate>{_text(_doc((lx, ly, lz)))}'
+                     f'</translate><instance_light url="#light"/></node>')
+    to_sun, sun_rad = RUN_H_SUN_LIGHT
+    sun_def = ""
+    if "directional" in lights:
+        # the loader takes the light's default direction (0, 0, -1) as a
+        # point through the node's transform and points the light along
+        # it (dynamic_scene.DirectionalLight): translated by the document
+        # point of to_sun plus (0, 0, 1), it lands on to_sun
+        at = _doc(to_sun)[0] + (0.0, 0.0, 1.0)
+        nodes.append(f'<node id="sun-node"><translate>{_text(at)}'
+                     f'</translate><instance_light url="#sun"/></node>')
+        sun_def = ('<light id="sun"><technique_common><directional>'
+                   f'<color>{_text(sun_rad)}</color></directional>'
+                   '</technique_common></light>')
     # the camera's rotation is the basis' own inverse, so in the world it
     # looks down -z with +y up
     cx, cy, cz = (float(x) for x in _doc(RUN_C_CAMERA)[0])
@@ -1360,7 +1404,8 @@ def run_c_document(n) -> str:
         '</technique_common></optics></camera></library_cameras>'
         '<library_lights><light id="light"><extra><technique '
         f'profile="CMU462"><area><color>{_text((rad,) * 3)}</color></area>'
-        '</technique></extra></light></library_lights><library_effects>'
+        '</technique></extra></light>' + sun_def + '</library_lights>'
+        '<library_effects>'
         + "".join(effects) + "</library_effects><library_materials>"
         + "".join(materials) + "</library_materials><library_geometries>"
         + "".join(geometries) + "</library_geometries><library_visual_scenes>"
@@ -2526,9 +2571,10 @@ def _oracle_card_vs_cpu(size, ns_aa):
     check(off == 0, "PathTracer: card and CPU buffers differ")
 
 
-def _oracle_ztest(size, ns_aa):
-    """The card's engine against the card's oracle: tests/test_radiance.py's
-    per-pixel z statistic and bounds."""
+def _oracle_ztest(size, ns_aa, scene=None, what="cornell", tag="run F"):
+    """The card's engine against the card's oracle on ``scene`` (by
+    default the Cornell box with spheres), both at VIEW_A:
+    tests/test_radiance.py's per-pixel z statistic and bounds."""
     import numpy as np
 
     from cuda_raytracer_tpu_torch.config import RenderConfig
@@ -2536,7 +2582,8 @@ def _oracle_ztest(size, ns_aa):
     from cuda_raytracer_tpu_torch.render.engine import WavefrontRenderer
 
     w, h = size
-    scene = cornell_box_scene(with_spheres=True)
+    if scene is None:
+        scene = cornell_box_scene(with_spheres=True)
     pt, s_pt = _oracle(scene, size, ns_aa, 4, DEVICE)
     r = WavefrontRenderer(RenderConfig(width=w, height=h,
                                        samples_per_frame=ZTEST_SPF,
@@ -2559,9 +2606,9 @@ def _oracle_ztest(size, ns_aa):
              float(np.abs(z).max()),
              abs(eng_mean.mean() - pt.sample_buffer.mean())
              / pt.sample_buffer.mean())
-    print(f"[run F] z-test, the card's engine ({ZTEST_FRAMES} frames of "
+    print(f"[{tag}] z-test, the card's engine ({ZTEST_FRAMES} frames of "
           f"{ZTEST_SPF} spp) against the card's PathTracer (ns_aa={ns_aa}, "
-          f"4 threads, {s_pt:.2f} s), cornell {w}x{h}, depth 3: mean |z| "
+          f"4 threads, {s_pt:.2f} s), {what} {w}x{h}, depth 3: mean |z| "
           f"{stats[0]:.3f} (< {ZTEST_BOUNDS[0]}), beyond 4 sigma "
           f"{stats[1]:.4f} (< {ZTEST_BOUNDS[1]}), max |z| {stats[2]:.2f} "
           f"(< {ZTEST_BOUNDS[2]}), global mean off by {stats[3]:.4f} "
@@ -3122,6 +3169,382 @@ def phase_run_g(n=121, size=(WIDTH, HEIGHT), small_n=8):
         max(cam["max_abs_err"], shadow["max_abs_err"]))
 
 
+# ---------------------------------------------------------------------------
+# phase 11: run H, the infinite lights
+# ---------------------------------------------------------------------------
+
+#: the layouts write_exr writes: compression name -> (the file's
+#: compression code, scanlines per block)
+EXR_LAYOUTS = {"none": (0, 1), "zips": (2, 1), "zip": (3, 16)}
+
+
+def write_exr(path, img, compression="zip", half=False):
+    """Write [H, W, 3] radiance as a single-part scanline OpenEXR file:
+    channels B, G, R (the format's alphabetical order), all float or all
+    half, uncompressed or zlib-coded after the format's byte split and
+    delta predictor (ZIPS: one scanline per block; ZIP: 16, the last
+    block short when H is not a multiple of 16).  Data window (0, 0) -
+    (W - 1, H - 1), the top row first."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    img = np.asarray(img, dtype=np.float16 if half else np.float32)
+    h, w, _ = img.shape
+    code, lines = EXR_LAYOUTS[compression]
+
+    def attr(name, kind, value):
+        return (name.encode() + b"\0" + kind.encode() + b"\0"
+                + struct.pack("<i", len(value)) + value)
+
+    # per channel: name, pixel type (1 half, 2 float), pLinear, three
+    # reserved bytes, x and y sampling
+    chlist = b"".join(c.encode() + b"\0"
+                      + struct.pack("<iB3xii", 1 if half else 2, 0, 1, 1)
+                      for c in "BGR") + b"\0"
+    window = struct.pack("<4i", 0, 0, w - 1, h - 1)
+    header = (b"\x76\x2f\x31\x01" + struct.pack("<i", 2)
+              + attr("channels", "chlist", chlist)
+              + attr("compression", "compression", bytes([code]))
+              + attr("dataWindow", "box2i", window)
+              + attr("displayWindow", "box2i", window)
+              + attr("lineOrder", "lineOrder", b"\0")
+              + attr("pixelAspectRatio", "float", struct.pack("<f", 1.0))
+              + attr("screenWindowCenter", "v2f", struct.pack("<2f", 0, 0))
+              + attr("screenWindowWidth", "float", struct.pack("<f", 1.0))
+              + b"\0")
+    chunks = []
+    for y in range(0, h, lines):
+        # a block holds its lines in turn, a line its channels in turn
+        raw = np.ascontiguousarray(
+            img[y:y + lines, :, ::-1].transpose(0, 2, 1)).tobytes()
+        if code:
+            b = np.frombuffer(raw, np.uint8)
+            t = np.concatenate([b[0::2], b[1::2]]).astype(np.int16)
+            t[1:] = (np.diff(t) + 128) % 256
+            raw = zlib.compress(t.astype(np.uint8).tobytes())
+        chunks.append(struct.pack("<ii", y, len(raw)) + raw)
+    offsets, pos = [], len(header) + 8 * len(chunks)
+    for c in chunks:
+        offsets.append(pos)
+        pos += len(c)
+    with open(path, "wb") as f:
+        f.write(header + struct.pack(f"<{len(chunks)}Q", *offsets)
+                + b"".join(chunks))
+
+
+#: run H's sky map: rows and columns; the sun's centre (polar angle from
+#: +y, azimuth from +x toward +z), angular radius (degrees) and
+#: radiance; the sky's radiance at the zenith and at the horizon, and
+#: the ground's below it
+RUN_H_SKY_SIZE = (256, 512)
+RUN_H_SUN = (55.0, 90.0, 3.0, 100.0)
+RUN_H_ZENITH = (0.25, 0.45, 0.9)
+RUN_H_HORIZON = (0.9, 0.9, 1.0)
+RUN_H_GROUND = (0.15, 0.12, 0.1)
+
+
+def sky_map(size=RUN_H_SKY_SIZE):
+    """Run H's lat-long environment map, float32 [rows, columns, 3] as
+    EnvironmentLight reads it (texel (i, j) looks along polar angle
+    (i + 0.5) / rows * pi from +y and azimuth (j + 0.5) / columns * 2 pi
+    from +x toward +z): a gradient from the horizon to the zenith, flat
+    ground below, and a sun patch that shines through run C's open
+    front."""
+    import numpy as np
+
+    h, w = size
+    theta = (np.arange(h) + 0.5) / h * np.pi
+    phi = (np.arange(w) + 0.5) / w * 2.0 * np.pi
+    st_, ct = np.sin(theta)[:, None], np.cos(theta)[:, None]
+    dirs = np.stack(np.broadcast_arrays(st_ * np.cos(phi), ct,
+                                        st_ * np.sin(phi)), -1)
+    zen, hor, gnd = (np.array(c) for c in (RUN_H_ZENITH, RUN_H_HORIZON,
+                                           RUN_H_GROUND))
+    up = dirs[..., 1:2]
+    img = np.where(up > 0, hor + (zen - hor) * up, gnd)
+    pol, azi, radius, rad = RUN_H_SUN
+    pol, azi = math.radians(pol), math.radians(azi)
+    sun = np.array([math.sin(pol) * math.cos(azi), math.cos(pol),
+                    math.sin(pol) * math.sin(azi)])
+    img[dirs @ sun > math.cos(math.radians(radius))] = rad
+    return img.astype(np.float32)
+
+
+def _attach_env(r, env):
+    """What render_cli -e does once the scene is loaded: the environment
+    light appended to the scene's lights, the scene loaded again."""
+    from cuda_raytracer_tpu_torch.scene import static_scene as st
+
+    sscene = r.static_scene
+    sscene.lights.append(st.EnvironmentLight(env))
+    r.load_static_scene(sscene)
+
+
+#: run H (phase 11): (label, the document's lights, whether -e attaches
+#: the sky map, render_cli flags, spp, the light kinds the scene must
+#: flatten to, by flatscene's LIGHT_* codes: 0 area, 2 directional, 3
+#: hemisphere, 5 environment)
+RUN_H = (
+    ("fast, -e", ("area", "directional"), True,
+     ["--preset", "fast", "-m", "4"], 64, (0, 2, 5)),
+    ("reference, -e", ("area", "directional"), True, [], 4, (0, 2, 5)),
+    ("lightless, fast", (), False, ["--preset", "fast", "-m", "4"], 4,
+     (3,)),
+)
+#: the infinite lights' shadow rays: max_t, the traversals' no-limit
+#: sentinel (ops/shade.nee_shadow_rays clamps an infinite distance to it)
+T_NO_LIMIT = 1e30
+
+
+def _run_h_cli(doc, sky, tmp, setting, size):
+    """One run H setting through render_cli.main, counted: the renderer,
+    its launches, and the rays (o, d, valid, t_limit) of the first three
+    shadow traces of each traversal (the DFS's at depth 0, the
+    wavefront's at the first roulette depth: one per light, in the
+    scene's light order)."""
+    import numpy as np
+    import torch
+
+    from cuda_raytracer_tpu_torch.ops import packet_dfs
+    from cuda_raytracer_tpu_torch.render import backends
+    from cuda_raytracer_tpu_torch.utils.image import load_png
+
+    label, _, env, flags, spp, kinds = setting
+    w, h = size
+    out = os.path.join(tmp, "run_h.png")
+    dfs, wf = [], []
+    launch, trace_wf = packet_dfs.dfs_trace_cuda, backends.trace_closest_wavefront
+
+    def keep_dfs(*args):
+        if args[3] is not None and len(dfs) < 3:
+            dfs.append(args[:4])
+        return launch(*args)
+
+    def keep_wf(scene, o, d, valid, t_limit, *args, **kw):
+        if t_limit is not None and len(wf) < 3:
+            wf.append((o, d, valid, t_limit))
+        return trace_wf(scene, o, d, valid, t_limit, *args, **kw)
+
+    packet_dfs.dfs_trace_cuda = keep_dfs
+    backends.trace_closest_wavefront = keep_wf
+    reset_launches()
+    try:
+        r, bench = _cli_run([doc, "-w", out, "-s", str(spp), "--size",
+                             f"{w}x{h}", "--bench", "--device", DEVICE,
+                             *flags, *(["-e", sky] if env else [])],
+                            tag=f"run H {label}")
+    finally:
+        packet_dfs.dfs_trace_cuda = launch
+        backends.trace_closest_wavefront = trace_wf
+    torch.cuda.synchronize()
+    launches = read_launches()
+    cfg, frames = r.config, len(r.frame_ms)
+    want = expected_launches(r, frames)
+    png = load_png(out)
+    mean = float(png.mean())
+    # past the process's first frames: one more frame, then one profiled
+    r.render()
+    steady = r.frame_ms[-1]
+    dev_ms, busy, dev_launches = _device_busy(r.render, steady)
+    print(f"[run H] {label}: lights {r.scene.light_kinds} (want {kinds}), "
+          f"{r.scene.num_prims} prims, {frames} frames of "
+          f"{cfg.samples_per_frame} spp, depth {cfg.max_depth}, ms per "
+          f"frame {[round(x, 1) for x in r.frame_ms[:frames]]}, one more "
+          f"frame {steady:.1f}; Mrays/s (bench.py's accounting) "
+          f"{bench['mrays_per_s']} over the render; load_s "
+          f"{bench['load_s']}; dropped {r.dropped_sum}; launches "
+          f"{launches} (want {want}); PNG {png.shape}, mean {mean:.6f}; a "
+          f"profiled frame: {dev_ms:.1f} ms of kernel time in "
+          f"{dev_launches} device launches, busy share {busy:.3f} of the "
+          f"frame before it [{smi_line()}]")
+    check(tuple(r.scene.light_kinds) == kinds,
+          f"run H {label}: light kinds {r.scene.light_kinds}")
+    check(r.dropped_sum == 0, f"run H {label}: dropped rays")
+    check(launches == want, f"run H {label}: kernel launches {launches} "
+          f"!= the schedule's {want}")
+    check(png.shape == (h, w, 3), f"run H {label}: PNG shape")
+    check(bool(np.isfinite(png).all()) and mean > RUN_C_PNG_FLOOR,
+          f"run H {label}: PNG mean {mean} at or below the floor")
+    return r, launches, dfs, wf
+
+
+def _no_limit(rays):
+    """Whether every lane of a shadow trace has the no-limit max_t."""
+    return bool((rays[3] >= T_NO_LIMIT).all())
+
+
+def _run_h_kernels(r, dfs, wf):
+    """The kernels against their plain versions on the fast run's own
+    shadow sets toward the directional and the environment light (all
+    lanes at the no-limit max_t), and toward the area light (finite) for
+    their times beside them: the DFS on the depth-0 sets, the ray form
+    of the partition, count, pack and decode on the first roulette
+    depth's; and on the infinite lights' the whole wavefront trace
+    against the DFS.  Returns the measurements by light."""
+    check(len(dfs) == 3 and len(wf) == 3,
+          "run H: fewer than three shadow traces kept")
+    check(not _no_limit(dfs[0]) and not _no_limit(wf[0]),
+          "run H: the area light's shadow rays have the no-limit max_t")
+    check(all(_no_limit(x) for x in (*dfs[1:], *wf[1:])),
+          "run H: the infinite lights' shadow rays have a finite max_t")
+    got = {}
+    for kind, d_rays, w_rays in zip(("area", "directional", "environment"),
+                                    dfs, wf):
+        dfs_k = measure_kernel(f"run H depth-0 shadow trace, {kind} light",
+                               r.scene, d_rays, True, chunk=1 << 18)
+        label = f"run H depth-2 shadow trace, {kind} light"
+        part = measure_partition(label, w_rays)["rays"]
+        wfr = measure_wavefront(label, r.scene, w_rays)
+        dec = measure_decode(label, wfr["keys"])
+        if kind != "area":
+            compare_traces(label, r.scene, w_rays, any_hit=True)
+        got[kind] = dict(dfs=dfs_k, part=part, wf=wfr, dec=dec)
+    for kind in ("directional", "environment"):
+        k, a = got[kind], got["area"]
+        print(f"[run H] {kind} light against the area light's shadow sets "
+              f"(kernel ms): DFS {k['dfs']['ms']:.4f} / {a['dfs']['ms']:.4f}"
+              f", partition {k['part']['ms']:.4f} / {a['part']['ms']:.4f} "
+              f"({k['part']['n_live']} / {a['part']['n_live']} live), count "
+              f"{k['wf']['level0']['count_ms']:.4f} / "
+              f"{a['wf']['level0']['count_ms']:.4f}, pack (all levels) "
+              f"{k['wf']['sums']['pack_ms']:.4f} / "
+              f"{a['wf']['sums']['pack_ms']:.4f}, decode "
+              f"{k['dec']['ms']:.4f} / {a['dec']['ms']:.4f}")
+    return got
+
+
+def _run_h_card_vs_cpu(docs, sky):
+    """Each run H setting on the document at terrain n=8 under
+    max_leaf_size=4, 64x32, 2 passes of 2 spp, on the card and on the
+    CPU, per pixel."""
+    import numpy as np
+
+    from cuda_raytracer_tpu_torch.render.engine import WavefrontRenderer
+
+    for label, lights, env, flags, _, _ in RUN_H:
+        doc = docs[lights]
+        cfg, mode = _cli_config([doc, "--size", "64x32", "-s", "4",
+                                 "--spp-per-pass", "2", *flags],
+                                max_leaf_size=4)
+        imgs = []
+        for dev in (DEVICE, "cpu"):
+            rr = WavefrontRenderer(cfg, camera_mode=mode, device=dev)
+            rr.load_scene(doc)
+            if env:
+                _attach_env(rr, sky)
+            for _ in range(2):
+                rr.render()
+                check(rr.dropped == 0, f"run H small {label}: dropped")
+            imgs.append(rr.get_raw_image())
+        a, b = imgs
+        bad = ~np.isclose(a, b, rtol=PIXEL_RTOL, atol=PIXEL_ATOL).all(-1)
+        print(f"[run H] card vs CPU, {label}, small document, "
+              f"max_leaf_size=4 ({len(rr.scene.bvh.wf_sched)} wavefront "
+              f"levels), lights {rr.scene.light_kinds}, 64x32, 2 passes of "
+              f"2 spp: {int(bad.sum())} of {a.shape[0] * a.shape[1]} pixels"
+              f" outside rtol={PIXEL_RTOL} atol={PIXEL_ATOL}; max |diff| "
+              f"{float(np.abs(a - b).max()):.3g}; image mean "
+              f"{float(a.mean()):.6f}")
+        check(float(a.mean()) > 0.0, f"run H small {label}: black image")
+        check(float(bad.mean()) <= MAX_BAD,
+              f"run H small {label}: card and CPU frames differ")
+
+
+def env_spheres(env):
+    """A diffuse and a mirror sphere at VIEW_A's target under the
+    environment map ``env`` alone (the z-test's scene)."""
+    import numpy as np
+
+    from cuda_raytracer_tpu_torch.scene import static_scene as st
+    from cuda_raytracer_tpu_torch.scene.bsdf import DiffuseBSDF, MirrorBSDF
+
+    return st.Scene(
+        [st.SphereObject(np.array([-0.5, 0.75, 0.0]), 0.45,
+                         DiffuseBSDF(np.full(3, 0.6))),
+         st.SphereObject(np.array([0.5, 0.75, 0.0]), 0.45,
+                         MirrorBSDF(np.full(3, 0.9)))],
+        [st.EnvironmentLight(env)])
+
+
+def phase_run_h(n=121, size=(WIDTH, HEIGHT), small_n=8,
+                oracle_size=(64, 48)):
+    """Run H: the infinite lights through render_cli at full width on
+    run C's document: with a directional light beside the area light and
+    the sky map written as a float ZIP EXR (-e), under the fast preset
+    (64 spp) and the default preset (4 spp), and the lightless document
+    (the default ambient hemisphere) under the fast preset (4 spp); per
+    setting dropped == 0, the launches the schedule gives at its lights,
+    the PNG read back, ms per frame and busy share.  Then the kernels on
+    the fast run's no-limit shadow sets, each setting card vs CPU on the
+    document at terrain ``small_n``, and the card's engine against the
+    card's PathTracer under the sky map (z-test).  Returns the JSON rows
+    of the kernels on the environment light's shadow sets."""
+    import tempfile
+
+    from cuda_raytracer_tpu_torch.utils.image import load_exr
+
+    t0 = time.perf_counter()
+    sky_img = sky_map()
+    with tempfile.TemporaryDirectory() as tmp:
+        sky = os.path.join(tmp, "sky.exr")
+        write_exr(sky, sky_img)
+        back = load_exr(sky)
+        print(f"[run H] sky.exr: {RUN_H_SKY_SIZE[0]}x{RUN_H_SKY_SIZE[1]} "
+              f"float ZIP, {os.path.getsize(sky)} bytes, reads back "
+              f"{'bit-equal' if (back == sky_img).all() else 'DIFFERENT'}")
+        check(bool((back == sky_img).all()), "run H: sky.exr reads back "
+              "different")
+        docs, small = {}, {}
+        for lights in {x[1] for x in RUN_H}:
+            tag = "_".join(lights) or "none"
+            docs[lights] = os.path.join(tmp, f"run_h_{tag}.dae")
+            small[lights] = os.path.join(tmp, f"run_h_{tag}_small.dae")
+            with open(docs[lights], "w") as f:
+                f.write(run_c_document(n, lights))
+            with open(small[lights], "w") as f:
+                f.write(run_c_document(small_n, lights))
+        runs = {}
+        for setting in RUN_H:
+            runs[setting[0]] = _run_h_cli(docs[setting[1]], sky, tmp,
+                                          setting, size)
+        r, launches, dfs, wf = runs[RUN_H[0][0]]
+        got = _run_h_kernels(r, dfs, wf)
+        _run_h_card_vs_cpu(small, back)
+    _oracle_ztest(oracle_size, 64, env_spheres(sky_img),
+                  "two spheres under the sky map", "run H")
+    print(f"[run H] phase 11 took {time.perf_counter() - t0:.1f} s")
+    env, dirl = got["environment"], got["directional"]
+
+    def row(name, source, replaces, k, err):
+        return kernel_row(name, source, replaces + " (shadow rays toward "
+                          "an infinite light, max_t 1e30)",
+                          launches[name.rsplit("_", 1)[0]], k, err)
+
+    cnt, pk = env["wf"]["level0"], env["wf"]["best"]
+    return [
+        row("packet_dfs_nolimit", "packet_dfs.cu", "packet_dfs.py:99",
+            env["dfs"], max(env["dfs"]["max_abs_err"],
+                            dirl["dfs"]["max_abs_err"])),
+        row("partition_rays_nolimit", "partition.cu", "partition.py:38",
+            env["part"], max(env["part"]["max_abs_err"],
+                             dirl["part"]["max_abs_err"])),
+        row("wf2_count_nolimit", "wavefront2.cu", "wavefront2.py:262",
+            dict(ms=cnt["count_ms"], plain_ms=cnt["count_plain_ms"],
+                 **cnt["count_bound"]),
+            float(max(cnt["count_err"],
+                      dirl["wf"]["level0"]["count_err"]))),
+        row("wf2_pack_nolimit", "wavefront2.cu", "wavefront2.py:377",
+            dict(ms=pk["pack_ms"], plain_ms=pk["pack_plain_ms"],
+                 **pk["pack_bound"]),
+            max(pk["pack_err"], dirl["wf"]["best"]["pack_err"])),
+        row("wf2_decode_nolimit", "wavefront2.cu", "wavefront2.py:1420",
+            env["dec"], max(env["dec"]["max_abs_err"],
+                            dirl["dec"]["max_abs_err"])),
+    ]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "cuda_raytracer_tpu_torch")):
@@ -3143,6 +3566,7 @@ def main() -> int:
     phase_run_f()
     row_dyn = phase_dyn_alloc()
     row_w2 = phase_run_g()
+    rows_h = phase_run_h()
     # the payload partition's row: its launches and times on the path that
     # runs it, whole-depth compaction (the shipped preset launches it 0
     # times)
@@ -3156,6 +3580,7 @@ def main() -> int:
     kernels += rows_e
     kernels.append(row_dyn)
     kernels.append(row_w2)
+    kernels += rows_h
     print(f"[total] {time.perf_counter() - t_start:.1f} s from the start of "
           f"main, imports of torch and the port included")
 

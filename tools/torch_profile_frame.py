@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """Where a frame of the PyTorch port goes on the GPU.
 
-    python3 tools/torch_profile_frame.py [--scene cornell|terrain|run_c]
+    python3 tools/torch_profile_frame.py [--scene cornell|terrain|run_c|run_h]
                                          [--traversal-rr pallas|dfs]
                                          [--compact-depths]
                                          [--preset fast|reference]
 
-Runs chip_smoke.py's run-A (cornell), run-B (terrain) or run-C (its
+Runs chip_smoke.py's run-A (cornell), run-B (terrain), run-C (its
 COLLADA document, loaded through load_scene with the document's camera)
-configuration (the fast preset as shipped, or with the roulette depths through
+or run-H (run C's document with a directional light beside its area
+light, and the sky map attached as ``render_cli -e`` attaches it: three
+lights, the camera render_cli -e leaves) configuration (the fast preset as shipped, or with the roulette depths through
 packet-DFS; 800x600, 32 spp per frame, depth 4, NEE 1x1.0) on one card:
 a warm-up frame, then one frame with every bounce-loop stage timed by
-CUDA events around it (trace, shade_hit, nee_prep, nee_accum, scatter,
-plus raygen and film) and, inside the wavefront traces, the partition
+CUDA events around it (trace, shade_hit, nee_prep by light kind,
+nee_accum, scatter, plus raygen and film) and, inside the wavefront traces, the partition
 of the rays into the level-0 queue, the count kernel (with its region
 plan), the pack kernel (with the next level's counts and plan) and the
 decode kernel of the hit keys (the merge), with the live entries the
@@ -45,7 +47,8 @@ sys.path.insert(0, HERE)
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", choices=("cornell", "terrain", "run_c"),
+    ap.add_argument("--scene", choices=("cornell", "terrain", "run_c",
+                                        "run_h"),
                     default="cornell")
     ap.add_argument("--traversal-rr", choices=("pallas", "dfs"),
                     default="pallas")
@@ -64,7 +67,7 @@ def main() -> int:
     from cuda_raytracer_tpu_torch.models.terrain import terrain_scene
     from cuda_raytracer_tpu_torch.ops import wavefront2 as wf
     from cuda_raytracer_tpu_torch.render import backends
-    from cuda_raytracer_tpu_torch.render import bounce, engine
+    from cuda_raytracer_tpu_torch.render import bounce, engine, flatscene
     from cuda_raytracer_tpu_torch.render.engine import WavefrontRenderer
 
     if args.preset == "reference":
@@ -81,12 +84,16 @@ def main() -> int:
     if args.scene == "cornell":
         r.load_static_scene(cornell_box_scene(with_spheres=True))
         r.set_viewpoint(*cs.VIEW_A)
-    elif args.scene == "run_c":
+    elif args.scene in ("run_c", "run_h"):
+        lights = ("area", "directional") if args.scene == "run_h" else \
+            ("area",)
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "run_c.dae")
             with open(path, "w") as f:
-                f.write(cs.run_c_document(121))
+                f.write(cs.run_c_document(121, lights))
             r.load_scene(path)
+        if args.scene == "run_h":
+            cs._attach_env(r, cs.sky_map())
     else:
         r.load_static_scene(terrain_scene(n=121))
         r.set_viewpoint(*cs.VIEW_B)
@@ -107,7 +114,13 @@ def main() -> int:
             return out
         return wrapped
 
+    prep = r._stages["nee_prep"]
     r._stages = {k: timed(k, v) for k, v in r._stages.items()}
+    # nee_prep once per light kind (flatscene's LIGHT_* codes)
+    preps = {getattr(flatscene, n): timed(f"nee_prep ({n[6:].lower()})", prep)
+             for n in dir(flatscene) if n.startswith("LIGHT_")}
+    r._stages["nee_prep"] = lambda scene, hit, imp, key, li, w: preps[
+        scene.light_kinds[li]](scene, hit, imp, key, li, w)
     r._raygen = timed("raygen", r._raygen)
     r._film = timed("film", r._film)
     # whole-depth compaction's own steps (the engine's and the bounce
@@ -148,8 +161,8 @@ def main() -> int:
     backends.trace_closest_wavefront = trace_wf
     if live:
         print("[live] entries the partition kept, per wavefront trace in "
-              "frame order (depth 2 closest-hit, depth 2 shadow, depth 3 "
-              "closest-hit, depth 3 shadow): "
+              "frame order (each roulette depth's closest-hit trace, then "
+              "its shadow trace per light): "
               + ", ".join(f"{int(k)} of {n}" for n, k in live))
     total = 0.0
     print(f"[stages] one frame, {frame_ms:.1f} ms on the host clock:")
