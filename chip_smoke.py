@@ -292,12 +292,21 @@ def _ops_module(name):
 
 
 def reset_launches():
+    from cuda_raytracer_tpu_torch.render import graphs
+
     for mod, attr in COUNTERS.values():
         setattr(_ops_module(mod), attr, 0)
+    graphs.warmup_launches.clear()
 
 
 def read_launches():
-    return {k: getattr(_ops_module(mod), attr)
+    """Launches per kernel since reset_launches(), a graph's replays
+    included, the warm-up frames before a capture (render/graphs.py)
+    left out: what the frames' schedule gives."""
+    from cuda_raytracer_tpu_torch.render import graphs
+
+    warm = graphs.warmup_launches
+    return {k: getattr(_ops_module(mod), attr) - warm.get((mod, attr), 0)
             for k, (mod, attr) in COUNTERS.items()}
 
 
@@ -675,7 +684,9 @@ def measure_partition(label, rays=None, payload=None):
     [N, 8] payload of the rays, timed beside the one PyTorch call that
     computes the same function (boolean-mask indexing; used nowhere in
     the port).  Ray form, given rays: on the rays, timed beside what it
-    replaces on the main path, make_payload and the payload form.
+    replaces on the main path, make_payload and the payload form, and
+    beside boolean-mask indexing of the packed [N, 8] rays (make_payload's,
+    made outside the timing), the same compaction in one PyTorch call.
     Returns {"payload": row, "rays": row}."""
     import torch
 
@@ -710,13 +721,20 @@ def measure_partition(label, rays=None, payload=None):
         ms = cuda_time_ms(lambda: launch(*inputs), 10)
         if form == "payload":
             other = "boolean-mask call"
-            other_ms = cuda_time_ms(lambda: payload[payload[:, 7] >= 0.0], 10)
+            other_ms = lib_ms = cuda_time_ms(
+                lambda: payload[payload[:, 7] >= 0.0], 10)
             # every entry read once, every live entry and n_live written
             nbytes = (n + k) * rows * 4 + 4
         else:
             other = "make_payload + payload form"
             other_ms = cuda_time_ms(
                 lambda: partition.partition_cuda(wf.make_payload(*rays)), 10)
+            packed = wf.make_payload(*rays)
+            lib_ms = cuda_time_ms(lambda: packed[packed[:, 7] >= 0.0], 10)
+            other += (f" {other_ms:.4f} ms, boolean-mask call on the "
+                      f"packed rays")
+            other_ms = lib_ms
+            del packed
             # valid (and t_limit) of every lane, o and d of the live lanes
             # read once; the live entries and n_live written
             nbytes = n * (1 + (4 if rays[3] is not None else 0)) \
@@ -727,8 +745,7 @@ def measure_partition(label, rays=None, payload=None):
               f"{b['bound_ms']:.5f} ms (bytes), {b['bound_ms'] / ms:.3f} of "
               f"it reached")
         out[form] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                         n_live=k, other_ms=other_ms,
-                         library_ms=other_ms if form == "payload" else None,
+                         n_live=k, other_ms=other_ms, library_ms=lib_ms,
                          **b)
     return out
 
@@ -1176,7 +1193,8 @@ def phase_slice():
         row("packet_dfs", "packet_dfs.cu", "packet_dfs.py:99", dfs,
             dfs["max_abs_err"]),
         row("partition_rays", "partition.cu", "partition.py:38",
-            part["rays"], part["rays"]["max_abs_err"]),
+            part["rays"], part["rays"]["max_abs_err"],
+            part["rays"]["library_ms"]),
         row("partition", "partition.cu", "partition.py:38",
             part["payload"], part["payload"]["max_abs_err"],
             part["payload"]["library_ms"]),
@@ -2034,7 +2052,12 @@ def drive_e(label, load, **over):
     in which, under slab_bf16, every trace is traced again with f32 box
     tests and compared to the bit; then one counted frame: its launches
     against expected_launches, pack launches inside seeded wavefront
-    traces, the compaction's n_live and bucket per depth, dropped, ms."""
+    traces, the compaction's n_live and bucket per depth, dropped, ms.
+    The hooks read traces back to the host and count inside them, so
+    these two frames run the fused programs uncaptured (graphs off); a
+    second renderer then renders the same two frames as CUDA graphs,
+    and its counted frame must equal the first's to the bit, with the
+    launches the schedule gives."""
     import numpy as np
     import torch
 
@@ -2045,6 +2068,7 @@ def drive_e(label, load, **over):
 
     r = WavefrontRenderer(fast_config(**over), camera_mode="collada",
                           device=DEVICE)
+    r.graphs.enabled = False
     load(r)
     buckets = []
     real_bucket = r.bucket
@@ -2129,6 +2153,29 @@ def drive_e(label, load, **over):
           f"schedule's {want}")
     check(state["twin_bad"] == 0, f"run E {label}: a bf16 trace differs "
           f"from its f32 twin")
+    g = WavefrontRenderer(fast_config(**over), camera_mode="collada",
+                          device=DEVICE)
+    load(g)
+    g.render()
+    g._reset_accumulation()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    g.render()
+    torch.cuda.synchronize()
+    g_ms = (time.perf_counter() - t0) * 1e3
+    g_launches = read_launches()
+    same = (np.array_equal(g.get_raw_image(), r.get_raw_image())
+            and np.array_equal(g.get_image(), img))
+    print(f"[run E] {label}, as CUDA graphs ({g.graphs.captures} "
+          f"captured): {g_ms:.1f} ms/frame, the counted frame bit-equal to "
+          f"the uncaptured one: {same}, launches as the schedule gives: "
+          f"{g_launches == want}")
+    check(g.graphed and same and g.dropped == 0,
+          f"run E {label}: the graphed frame differs")
+    check(g_launches == want, f"run E {label}: graphed launches "
+          f"{g_launches} != the schedule's {want}")
+    del g
     cfg = r.config
     if cfg.compact_depths:
         check(r.compacting
@@ -3520,7 +3567,8 @@ def phase_run_h(n=121, size=(WIDTH, HEIGHT), small_n=8,
     def row(name, source, replaces, k, err):
         return kernel_row(name, source, replaces + " (shadow rays toward "
                           "an infinite light, max_t 1e30)",
-                          launches[name.rsplit("_", 1)[0]], k, err)
+                          launches[name.rsplit("_", 1)[0]], k, err,
+                          k.get("library_ms"))
 
     cnt, pk = env["wf"]["level0"], env["wf"]["best"]
     return [
@@ -3545,6 +3593,238 @@ def phase_run_h(n=121, size=(WIDTH, HEIGHT), small_n=8,
     ]
 
 
+#: run I (phase 12): the settings whose graphed frames are held against
+#: their eager frames: (label, how the renderer is made (``_run_i_make``),
+#: frames; the last after a small camera move)
+RUN_I = (
+    ("run A", "run_a", 3),
+    ("run G default pass", "run_g", 3),
+    ("run H reference, three lights", "run_h", 3),
+    ("lightless, 4 spp", "lightless", 3),
+    ("run F, 4 shards of the card", "shards", 3),
+    ("run B, compact_depths", "compact", 3),
+)
+
+
+def _run_i_make(kind, graphed, docs, sky, n):
+    """One phase-12 renderer, loaded and placed: ``graphed`` renders with
+    CUDA graphs (the default on the card), else eagerly (fuse_frame="no";
+    under compact_depths the per-depth programs called without capture,
+    since compaction needs a fused frame)."""
+    import torch
+
+    from cuda_raytracer_tpu_torch.models.cornell import cornell_box_scene
+    from cuda_raytracer_tpu_torch.models.terrain import terrain_scene
+    from cuda_raytracer_tpu_torch.parallel.shard import ShardedRenderer
+    from cuda_raytracer_tpu_torch.render.engine import WavefrontRenderer
+
+    fuse = {} if graphed else {"fuse_frame": "no"}
+    size = ["--size", f"{WIDTH}x{HEIGHT}"]
+    if kind == "run_a":
+        r = WavefrontRenderer(fast_config(**fuse), camera_mode="collada",
+                              device=DEVICE)
+        r.load_static_scene(cornell_box_scene(with_spheres=True))
+        r.set_viewpoint(*VIEW_A)
+        return r
+    if kind == "shards":
+        r = ShardedRenderer(fast_config(shard_mode="samples", **fuse),
+                            [torch.device(DEVICE)] * 4)
+        r.load_static_scene(terrain_scene(n=n))
+        r.set_viewpoint(*VIEW_B)
+        return r
+    if kind == "compact":
+        r = WavefrontRenderer(fast_config(compact_depths=True),
+                              camera_mode="collada", device=DEVICE)
+        r.graphs.enabled = graphed  # not graphed: the programs uncaptured
+        r.load_static_scene(terrain_scene(n=n))
+        r.set_viewpoint(*VIEW_B)
+        return r
+    doc, flags = {
+        "run_g": (docs[("area",)], []),
+        "run_h": (docs[("area", "directional")], []),
+        "lightless": (docs[()], ["--preset", "fast", "-m", "4", "-s", "4"]),
+    }[kind]
+    cfg, mode = _cli_config([doc, *size, *flags], **fuse)
+    r = WavefrontRenderer(cfg, camera_mode=mode, device=DEVICE)
+    r.load_scene(doc)
+    if kind == "run_h":
+        _attach_env(r, sky)
+    return r
+
+
+def _run_i_frames(r, frames):
+    """``frames`` frames of r, the last after a small camera move (2 cm
+    along the camera's x): per frame the raw and the shown image,
+    dropped, the graphs captured so far, the host ms and, compacted, the
+    live counts."""
+    import numpy as np
+    import torch
+
+    out = []
+    for f in range(frames):
+        if f == frames - 1:
+            cam = r.camera
+            origin = cam.pos + 0.02 * cam.c2w[:, 0]
+            r.set_viewpoint(origin, origin - cam.c2w[:, 2])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.render()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        g = r.graphs
+        out.append(dict(raw=r.get_raw_image(), img=r.get_image(),
+                        dropped=r.dropped, ms=ms,
+                        captures=g.captures if g is not None else 0,
+                        capture_s=g.capture_s if g is not None else 0.0,
+                        warmup_s=g.warmup_s if g is not None else 0.0,
+                        keys=list(g) if g is not None else [],
+                        live=list(getattr(r, "live_counts", [])),
+                        buckets=dict(getattr(r, "_depth_buckets", {}))))
+        check(bool(np.isfinite(out[-1]["raw"]).all()),
+              f"run I: frame {f} not finite")
+    return out
+
+
+def _run_i_want(r, frames):
+    """The launches ``frames`` frames of r make by its schedule."""
+    if hasattr(r, "mesh"):
+        return {k: v * len(r.mesh)
+                for k, v in expected_launches(r._host, frames).items()}
+    return expected_launches(r, frames)
+
+
+def _run_i_setting(label, kind, frames, docs, sky, n):
+    """One phase-12 setting: the eager renderer's frames, then the
+    graphed one's (warm-up and capture in its first), held to the bit;
+    dropped 0; the graphed frames' launches (replays, warm-up left out)
+    equal to the schedule; each graph captured once and none in the
+    frame after the move (under compact_depths only a new bucket may
+    add one); peak memory of each; then one frame each in turns (eager,
+    graphed, graphed, eager) and a profiled frame each."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from cuda_raytracer_tpu_torch.render import graphs
+
+    runs, peaks, launches = {}, {}, {}
+    rs = {}
+    for graphed in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        r = _run_i_make(kind, graphed, docs, sky, n)
+        reset_launches()
+        runs[graphed] = _run_i_frames(r, frames)
+        launches[graphed] = read_launches()
+        warm = dict(graphs.warmup_launches)
+        peaks[graphed] = torch.cuda.max_memory_allocated() / 2**30
+        rs[graphed] = r
+        want = _run_i_want(r, frames)
+        check(launches[graphed] == want, f"run I {label} "
+              f"({'graphed' if graphed else 'eager'}): launches "
+              f"{launches[graphed]} != the schedule's {want}")
+        if graphed:
+            check(r.graphs.enabled, f"run I {label}: graphs not enabled")
+    e, g = rs[False], rs[True]
+    bad = [f for f in range(frames)
+           if not (np.array_equal(runs[False][f]["raw"], runs[True][f]["raw"])
+                   and np.array_equal(runs[False][f]["img"],
+                                      runs[True][f]["img"]))]
+    check(not bad, f"run I {label}: graphed frames {bad} differ from the "
+          f"eager ones")
+    for graphed in (False, True):
+        check(all(x["dropped"] == 0 for x in runs[graphed]),
+              f"run I {label}: dropped rays")
+    caps = [x["captures"] for x in runs[True]]
+    check(all(x["captures"] == len(x["keys"]) for x in runs[True]),
+          f"run I {label}: a graph was captured twice ({caps})")
+    # after the first frame a new graph is only a key not needed before:
+    # the film without the median (once past post_process_threshold) or,
+    # under compaction, the programs of a bucket that grew
+    new_keys = []
+    for a, b in zip(runs[True], runs[True][1:]):
+        new = [k for k in b["keys"] if k not in a["keys"]]
+        new_keys.append(new)
+        grew = a["buckets"] != b["buckets"]
+        check(all(k[0] == "film" or (grew and len(k) == 3) for k in new),
+              f"run I {label}: captured anew {new} (buckets "
+              f"{a['buckets']} -> {b['buckets']})")
+    live = [x["live"] for x in runs[True]]
+    if kind == "compact":
+        check(live[0] != live[1], f"run I {label}: frames 1 and 2 read the "
+              f"same live counts {live[0]}")
+    # one frame each in turns, then a profiled frame each
+    turns = {False: [], True: []}
+    for graphed in (False, True, True, False):
+        r = rs[graphed]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.render()
+        torch.cuda.synchronize()
+        turns[graphed].append((time.perf_counter() - t0) * 1e3)
+    busy = {}
+    for graphed in (False, True):
+        ms = min(turns[graphed])
+        busy[graphed] = _device_busy(rs[graphed].render, ms)
+    res = dict(label=label, eager_ms=turns[False], graphed_ms=turns[True],
+               first_ms=runs[True][0]["ms"],
+               eager_first_ms=runs[False][0]["ms"],
+               capture_s=runs[True][0]["capture_s"],
+               warmup_s=runs[True][0]["warmup_s"], captures=caps,
+               peak_eager=peaks[False], peak_graphed=peaks[True],
+               busy=busy, launches=launches[True], warmup=warm, live=live)
+    print(f"[run I] {label}: {frames} frames bit-equal graphed vs eager "
+          f"(raw and shown images; the last after a camera move), dropped "
+          f"0, launches {launches[True]} = the schedule (warm-up's "
+          f"{warm} apart); graphs captured after each frame {caps}, new "
+          f"keys in frames 2.. {new_keys}"
+          f"{f', live counts {live}, buckets' if kind == 'compact' else ''}"
+          f"{[x['buckets'] for x in runs[True]] if kind == 'compact' else ''};"
+          f" first frame {runs[True][0]['ms']:.1f} ms graphed (warm-up "
+          f"{runs[True][0]['warmup_s'] * 1e3:.1f} ms and captures "
+          f"{runs[True][0]['capture_s'] * 1e3:.1f} ms of it) against "
+          f"{runs[False][0]['ms']:.1f} eager; in turns eager "
+          f"{turns[False][0]:.2f}, graphed {turns[True][0]:.2f}, graphed "
+          f"{turns[True][1]:.2f}, eager {turns[False][1]:.2f} ms; profiled "
+          f"frame eager {busy[False][0]:.1f} ms of kernels in "
+          f"{busy[False][2]} device launches, busy {busy[False][1]:.3f}; "
+          f"graphed {busy[True][0]:.1f} ms in {busy[True][2]}, busy "
+          f"{busy[True][1]:.3f}; peak device memory eager "
+          f"{peaks[False]:.2f} GiB, graphed {peaks[True]:.2f} GiB "
+          f"[{smi_line()}]")
+    del e, g, rs, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_run_i(n=121, size=(WIDTH, HEIGHT)):
+    """Run I: the fused frame as CUDA graphs (render/graphs.py), one per
+    depth, raygen and film, the compacted programs per bucket, one per
+    shard's frame, held against the eager frame in six settings (RUN_I)
+    at full width: run A (bench.py's), run G's default-preset pass on run
+    C's document, run H's three-light reference pass, the lightless
+    document's 4-spp fast frame, run F's four shards of the card, and
+    run B under compact_depths (its eager side the per-depth programs
+    uncaptured)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    sky = sky_map()
+    results = []
+    with tempfile.TemporaryDirectory() as tmp:
+        docs = {}
+        for lights in (("area",), ("area", "directional"), ()):
+            docs[lights] = os.path.join(tmp, f"run_i_{len(lights)}.dae")
+            with open(docs[lights], "w") as f:
+                f.write(run_c_document(n, lights))
+        for label, kind, frames in RUN_I:
+            results.append(_run_i_setting(label, kind, frames, docs, sky, n))
+    print(f"[run I] phase 12 took {time.perf_counter() - t0:.1f} s")
+    return results
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "cuda_raytracer_tpu_torch")):
@@ -3567,6 +3847,7 @@ def main() -> int:
     row_dyn = phase_dyn_alloc()
     row_w2 = phase_run_g()
     rows_h = phase_run_h()
+    phase_run_i()
     # the payload partition's row: its launches and times on the path that
     # runs it, whole-depth compaction (the shipped preset launches it 0
     # times)

@@ -26,10 +26,17 @@ def reconstruct(sample_light: torch.Tensor, width: int, height: int,
 
 
 def accumulate(final_img, new_img, old_weight, new_weight):
-    """Running average across frames."""
-    return (final_img * old_weight + new_img * new_weight) / (
-        old_weight + new_weight
-    )
+    """Running average across frames.  ``old_weight`` is a float or a
+    0-d float32 tensor on the images' device (a captured frame's sample
+    count, which the engine rewrites before each replay); the two give
+    the same bits.  On the card torch divides by a host float as a
+    product with its float32 reciprocal, so the tensor form does the
+    same there."""
+    num = final_img * old_weight + new_img * new_weight
+    den = old_weight + new_weight
+    if isinstance(den, torch.Tensor) and den.device.type == "cuda":
+        return num * torch.reciprocal(den)
+    return num / den
 
 
 def median_filter_3x3(img: torch.Tensor, reference_compat: bool = False):

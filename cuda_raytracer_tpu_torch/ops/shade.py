@@ -137,7 +137,10 @@ def generate_camera_rays(
     device=None,
 ):
     """Jittered pinhole camera rays (see the JAX function for the sample
-    layouts).  Returns (o, d) [N, 3] float32 on ``device``."""
+    layouts).  ``cam_pos`` [3] and ``cam_c2w`` [3, 3] are arrays, or
+    float32 tensors on ``device`` (a captured frame's camera buffer,
+    which a move rewrites).  Returns (o, d) [N, 3] float32 on
+    ``device``."""
     n = width * height * spp
     if full_height is None:
         full_height = height
@@ -151,13 +154,20 @@ def generate_camera_rays(
     y = (py + u[:, 1]) / full_height
     sx = (2.0 * x - 1.0) * float(np.float32(tan_half_h))
     sy = (1.0 - 2.0 * y) * float(np.float32(tan_half_v))  # row 0 = top
-    c2w = torch.as_tensor(np.asarray(cam_c2w, np.float32), device=device)
+    c2w = _on_device(cam_c2w, device)
     # d_cam @ c2w.T with d_cam = (sx, sy, -1), written out per component
     d = _norm(sx[:, None] * c2w[:, 0] + sy[:, None] * c2w[:, 1]
               - c2w[:, 2])
-    pos = torch.as_tensor(np.asarray(cam_pos, np.float32), device=device)
-    o = pos.expand(d.shape)
+    o = _on_device(cam_pos, device).expand(d.shape)
     return o, d
+
+
+def _on_device(x, device):
+    """A camera array as float32 on ``device``; a tensor is taken as it
+    is (no copy from the host: a captured frame reads its buffer)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
 def generate_camera_rays_cutracer(
@@ -174,8 +184,9 @@ def generate_camera_rays_cutracer(
 ):
     """Reference-compat camera rays: the fixed +-0.5 frustum over the
     cutracer basis (origin/look_at/up/left; see the JAX function).  The
-    sample layouts are generate_camera_rays'.  Returns (o, d) [N, 3]
-    float32 on ``device``."""
+    sample layouts are generate_camera_rays'.  The four vectors are
+    arrays, or float32 tensors on ``device`` (as generate_camera_rays'
+    camera).  Returns (o, d) [N, 3] float32 on ``device``."""
     n = width * height * spp
     i = torch.arange(n, dtype=torch.int64, device=device)
     pslot = i % (width * height) if pix_order == "tiles32s" else i // spp
@@ -186,15 +197,12 @@ def generate_camera_rays_cutracer(
     xs = (px + u[:, 0]) / width
     ys = (py + u[:, 1]) / height
     k = _norm(torch.stack([xs - 0.5, ys - 0.5, torch.ones_like(xs)], dim=-1))
-    basis = torch.as_tensor(
-        np.stack([np.asarray(left, np.float32), np.asarray(up, np.float32),
-                  np.asarray(look_at, np.float32)]), device=device)
+    basis = torch.stack([_on_device(v, device) for v in (left, up, look_at)])
     # k @ basis over the rows (left, up, look_at), written out per
     # component
     d = (k[:, 0:1] * basis[0] + k[:, 1:2] * basis[1]
          + k[:, 2:3] * basis[2])
-    o = torch.as_tensor(np.asarray(origin, np.float32), device=device)
-    return o.expand(d.shape), d
+    return _on_device(origin, device).expand(d.shape), d
 
 
 # ---------------------------------------------------------------------------
@@ -219,8 +227,9 @@ def make_frame(n):
     """Tangent frame from the shading normal (guide = y unless the
     normal is near-horizontal-down, then x)."""
     use_y_guide = (n[..., 1] < 1e-4) & (n[..., 1] > -0.999)
-    gy = torch.tensor([0.0, 1.0, 0.0], device=n.device)
-    gx = torch.tensor([1.0, 0.0, 0.0], device=n.device)
+    # the guides as rows of an identity made on the device: no copy from
+    # the host, which a captured frame may not make
+    gx, gy = torch.eye(3, dtype=n.dtype, device=n.device)[:2]
     guide = torch.where(use_y_guide[..., None], gy, gx)
     dpdu = _norm(_cross(guide, n))
     dpdv = _norm(_cross(dpdu, n))
@@ -435,12 +444,15 @@ def scatter(
     hemisphere_sampling: str = "uniform",
     u=None,
     w_shared=None,
+    split_keys=None,
 ):
     """Sample the next path direction at every vertex (diffuse, mirror,
     refraction, glass).  ``u``: optional [N, 2] hemisphere uniforms;
     ``w_shared``: optional [N, 3] uniform-sphere directions folded into
-    each lane's hemisphere (d = sign(dot(w, n)) * w).  Returns (o, d,
-    importance', valid, count_emission)."""
+    each lane's hemisphere (d = sign(dot(w, n)) * w); ``split_keys``:
+    split(key), the (hemisphere, fresnel) keys, where the caller holds
+    them already (a frame's key table; ``key`` is then unused).  Returns
+    (o, d, importance', valid, count_emission)."""
     n = hit.n
     dev = n.device
     dpdu, dpdv = hit.dpdu, hit.dpdv
@@ -448,7 +460,7 @@ def scatter(
     albedo = scene.bsdf_albedo[hit.bsdf]
     ior = scene.bsdf_ior[hit.bsdf]
 
-    k_hemi, k_fresnel = rng.split(key)
+    k_hemi, k_fresnel = rng.split(key) if split_keys is None else split_keys
     if u is None and w_shared is None:
         u = rng.uniform(k_hemi, (n.shape[0], 2), dev)
 

@@ -923,15 +923,19 @@ def make_payload(o, d, valid, t_limit=None):
     n = o.shape[0]
     payload = torch.empty((n, ROWS), dtype=torch.float32, device=o.device)
     vmask = valid[:, None]
-    sane = torch.tensor([2e30, 0.0, T_NO_LIMIT, -1.0], device=o.device)
+    # the fill values, filled on the device: no copy from the host, which
+    # a frame being captured as a CUDA graph may not make
+    far, zero, no_limit, dead = (
+        torch.full((), v, dtype=torch.float32, device=o.device)
+        for v in (2e30, 0.0, T_NO_LIMIT, -1.0))
     # each select writes straight into its fields of the entries
-    torch.where(vmask, o.float(), sane[0], out=payload[:, 0:3])
-    torch.where(vmask, d.float(), sane[1], out=payload[:, 3:6])
+    torch.where(vmask, o.float(), far, out=payload[:, 0:3])
+    torch.where(vmask, d.float(), zero, out=payload[:, 3:6])
     payload.view(torch.int32)[:, 6] = torch.arange(
         n, dtype=torch.int32, device=o.device)
-    tub = sane[2] if t_limit is None else torch.clamp_max(
+    tub = no_limit if t_limit is None else torch.clamp_max(
         t_limit.float(), T_NO_LIMIT)
-    torch.where(valid, tub, sane[3], out=payload[:, 7])
+    torch.where(valid, tub, dead, out=payload[:, 7])
     return payload
 
 

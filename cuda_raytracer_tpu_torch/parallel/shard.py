@@ -22,6 +22,15 @@ The two modes of config.shard_mode:
 Each shard runs the shared bounce loop (render/bounce.py), not the
 engine's compacted frame, so cfg.compact_depths has no effect here, as
 in the JAX package.
+
+Where the JAX package jits the sharded frame, ``ShardedRenderer``
+(``compile`` and ``render``) captures each shard's trace of its slab,
+under the shard's device guard, as one CUDA graph (render/graphs.py)
+and replays them, under the engine's rule: ``fuse_frame="yes"``, or
+``"auto"`` when every shard is on the GPU.  Each shard then reads its
+key table (bounce.frame_keys of its key) and the camera from static
+buffers on its device, refreshed before the frame; the shards' images
+are combined eagerly.  ``render_frame_sharded`` stays the eager frame.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import contextlib
 import math
 import time
 import warnings
+from collections.abc import Mapping
 from typing import List, Optional
 
 import numpy as np
@@ -39,8 +49,10 @@ from .. import rng
 from ..config import RenderConfig
 from ..ops import filters as F
 from ..ops import shade as S
-from ..render.bounce import make_stage_fns, run_bounce_loop
+from ..render.backends import xla_passes
+from ..render.bounce import frame_keys, make_stage_fns, run_bounce_loop
 from ..render.flatscene import FlatScene
+from ..render.graphs import FrameGraphs
 from ..utils.timing import block_until_ready
 
 
@@ -99,18 +111,23 @@ def _trace_slab(scene: FlatScene, cfg: RenderConfig, cam_arrays, key,
     """spp samples per pixel of a cfg.height-row frame whose rows start
     at ``row_offset`` of a ``full_height``-row sensor, on the scene's
     device (``orders``: _order_arrays of cfg there, made if None).
+    ``key``: the shard's key, or the table bounce.frame_keys derives
+    from it (a rng.KeyTable for a captured frame); ``cam_arrays``: the
+    camera's (pos, c2w), arrays or tensors on the scene's device.
     Returns (image [cfg.height, W, 3], dropped)."""
     pos, c2w = cam_arrays
     dev = scene.v0.device
     pix_order, inv_order, sample_major = (
         _order_arrays(cfg, dev) if orders is None else orders)
+    keys = (key if isinstance(key, Mapping)
+            else frame_keys(cfg, scene.num_lights, key))
     o, d = S.generate_camera_rays(
-        rng.fold_in(key, 0), cfg.width, cfg.height, spp, pos, c2w,
+        keys["raygen"], cfg.width, cfg.height, spp, pos, c2w,
         hfov_t, vfov_t, pix_order=pix_order, row_offset=row_offset,
         full_height=full_height, device=dev,
     )
     light, dropped = run_bounce_loop(make_stage_fns(cfg), cfg, scene, o, d,
-                                     key)
+                                     keys)
     img = F.reconstruct(light, cfg.width, cfg.height, spp,
                         inv_order=inv_order, sample_major=sample_major)
     return img, dropped
@@ -177,8 +194,16 @@ def _sharded_frame(mesh, scenes, setup, cfg: RenderConfig, cam_arrays, key,
                 scene, shard_cfg, cam_arrays, rng.fold_in(key, i), hfov_t,
                 vfov_t, spp, row_offset=i * shard_cfg.height if tiles else 0,
                 full_height=cfg.height, orders=orders[i]))
+    return _combine(mesh, cfg, shards)
+
+
+def _combine(mesh, cfg: RenderConfig, shards):
+    """The shards' (image, dropped) as the frame on mesh[0] and the
+    drops per shard: slabs concatenated by rows (tiles) or images
+    averaged in shard order (samples)."""
     imgs = [im.to(mesh[0]) for im, _ in shards]
-    img = torch.cat(imgs, dim=0) if tiles else torch.stack(imgs).mean(0)
+    img = (torch.cat(imgs, dim=0) if cfg.shard_mode == "tiles"
+           else torch.stack(imgs).mean(0))
     return img, [dr for _, dr in shards]
 
 
@@ -191,6 +216,66 @@ def render_frame_sharded(mesh, scene: FlatScene, cfg: RenderConfig,
     return _sharded_frame(mesh, _replicas(scene, mesh),
                           _shard_setup(mesh, cfg), cfg, cam_arrays, key,
                           hfov_t, vfov_t)[0]
+
+
+class _ShardedFrame:
+    """The sharded frame of one scene, config and frustum:
+    ``frame(cam_arrays, key)`` -> (image on mesh[0], dropped per
+    shard).  Fused (the engine's
+    rule), each shard traces its slab from its static buffers (key
+    table, camera) as one program, a CUDA graph on the GPU unless its
+    traversal sizes work on the host ("xla"), else the program itself;
+    unfused, it is _sharded_frame."""
+
+    def __init__(self, mesh, scene: FlatScene, cfg: RenderConfig,
+                 tan_h: float, tan_v: float):
+        self.mesh, self.cfg, self.tan = mesh, cfg, (tan_h, tan_v)
+        self.scenes = _replicas(scene, mesh)
+        self.setup = _shard_setup(mesh, cfg)
+        on_gpu = all(dev.type == "cuda" for dev in mesh)
+        self.fused = cfg.fuse_frame == "yes" or (
+            cfg.fuse_frame == "auto" and on_gpu)
+        passes = xla_passes(cfg, scene.bvh.width)
+        self.graphs = FrameGraphs(on_gpu and self.fused and not passes)
+        if on_gpu and self.fused and passes:
+            warnings.warn(
+                f"the {', '.join(passes)} passes trace through 'xla' (tree "
+                f"width {scene.bvh.width}), which sizes its queues on the "
+                f"host: the shards run eagerly, not as CUDA graphs",
+                stacklevel=3)
+        shard_cfg = self.setup[0]
+        names = frame_keys(shard_cfg, scene.num_lights, (0, 0))
+        self.keys = [rng.KeyTable(names, dev) for dev in mesh]
+        self.cams = [torch.zeros((12,), dtype=torch.float32, device=dev)
+                     for dev in mesh]
+
+    def __call__(self, cam_arrays, key):
+        if not self.fused:
+            return _sharded_frame(self.mesh, self.scenes, self.setup,
+                                  self.cfg, cam_arrays, key, *self.tan)
+        shard_cfg, spp, orders = self.setup
+        tiles = self.cfg.shard_mode == "tiles"
+        cam = torch.as_tensor(np.concatenate(
+            [np.asarray(a, np.float32).reshape(-1) for a in cam_arrays]))
+        shards = []
+        for i, dev in enumerate(self.mesh):
+            self.keys[i].load(frame_keys(shard_cfg, self.scenes[i].num_lights,
+                                         rng.fold_in(key, i)))
+            self.cams[i].copy_(cam)
+
+            def slab(i=i):
+                c = self.cams[i]
+                return _trace_slab(
+                    self.scenes[i], shard_cfg, (c[0:3], c[3:12].view(3, 3)),
+                    self.keys[i], *self.tan, spp,
+                    row_offset=i * shard_cfg.height if tiles else 0,
+                    full_height=self.cfg.height, orders=orders[i])
+
+            with _on(dev):
+                if self.graphs.enabled and ("shard", i) not in self.graphs:
+                    self.graphs.warm_up(slab, dev)
+                shards.append(self.graphs.run(("shard", i), slab, dev))
+        return _combine(self.mesh, self.cfg, shards)
 
 
 class ShardedRenderer:
@@ -273,22 +358,36 @@ class ShardedRenderer:
     # -- set-up ----------------------------------------------------------
     def setup(self) -> None:
         """The frame's fixed inputs: the frustum, the scene on each
-        shard's device, and _shard_setup's."""
+        shard's device, _shard_setup's, and the shards' graphs, captured
+        in the next frame."""
         cam = self.camera
-        self._tan = (math.tan(math.radians(cam.hFov) / 2),
-                     math.tan(math.radians(cam.vFov) / 2))
-        self._scenes = _replicas(self.scene, self.mesh)
-        self._setup = _shard_setup(self.mesh, self.cfg)
+        self._frame = _ShardedFrame(
+            self.mesh, self.scene, self.cfg,
+            math.tan(math.radians(cam.hFov) / 2),
+            math.tan(math.radians(cam.vFov) / 2))
+        self._scenes = self._frame.scenes
+        self._setup = self._frame.setup
+        self._tan = self._frame.tan
+
+    @property
+    def graphs(self) -> Optional[FrameGraphs]:
+        """The shards' CUDA graphs (render/graphs.py), once set up."""
+        return None if self._scenes is None else self._frame.graphs
 
     def compile(self, scene: FlatScene, hfov: float, vfov: float):
         """A one-frame function frame(scene, cam_arrays, key) -> image
-        (the JAX package's name; nothing is compiled here)."""
+        (the JAX package's jitted frame): on the GPU each shard's trace
+        is captured as a CUDA graph on the first call and replayed after
+        it; a call with another scene captures anew."""
         tan_h = math.tan(math.radians(hfov) / 2)
         tan_v = math.tan(math.radians(vfov) / 2)
+        held = {}
 
         def frame(scene, cam_arrays, key):
-            return render_frame_sharded(self.mesh, scene, self.cfg,
-                                        cam_arrays, key, tan_h, tan_v)
+            if held.get("scene") is not scene:
+                held.update(scene=scene, frame=_ShardedFrame(
+                    self.mesh, scene, self.cfg, tan_h, tan_v))
+            return held["frame"](cam_arrays, key)[0]
 
         return frame
 
@@ -301,9 +400,7 @@ class ShardedRenderer:
         cfg = self.cfg
         t0 = time.perf_counter()
         key = rng.fold_in(rng.PRNGKey(cfg.seed), self.frame_index)
-        img, dropped = _sharded_frame(self.mesh, self._scenes, self._setup,
-                                      cfg, self._camera_arrays(), key,
-                                      *self._tan)
+        img, dropped = self._frame(self._camera_arrays(), key)
         final = F.accumulate(self._final_image, img,
                              float(self.image_samples),
                              float(cfg.samples_per_frame))

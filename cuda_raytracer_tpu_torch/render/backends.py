@@ -17,6 +17,8 @@ package.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 from ..config import RenderConfig
 from ..ops.packet_dfs import trace_closest_packets
 from ..ops.seeds import seed_hits
@@ -108,3 +110,18 @@ def make_trace_fn(cfg: RenderConfig, secondary: bool = False,
         )
 
     return trace_wf2
+
+
+def xla_passes(cfg: RenderConfig, width: int) -> Tuple[str, ...]:
+    """The pass classes of ``cfg`` that trace through ``"xla"`` on a tree
+    of ``width`` ("camera", "secondary", and "roulette" where
+    rr_start_depth is set; ``"auto"`` takes "xla" for trees wider than
+    8).  That traversal sizes its queues on the host (ops/traverse.py
+    reads each compaction's count), so a frame that runs it cannot be
+    captured as a CUDA graph."""
+    secondary = cfg.traversal_secondary or cfg.traversal
+    kinds = {"camera": cfg.traversal, "secondary": secondary}
+    if cfg.rr_start_depth:
+        kinds["roulette"] = cfg.traversal_rr or secondary
+    return tuple(name for name, kind in kinds.items()
+                 if kind == "xla" or (kind == "auto" and width > 8))

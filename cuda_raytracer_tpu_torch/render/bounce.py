@@ -4,16 +4,22 @@ The port of ``cuda_raytracer_tpu/render/bounce.py``: one depth is
 closest-hit trace -> emission -> NEE shadow passes -> BSDF scatter +
 Russian roulette, with the same fold_in key tree (1000+depth for NEE,
 2000+depth for scatter, 3000+depth for roulette, 17 for shared scatter
-draws), so the port draws the JAX package's noise.
+draws), so the port draws the JAX package's noise.  The keys of a frame
+are derived on the host, all at once, by ``frame_keys``; a depth reads
+its own from that table (host keys, or a ``rng.KeyTable`` on the device
+for a captured frame), so nothing in a depth changes from frame to
+frame but the table's contents.
 
 Whole-depth compaction (cfg.compact_depths): at the roulette-thinned
 depths the engine packs the per-lane path state (``pack_state``),
 compacts the live lanes to a prefix (ops/partition.py), reads the live
 count on the host and runs the whole depth (trace, shading, NEE,
 scatter and roulette) over a capacity bucket of ``m`` lanes
-(``run_depth_compacted``); radiance goes back to the full-size ``light``
-by ray id.  Draws over ``m`` lanes are the JAX package's draws over the
-same ``m``, so the compacted frame is the JAX package's compacted frame.
+(``run_depth_compacted``, which takes the live count as the partition's
+0-d tensor: the host count only picks ``m``); radiance goes back to the
+full-size ``light`` by ray id.  Draws over ``m`` lanes are the JAX
+package's draws over the same ``m``, so the compacted frame is the JAX
+package's compacted frame.
 """
 
 from __future__ import annotations
@@ -86,16 +92,19 @@ def make_stage_fns(cfg: RenderConfig):
             passes = passes & (prim_s >= 0)
         return light + torch.where((ok & passes)[:, None], li_imp, 0.0)
 
-    def scatter(scene, hit, importance, key):
+    def scatter(scene, hit, importance, keys):
+        """``keys``: (shared, hemisphere, fresnel), the depth's scatter
+        keys (frame_keys)."""
+        k_shared, k_hemi, k_fresnel = keys
         u = w = None
         if cfg.rng_granule > 1:
-            u = draw_u2(rng.fold_in(key, 17), hit.t.shape[0], hit.t.device)
+            u = draw_u2(k_shared, hit.t.shape[0], hit.t.device)
             if cfg.rng_fold_dirs and cfg.hemisphere_sampling == "uniform":
                 # antithetic fold: one uniform sphere direction per granule
                 u, w = None, S._spherical_sample(u)
-        return S.scatter(scene, hit, importance, key,
+        return S.scatter(scene, hit, importance, None,
                          cfg.origin_eps, cfg.hemisphere_sampling,
-                         u=u, w_shared=w)
+                         u=u, w_shared=w, split_keys=(k_hemi, k_fresnel))
 
     return {
         "trace": trace,
@@ -107,6 +116,32 @@ def make_stage_fns(cfg: RenderConfig):
         "nee_accum": nee_accum,
         "scatter": scatter,
     }
+
+
+def frame_keys(cfg: RenderConfig, num_lights: int, key) -> dict:
+    """Every key a frame of ``cfg`` draws from, derived on the host from
+    the frame's key: ``"raygen"`` (fold_in(key, 0)); per depth
+    ``("nee", depth, s, light)`` (fold_in of fold_in(key, 1000 + depth)
+    by NEE sample, then by light) and, below max depth, ``("shared",
+    depth)``, ``("hemi", depth)`` and ``("fresnel", depth)`` (of k_b =
+    fold_in(key, 2000 + depth): fold_in(k_b, 17), then split(k_b)) and
+    ``("rr", depth)`` (fold_in(key, 3000 + depth)).  The JAX package
+    derives the same keys inside its bounce loop."""
+    keys = {"raygen": rng.fold_in(key, 0)}
+    schedule = list(cfg.nee_schedule)
+    for depth in range(cfg.max_depth):
+        num_nee = schedule[depth][0] if depth < len(schedule) else 0
+        k_d = rng.fold_in(key, 1000 + depth)
+        for s in range(num_nee):
+            k_s = rng.fold_in(k_d, s)
+            for li in range(num_lights):
+                keys["nee", depth, s, li] = rng.fold_in(k_s, li)
+        if depth + 1 < cfg.max_depth:
+            k_b = rng.fold_in(key, 2000 + depth)
+            keys["shared", depth] = rng.fold_in(k_b, 17)
+            keys["hemi", depth], keys["fresnel", depth] = rng.split(k_b)
+            keys["rr", depth] = rng.fold_in(key, 3000 + depth)
+    return keys
 
 
 def initial_carry(o, d, valid=None):
@@ -123,25 +158,25 @@ def initial_carry(o, d, valid=None):
     return (o, d, valid, importance, light, count_emission, dropped)
 
 
-def run_bounce_loop(J, cfg: RenderConfig, scene: FlatScene, o, d, key,
+def run_bounce_loop(J, cfg: RenderConfig, scene: FlatScene, o, d, keys,
                     valid=None, after_depth=None):
     """Trace and shade the camera rays through the full depth/NEE
-    schedule.  Returns (light [N, 3], dropped).  ``after_depth(depth,
-    carry)``, when given, is called after each depth (the engine's
-    per-depth laps)."""
+    schedule, drawing from ``keys`` (frame_keys).  Returns (light
+    [N, 3], dropped).  ``after_depth(depth, carry)``, when given, is
+    called after each depth (the engine's per-depth laps)."""
     carry = initial_carry(o, d, valid)
     for depth in range(cfg.max_depth):
-        carry = run_depth(J, cfg, scene, carry, key, depth)
+        carry = run_depth(J, cfg, scene, carry, keys, depth)
         if after_depth is not None:
             after_depth(depth, carry)
     return carry[4], carry[6]
 
 
-def run_depth(J, cfg: RenderConfig, scene: FlatScene, carry, key, depth):
+def run_depth(J, cfg: RenderConfig, scene: FlatScene, carry, keys, depth):
     """One depth: closest-hit trace, emission, NEE shadow passes, and
     (below max depth) BSDF scatter + optional Russian roulette.
     ``carry`` is (o, d, valid, importance, light, count_emission,
-    dropped)."""
+    dropped); ``keys`` the frame's key table (frame_keys)."""
     (o, d, valid, importance, light, count_emission, dropped) = carry
     schedule = list(cfg.nee_schedule)
     if depth == 0:
@@ -158,13 +193,11 @@ def run_depth(J, cfg: RenderConfig, scene: FlatScene, carry, key, depth):
         count_emission,
     )
     num_nee, weight = schedule[depth] if depth < len(schedule) else (0, 0.0)
-    k_d = rng.fold_in(key, 1000 + depth)
     for s in range(num_nee):
-        k_s = rng.fold_in(k_d, s)
         for li in range(scene.num_lights):
-            k_u = rng.fold_in(k_s, li)
             o_s, d_s, max_t, li_imp, ok = J["nee_prep"](
-                scene, hit, importance, k_u, li, float(weight)
+                scene, hit, importance, keys["nee", depth, s, li], li,
+                float(weight)
             )
             res_s = tr(scene, o_s, d_s, ok, max_t)
             dropped = dropped + res_s.dropped
@@ -172,16 +205,16 @@ def run_depth(J, cfg: RenderConfig, scene: FlatScene, carry, key, depth):
                 light, res_s.t, res_s.prim, max_t, li_imp, ok
             )
     if depth + 1 < cfg.max_depth:
-        k_b = rng.fold_in(key, 2000 + depth)
         o, d, importance, valid, count_emission = J["scatter"](
-            scene, hit, importance, k_b
+            scene, hit, importance,
+            (keys["shared", depth], keys["hemi", depth],
+             keys["fresnel", depth])
         )
         if cfg.rr_start_depth and depth + 1 >= cfg.rr_start_depth:
             # Russian roulette: survive with p = max(importance),
             # reweight by 1/p (unbiased)
             p = torch.clamp(importance.amax(-1), 0.05, 1.0)
-            u_rr = rng.uniform(rng.fold_in(key, 3000 + depth),
-                               tuple(p.shape), p.device)
+            u_rr = rng.uniform(keys["rr", depth], tuple(p.shape), p.device)
             valid = valid & (u_rr < p)
             importance = importance / p[:, None]
     return (o, d, valid, importance, light, count_emission, dropped)
@@ -235,15 +268,16 @@ def unpack_state(packed, n_live):
 
 
 def run_depth_compacted(J, cfg: RenderConfig, scene: FlatScene,
-                        packed, n_live: int, light, key, depth, m):
+                        packed, n_live, light, keys, depth, m):
     """One roulette depth over the compacted live prefix packed[:m]
-    (``n_live`` a host int, at most m): ``run_depth`` on those lanes, every
-    trace through the ``trace_rr_dense`` stage.  The radiance it earns is
-    added to the full-size ``light`` in place, by ray id (live ids are
-    unique, so each pixel sample gets one addition: the JAX package's
-    scatter-add, exactly).  Returns (packed' [m, 16], light, dropped);
-    below max depth packed' is the state after scatter and roulette,
-    else the prefix itself."""
+    (``n_live`` the partition's 0-d count, at most m; a host int works
+    too): ``run_depth`` on those lanes, every trace through the
+    ``trace_rr_dense`` stage.  The radiance it earns is added to the
+    full-size ``light`` in place, by ray id (live ids are unique, so
+    each pixel sample gets one addition: the JAX package's scatter-add,
+    exactly).  Returns (packed' [m, 16], light, dropped); below max
+    depth packed' is the state after scatter and roulette, else the
+    prefix itself."""
     sl = packed[:m]
     o, d, alive, importance, ce, ids = unpack_state(sl, n_live)
     # the population arrives compacted: as in the JAX package, the
@@ -254,15 +288,15 @@ def run_depth_compacted(J, cfg: RenderConfig, scene: FlatScene,
     zero = torch.zeros((), dtype=torch.int64, device=o.device)
     o, d, valid, importance, light_m, ce, dropped = run_depth(
         Jd, cfg, scene, (o, d, alive, importance, light_m, ce, zero),
-        key, depth)
+        keys, depth)
     if depth + 1 < cfg.max_depth:
         packed_new = pack_state(o, d, valid & alive, importance, ce, ids)
     else:
         packed_new = sl
-    # the live lanes are the prefix; a dead lane there (none, by the
-    # partition's contract) would add +0 to row 0.  No boolean-mask
-    # select: that would read its size back to the host
-    k = min(n_live, m)
-    light.index_add_(0, torch.where(alive[:k], ids[:k], 0).long(),
-                     torch.where(alive[:k, None], light_m[:k], 0.0))
+    # the live lanes are the prefix; every other lane adds +0 to row 0,
+    # which leaves it as it is (light holds no -0).  No slice at the
+    # live count and no boolean-mask select: either would need the count
+    # on the host
+    light.index_add_(0, torch.where(alive, ids, 0).long(),
+                     torch.where(alive[:, None], light_m, 0.0))
     return packed_new, light, dropped

@@ -3,19 +3,38 @@
 The port of ``cuda_raytracer_tpu/render/engine.py``'s WavefrontRenderer:
 it owns the flattened device scene and accumulates frames of
 ``samples_per_frame`` spp with reset-on-move semantics and the
-threshold-gated median filter.  PyTorch runs eagerly, so there is no
-jit: a frame is raygen, the bounce loop of render/bounce.py and the
-film, launched in order on the device.
+threshold-gated median filter.  A frame is raygen, the bounce loop of
+render/bounce.py and the film.
+
+The frame is "fused" under the JAX engine's rule: ``fuse_frame="yes"``,
+or ``"auto"`` on the GPU (where the JAX engine's "auto" means the TPU).
+A fused frame runs the JAX engine's programs: raygen, one per depth and
+the film (with and without the median), each reading what changes from
+frame to frame (the key table of bounce.frame_keys, the camera, the
+sample count) from static buffers refreshed before the frame.  On the
+GPU each program is a CUDA graph (render/graphs.py), captured on the
+first frame after an eager warm-up frame on a side stream and replayed
+after that, all of a renderer's graphs in one memory pool; a scene load
+or a config change (``setup``) and a new field of view capture anew, a
+new frame index, camera move or sample count does not.  On the CPU the
+same programs run eagerly.  ``fuse_frame="no"`` runs the frame eagerly,
+stage by stage (the JAX engine's per-stage executables).  A traversal
+that sizes its work on the host (``"xla"``, which ``"auto"`` takes for
+trees wider than 8) cannot be captured: such a frame runs its programs
+eagerly, and ``graph_refusal`` says why.
 
 Whole-depth compaction (cfg.compact_depths) takes effect when
-``0 < rr_start_depth < max_depth`` and the frame is "fused":
-``fuse_frame="yes"``, or ``"auto"`` on the GPU (the JAX engine's rule,
-where "auto" means the TPU).  Then the depths from rr_start_depth on
-run over the live lanes only: the path state is partitioned, the live
-count read on the host and rounded up to a per-depth capacity bucket
-(sticky across frames: it grows, never shrinks, and a scene load resets
-it), and each depth runs over that many lanes, re-partitioned between
-depths.  The buckets and so the draws are the JAX engine's.
+``0 < rr_start_depth < max_depth`` and the frame is fused.  Then the
+depths from rr_start_depth on run over the live lanes only: the path
+state is partitioned, the live count read on the host, between
+programs, and rounded up to a per-depth capacity bucket (sticky across
+frames: it grows, never shrinks, and a scene load resets it), and each
+depth runs over that many lanes, re-partitioned between depths.  The
+buckets and so the draws are the JAX engine's, and, as its compacted
+executables, the programs are one per depth and bucket (here: per
+bucket of that depth and of each compacted depth before it, whose
+outputs it reads); the live count reaches them as the partition's
+device count.
 
 ``stage_times`` holds host seconds, as the JAX engine's does: ``frame``
 (each render(), up to a device sync), ``bvh_build``, ``flatten`` and
@@ -23,7 +42,7 @@ depths.  The buckets and so the draws are the JAX engine's.
 environment variable ``CRT_TIME_DEPTHS`` set, ``depth{i}`` per depth
 and, under compaction, ``partition`` (the first) and
 ``partition{depth}`` (after a compacted depth), each behind a device
-sync.
+sync, between the programs.
 
 ``load_scene`` reads a COLLADA document (scene/collada.py) into the
 dynamic scene, flattens its static form and places the camera.  Camera
@@ -38,6 +57,7 @@ from __future__ import annotations
 import math
 import os
 import time
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
@@ -54,7 +74,9 @@ from ..scene.collada import load_scene_info
 from ..scene.dynamic_scene import load_from_scene_info
 from ..utils.timing import LapTimer, block_until_ready
 from ..ops.partition import compact_live_payload
+from .backends import xla_passes
 from .bounce import (
+    frame_keys,
     initial_carry,
     make_stage_fns,
     pack_state,
@@ -63,12 +85,19 @@ from .bounce import (
     run_depth_compacted,
 )
 from .flatscene import FlatScene, flatten_scene
+from .graphs import FrameGraphs
 
 
 #: "canonical" = the Scotty3D orbit placement; "collada" = the .dae
 #: camera node transform; "cutracer" = the CUDA renderer's basis with
 #: its fixed frustum
 CAMERA_MODES = ("canonical", "collada", "cutracer")
+
+
+def _host_copy(img: torch.Tensor) -> np.ndarray:
+    """A copy of ``img`` on the host, on the CPU too: the fused frame
+    accumulates in buffers that the next frame rewrites."""
+    return img.to("cpu", copy=True).numpy()
 
 
 class WavefrontRenderer:
@@ -100,6 +129,14 @@ class WavefrontRenderer:
         #: with the stages, so a scene load resets it
         self._depth_buckets: Dict[int, int] = {}
         self.stage_times: Dict[str, float] = {}
+        #: the live lanes the last compacted frame read on the host, at
+        #: each partition
+        self.live_counts = []
+        #: the fused frame's CUDA graphs (render/graphs.py); on the GPU
+        #: unless ``graphs.enabled`` is set False, which calls the
+        #: programs without capture
+        self.graphs = FrameGraphs(self.device.type == "cuda")
+        self._graph_fov = None
 
     def load_scene(self, path: str) -> None:
         """Load a COLLADA document: its dynamic scene, then the static
@@ -172,16 +209,54 @@ class WavefrontRenderer:
                            torch.as_tensor(rank, device=self.device))
         self._stages = make_stage_fns(cfg)
         self._depth_buckets = {}
+        # the fused frame's static inputs: its keys, the camera (pos and
+        # c2w, or the cutracer origin, look_at, up and left), the sample
+        # count, and the accumulated and filtered images
+        dev = self.device
+        self._keys = rng.KeyTable(
+            frame_keys(cfg, self.scene.num_lights, (0, 0)), dev)
+        self._cam = torch.zeros((12,), dtype=torch.float32, device=dev)
+        self._samples = torch.zeros((), dtype=torch.float32, device=dev)
+        shape = (cfg.height, cfg.width, 3)
+        self._film_in = torch.zeros(shape, dtype=torch.float32, device=dev)
+        self._post_out = torch.zeros(shape, dtype=torch.float32, device=dev)
+        self.graphs.reset()
+        if self.graphs.enabled and self.fused and self.graph_refusal:
+            warnings.warn(self.graph_refusal, stacklevel=2)
+
+    @property
+    def fused(self) -> bool:
+        """Whether a frame runs the JAX engine's fused programs (see the
+        module's docstring)."""
+        cfg = self.config
+        return cfg.fuse_frame == "yes" or (
+            cfg.fuse_frame == "auto" and self.device.type == "cuda")
 
     @property
     def compacting(self) -> bool:
         """Whether a frame runs whole-depth compaction (see the module's
         docstring)."""
         cfg = self.config
-        fuse = cfg.fuse_frame == "yes" or (
-            cfg.fuse_frame == "auto" and self.device.type == "cuda")
-        return bool(fuse and cfg.compact_depths and cfg.rr_start_depth
+        return bool(self.fused and cfg.compact_depths and cfg.rr_start_depth
                     and cfg.rr_start_depth < cfg.max_depth)
+
+    @property
+    def graph_refusal(self) -> Optional[str]:
+        """Why a fused frame cannot be captured as CUDA graphs, or None:
+        its traversal sizes work on the host."""
+        passes = xla_passes(self.config, self.scene.bvh.width)
+        if not passes:
+            return None
+        return (f"the {', '.join(passes)} passes trace through 'xla' "
+                f"(tree width {self.scene.bvh.width}), which sizes its "
+                f"queues on the host: the fused frame runs eagerly, not "
+                f"as CUDA graphs")
+
+    @property
+    def graphed(self) -> bool:
+        """Whether render() replays CUDA graphs."""
+        return (self.fused and self.graphs.enabled
+                and self.graph_refusal is None)
 
     def bucket(self, depth: int, n_live: int, n_cur: int) -> int:
         """The lanes a compacted depth runs over: n_live rounded up to a
@@ -195,66 +270,84 @@ class WavefrontRenderer:
         self._depth_buckets[depth] = m
         return m
 
-    def _run_compacted(self, carry, key, lap):
-        """The frame's depths from rr_start_depth on, over the live
-        lanes (``carry``: the state after the dense depths).  Returns
-        (light, dropped)."""
-        cfg, J = self.config, self._stages
+    def _run_compacted(self, run, carry, lap):
+        """The fused frame's depths from rr_start_depth on, over the live
+        lanes (``carry``: the state after the dense depths), each program
+        through ``run(key, program)``.  Adds their radiance and drops to
+        the carry's ``light`` and ``dropped`` in place."""
+        cfg, J, scene, keys = self.config, self._stages, self.scene, self._keys
         o, d, valid, importance, light, ce, dropped = carry
-        ids = torch.arange(o.shape[0], dtype=torch.int32, device=o.device)
-        packed, n_live = compact_live_payload(
-            pack_state(o, d, valid, importance, ce, ids))
+
+        def pack():
+            ids = torch.arange(o.shape[0], dtype=torch.int32, device=o.device)
+            return compact_live_payload(
+                pack_state(o, d, valid, importance, ce, ids))
+
+        packed, n_live = run(("pack",), pack)
         nl = int(n_live)
+        self.live_counts = [nl]
         lap("partition", packed)
+        # a program reads the outputs of the programs before it, which
+        # depend on their buckets: its key holds them all
+        buckets = ()
         for depth in range(cfg.rr_start_depth, cfg.max_depth):
             if nl == 0:
                 break
             m = self.bucket(depth, nl, packed.shape[0])
-            packed_m, light, dr = run_depth_compacted(
-                J, cfg, self.scene, packed, nl, light, key, depth, m)
-            dropped = dropped + dr
+            buckets += (m,)
+
+            def compacted(packed=packed, n_live=n_live, depth=depth, m=m):
+                packed_m, _, dr = run_depth_compacted(
+                    J, cfg, scene, packed, n_live, light, keys, depth, m)
+                dropped.add_(dr)
+                return packed_m
+
+            packed_m = run(("depth", depth, buckets), compacted)
             lap(f"depth{depth}", light)
             if depth + 1 < cfg.max_depth:
-                packed, n_live = compact_live_payload(packed_m)
+                packed, n_live = run(
+                    ("partition", depth, buckets),
+                    lambda p=packed_m: compact_live_payload(p))
                 nl = int(n_live)
+                self.live_counts.append(nl)
                 lap(f"partition{depth}", packed)
-        return light, dropped
 
-    def _raygen(self, key):
+    def _raygen(self, key, camera=None):
+        """Camera rays from ``key``; ``camera``: the camera's arrays as
+        tensors (the fused frame's buffer), else the camera's own."""
         cfg = self.config
         if self.camera_mode == "cutracer":
             return S.generate_camera_rays_cutracer(
-                rng.fold_in(key, 0),
-                cfg.width, cfg.height, cfg.samples_per_frame,
-                *self._cutracer_arrays(),
+                key, cfg.width, cfg.height, cfg.samples_per_frame,
+                *(camera or self._cutracer_arrays()),
                 pix_order=self._pix_order,
                 device=self.device,
             )
         return S.generate_camera_rays(
-            rng.fold_in(key, 0),
-            cfg.width, cfg.height, cfg.samples_per_frame,
-            self.camera.pos, self.camera.c2w,
-            math.tan(math.radians(self.camera.hFov) / 2),
-            math.tan(math.radians(self.camera.vFov) / 2),
+            key, cfg.width, cfg.height, cfg.samples_per_frame,
+            *(camera or (self.camera.pos, self.camera.c2w)),
+            *self._tan_half(),
             pix_order=self._pix_order,
             device=self.device,
         )
+
+    def _tan_half(self):
+        return (math.tan(math.radians(self.camera.hFov) / 2),
+                math.tan(math.radians(self.camera.vFov) / 2))
 
     def _cutracer_arrays(self):
         if self.cutracer_camera is None:
             raise ValueError("scene has no collada camera for cutracer mode")
         return self.cutracer_camera.as_arrays()
 
-    def _film(self, light, with_median: bool):
+    def _film(self, light, with_median: bool, final_img, image_samples):
         cfg = self.config
         img = F.reconstruct(light, cfg.width, cfg.height,
                             cfg.samples_per_frame,
                             inv_order=self._inv_order,
                             sample_major=cfg.sample_order == "tiles32s")
-        final = F.accumulate(
-            self._final_image, img, float(self.image_samples),
-            float(cfg.samples_per_frame),
-        )
+        final = F.accumulate(final_img, img, image_samples,
+                             float(cfg.samples_per_frame))
         post = (F.median_filter_3x3(final, cfg.reference_compat)
                 if with_median else final)
         return final, post
@@ -268,6 +361,105 @@ class WavefrontRenderer:
         self._post_image = None
         self.image_samples = 0
 
+    def _laps(self):
+        """lap(name, fence) for CRT_TIME_DEPTHS (else a no-op): the host
+        seconds since the last lap, behind a device sync, into
+        stage_times[name]; lap(None, fence) starts the clock."""
+        if not os.environ.get("CRT_TIME_DEPTHS"):
+            return lambda name, fence: None
+        timer = LapTimer()
+
+        def lap(name, fence):
+            if name is None:
+                block_until_ready(fence)
+                timer.start()
+            else:
+                self.stage_times[name] = timer.lap(name, fence)
+
+        return lap
+
+    def _eager_frame(self, key, with_median):
+        """fuse_frame="no": the frame stage by stage, keys from the host.
+        Returns (final, post, dropped)."""
+        cfg = self.config
+        keys = frame_keys(cfg, self.scene.num_lights, key)
+        o, d = self._raygen(keys["raygen"])
+        lap = self._laps()
+        lap(None, (o, d))
+        light, dropped = run_bounce_loop(
+            self._stages, cfg, self.scene, o, d, keys,
+            after_depth=lambda depth, carry: lap(f"depth{depth}", carry),
+        )
+        final, post = self._film(light, with_median, self._final_image,
+                                 float(self.image_samples))
+        return final, post, dropped
+
+    def _fused_programs(self, run, with_median):
+        """The fused frame from its static inputs (_load_inputs), each
+        program through ``run(key, program)``.  Returns (final, post,
+        dropped)."""
+        cfg, J, scene, keys = self.config, self._stages, self.scene, self._keys
+        lap = self._laps()
+        cam = self._cam
+        camera = ((cam[0:3], cam[3:6], cam[6:9], cam[9:12])
+                  if self.camera_mode == "cutracer"
+                  else (cam[0:3], cam[3:12].view(3, 3)))
+        carry = run(("raygen",), lambda: initial_carry(
+            *self._raygen(keys["raygen"], camera)))
+        lap(None, carry)
+        n_dense = cfg.rr_start_depth if self.compacting else cfg.max_depth
+        for depth in range(n_dense):
+            carry = run(("depth", depth), lambda c=carry, i=depth: run_depth(
+                J, cfg, scene, c, keys, i))
+            lap(f"depth{depth}", carry)
+        if self.compacting:
+            self._run_compacted(run, carry, lap)
+        light, dropped = carry[4], carry[6]
+        final, post = run(("film", with_median), lambda: self._film(
+            light, with_median, self._film_in, self._samples))
+        return final, post, dropped
+
+    def _load_inputs(self, key) -> None:
+        """Refresh the fused frame's static inputs for frame ``key``."""
+        self._keys.load(frame_keys(self.config, self.scene.num_lights, key))
+        if self.camera_mode == "cutracer":
+            arrays = self._cutracer_arrays()
+        else:
+            arrays = (self.camera.pos, self.camera.c2w)
+        self._cam.copy_(torch.as_tensor(np.concatenate(
+            [np.asarray(a, np.float32).reshape(-1) for a in arrays])))
+        self._samples.fill_(float(self.image_samples))
+        if self._final_image is not self._film_in:
+            self._film_in.copy_(self._final_image)
+
+    def _fused_frame(self, key, with_median):
+        """A fused frame: the programs as graphs (warm-up and capture
+        first where there are none) or called directly.  Returns (final,
+        post, dropped), final and post in buffers that outlive the
+        frame."""
+        fov = None if self.camera_mode == "cutracer" else self._tan_half()
+        if fov != self._graph_fov:
+            # the field of view is baked into raygen
+            self.graphs.reset()
+            self._graph_fov = fov
+        self._load_inputs(key)
+        if not self.graphed:
+            final, post, dropped = self._fused_programs(
+                lambda k, fn: fn(), with_median)
+        else:
+            dev = self.device
+            if ("raygen",) not in self.graphs:
+                self.graphs.warm_up(lambda: self._fused_programs(
+                    lambda k, fn: fn(), with_median), dev)
+            final, post, dropped = self._fused_programs(
+                lambda k, fn: self.graphs.run(k, fn, dev), with_median)
+        # out of the graphs' pool, which the next frame's programs reuse
+        self._film_in.copy_(final)
+        if not with_median:
+            return self._film_in, self._film_in, dropped
+        self._post_out.copy_(post)
+        return self._film_in, self._post_out, dropped
+
     def render(self) -> None:
         """Trace one frame of samples_per_frame spp and accumulate it."""
         if self._stages is None:
@@ -275,33 +467,9 @@ class WavefrontRenderer:
         cfg = self.config
         t0 = time.perf_counter()
         key = rng.fold_in(rng.PRNGKey(cfg.seed), self.frame_index)
-        o, d = self._raygen(key)
-
-        def lap(name, fence):
-            pass
-
-        if os.environ.get("CRT_TIME_DEPTHS"):
-            timer = LapTimer()
-            block_until_ready((o, d))
-            timer.start()
-
-            def lap(name, fence):
-                self.stage_times[name] = timer.lap(name, fence)
-
-        if self.compacting:
-            carry = initial_carry(o, d)
-            for depth in range(cfg.rr_start_depth):
-                carry = run_depth(self._stages, cfg, self.scene, carry, key,
-                                  depth)
-                lap(f"depth{depth}", carry)
-            light, dropped = self._run_compacted(carry, key, lap)
-        else:
-            light, dropped = run_bounce_loop(
-                self._stages, cfg, self.scene, o, d, key,
-                after_depth=lambda depth, carry: lap(f"depth{depth}", carry),
-            )
         with_median = self.image_samples < cfg.post_process_threshold
-        final, post = self._film(light, with_median)
+        frame = self._fused_frame if self.fused else self._eager_frame
+        final, post, dropped = frame(key, with_median)
         self._dropped = int(dropped)
         block_until_ready((final, post))
         self.stage_times["frame"] = time.perf_counter() - t0
@@ -321,11 +489,11 @@ class WavefrontRenderer:
     def get_image(self) -> np.ndarray:
         if (self.image_samples < self.config.post_process_threshold
                 and self._post_image is not None):
-            return self._post_image.cpu().numpy()
-        return self._final_image.cpu().numpy()
+            return _host_copy(self._post_image)
+        return _host_copy(self._final_image)
 
     def get_raw_image(self) -> np.ndarray:
-        return self._final_image.cpu().numpy()
+        return _host_copy(self._final_image)
 
     def set_viewpoint(self, origin, look_at) -> None:
         cam = self.camera

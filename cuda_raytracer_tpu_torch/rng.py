@@ -7,7 +7,10 @@ the port does not swap in ``torch.Generator``; it reproduces
 ``jax.random``'s default threefry2x32 generator with
 ``jax_threefry_partitionable=True`` (the default from jax 0.5 on):
 
-* a key is a pair of uint32 words, here a host-side ``(int, int)``;
+* a key is a pair of uint32 words, here a host-side ``(int, int)``, or,
+  where ``uniform`` reads it, a pair of 0-d int64 tensors on the device
+  (``KeyTable``: a frame's keys in one buffer that a captured CUDA
+  graph reads on every replay);
 * ``PRNGKey(seed)`` = ``(seed >> 32, seed & 0xffffffff)``;
 * ``fold_in(key, data)`` = ``threefry2x32(key, (0, data))``;
 * ``split(key, num)[i]`` = ``threefry2x32(key, (0, i))`` (both words);
@@ -17,13 +20,15 @@ the port does not swap in ``torch.Generator``; it reproduces
 
 Keys are derived on the host (a few Python integer rounds); only the
 bulk ``uniform`` runs on the device, as int64 tensor ops masked to 32
-bits, so CPU and CUDA give the same bits.
+bits, so CPU and CUDA give the same bits, from key words given as ints
+or as tensors alike.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from collections.abc import Mapping
+from typing import Dict, Hashable, Iterator, List, Sequence, Tuple
 
 import torch
 
@@ -79,10 +84,45 @@ def split(key: Key, num: int = 2) -> List[Key]:
     return [threefry2x32(key, 0, i) for i in range(num)]
 
 
-def uniform(key: Key, shape: Sequence[int], device) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32)`` on ``device``."""
+def uniform(key, shape: Sequence[int], device) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)`` on ``device``.  The
+    key words are ints or 0-d int64 tensors on ``device`` (a
+    ``KeyTable`` entry); the bits are the same."""
     idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
     b0, b1 = threefry2x32(key, idx >> 32, idx & _M32)
     fbits = ((b0 ^ b1) >> 9) | 0x3F800000  # < 2^31: exact in int32
     return (fbits.to(torch.int32).view(torch.float32) - 1.0).reshape(
         tuple(shape))
+
+
+class KeyTable(Mapping):
+    """Named keys on the device, for frames that run as captured CUDA
+    graphs: one [K, 2] int64 buffer, each key a pair of 0-d views into
+    it (the words ``uniform`` takes).  ``load`` copies host keys of the
+    same names into the buffer in one transfer; the views stay where
+    they are, so a graph captured reading them reads the new keys on
+    every replay."""
+
+    def __init__(self, names, device):
+        self._index: Dict[Hashable, int] = {n: i for i, n in
+                                            enumerate(names)}
+        self.buf = torch.zeros((len(self._index), 2), dtype=torch.int64,
+                               device=device)
+        self._keys = {n: (self.buf[i, 0], self.buf[i, 1])
+                      for n, i in self._index.items()}
+
+    def load(self, host: Mapping) -> None:
+        """Copy host keys (name -> (int, int)), one for every name."""
+        if host.keys() != self._index.keys():
+            raise ValueError("host keys name other keys than the table")
+        self.buf.copy_(torch.tensor([host[n] for n in self._index],
+                                    dtype=torch.int64).reshape(-1, 2))
+
+    def __getitem__(self, name):
+        return self._keys[name]
+
+    def __iter__(self) -> Iterator:
+        return iter(self._index)
+
+    def __len__(self) -> int:
+        return len(self._index)

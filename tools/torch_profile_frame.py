@@ -28,8 +28,15 @@ lanes, and the path state's packing (``pack_state``) and partition are
 timed too.  ``--preset reference`` runs render_cli's default preset
 instead (what ``render_cli scene.dae`` renders with no ``--preset``:
 raster order, a draw per ray, no roulette, every trace through
-packet-DFS, 2 spp per frame, depth 3, NEE 1x1.0) at 800x600.  Prints the
-card's name and power limit first.
+packet-DFS, 2 spp per frame, depth 3, NEE 1x1.0) at 800x600.  The
+stage table needs the stages dispatched one by one, so it is taken on
+the eager frame (``fuse_frame="no"``; with ``--compact-depths``, which
+needs a fused frame, the per-depth programs called without capture).
+Last, the frame as the engine runs it on the card, as CUDA graphs
+(render/graphs.py): a first frame (warm-up, capture, replay), one frame
+on the host clock, one with the depth laps (``CRT_TIME_DEPTHS``, taken
+between the graphs) and one under torch.profiler (device time, busy
+share, device launches).  Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -80,23 +87,31 @@ def main() -> int:
           f"{cfg.samples_per_frame} spp per frame, depth {cfg.max_depth}, "
           f"traversal_rr={cfg.traversal_rr!r}, "
           f"compact_depths={cfg.compact_depths}")
-    r = WavefrontRenderer(cfg, camera_mode="collada", device="cuda")
-    if args.scene == "cornell":
-        r.load_static_scene(cornell_box_scene(with_spheres=True))
-        r.set_viewpoint(*cs.VIEW_A)
-    elif args.scene in ("run_c", "run_h"):
-        lights = ("area", "directional") if args.scene == "run_h" else \
-            ("area",)
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "run_c.dae")
-            with open(path, "w") as f:
-                f.write(cs.run_c_document(121, lights))
-            r.load_scene(path)
-        if args.scene == "run_h":
-            cs._attach_env(r, cs.sky_map())
+    def make(cfg):
+        r = WavefrontRenderer(cfg, camera_mode="collada", device="cuda")
+        if args.scene == "cornell":
+            r.load_static_scene(cornell_box_scene(with_spheres=True))
+            r.set_viewpoint(*cs.VIEW_A)
+        elif args.scene in ("run_c", "run_h"):
+            lights = (("area", "directional") if args.scene == "run_h"
+                      else ("area",))
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "run_c.dae")
+                with open(path, "w") as f:
+                    f.write(cs.run_c_document(121, lights))
+                r.load_scene(path)
+            if args.scene == "run_h":
+                cs._attach_env(r, cs.sky_map())
+        else:
+            r.load_static_scene(terrain_scene(n=121))
+            r.set_viewpoint(*cs.VIEW_B)
+        return r
+
+    if cfg.compact_depths:
+        r = make(cfg)
+        r.graphs.enabled = False  # compaction needs the fused programs
     else:
-        r.load_static_scene(terrain_scene(n=121))
-        r.set_viewpoint(*cs.VIEW_B)
+        r = make(cfg.replace(fuse_frame="no"))
     r.render()  # warm-up
     torch.cuda.synchronize()
 
@@ -123,6 +138,12 @@ def main() -> int:
         scene.light_kinds[li]](scene, hit, imp, key, li, w)
     r._raygen = timed("raygen", r._raygen)
     r._film = timed("film", r._film)
+    # the module functions wrapped below, put back before the graphed
+    # frame (whose capture must not record the timing events)
+    saved = [(engine, "pack_state"), (bounce, "pack_state"),
+             (engine, "compact_live_payload"), (wf, "compact_live_rays"),
+             (wf, "count_level"), (wf, "pack_level"), (wf, "decode_keys")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
     # whole-depth compaction's own steps (the engine's and the bounce
     # loop's names for them)
     engine.pack_state = timed("pack_state", engine.pack_state)
@@ -208,7 +229,52 @@ def main() -> int:
     for e in rows[:25]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms "
               f"{e.count:6d}x  {e.key[:90]}")
+    for mod, name, fn in saved:
+        setattr(mod, name, fn)
+    graphed(make(cfg), frame_ms)
     return 0
+
+
+def graphed(r, eager_ms):
+    """The frame as CUDA graphs: first frame, one on the host clock, the
+    depth laps, a profiled one (device time, busy share, launches)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def frame():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.render()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    first = frame()
+    ms = frame()
+    os.environ["CRT_TIME_DEPTHS"] = "1"
+    try:
+        lap_ms = frame()
+    finally:
+        del os.environ["CRT_TIME_DEPTHS"]
+    laps = {k: v * 1e3 for k, v in r.stage_times.items()
+            if k.startswith(("depth", "partition"))}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        r.render()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    dev = sum(e.self_device_time_total for e in rows) / 1e3
+    print(f"[graphed] the frame as CUDA graphs ({r.graphs.captures} "
+          f"captured, {len(r.graphs)} keys): first frame {first:.1f} ms "
+          f"(warm-up {r.graphs.warmup_s * 1e3:.1f} ms and captures "
+          f"{r.graphs.capture_s * 1e3:.1f} ms of it), "
+          f"then {ms:.1f} ms on the host clock (eager {eager_ms:.1f}); with "
+          f"depth laps {lap_ms:.1f} ms: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in laps.items())
+          + f"; profiled: {dev:.1f} ms of device kernel time in "
+          f"{sum(e.count for e in rows)} launches, busy share "
+          f"{dev / ms:.3f}")
 
 
 if __name__ == "__main__":
