@@ -9,8 +9,8 @@ main path at full size, checks the card against the CPU per pixel, and
 prints one JSON line for the kernels and, last, the device line.  Phases:
 
 1. set-up: the card's name and power limit, nvcc's version, the build of
-   packet_dfs.cu, partition.cu and wavefront2.cu (one nvcc each, started
-   together) and what ptxas reports for each kernel (registers, stack
+   packet_dfs.cu, partition.cu, wavefront2.cu and rng.cu (one nvcc each,
+   started together) and what ptxas reports for each kernel (registers, stack
    frame, spills, shared memory);
 2. the packet-DFS kernel against its plain version on 262,144 rays of
    terrain n=121 (28,800 tris): hit/miss, prim and t bit-equal, shadow
@@ -148,7 +148,22 @@ prints one JSON line for the kernels and, last, the device line.  Phases:
    shadow ray, so t is counted); each setting on the card and on the
    CPU, per pixel, on the document at terrain n=8 under
    max_leaf_size=4; and the card's engine against the card's
-   PathTracer under the sky map (phase 8's z-test).
+   PathTracer under the sky map (phase 8's z-test);
+12. run I, the frame as CUDA graphs (render/graphs.py) against the eager
+   frame in six settings (RUN_I), 3 frames each, the last after a camera
+   move: bit-equal, launches as the schedule gives, each graph captured
+   once, times in turns, busy share, peak memory;
+13. the uniform kernel (ops/csrc/rng.cu, every rng.uniform of a frame on
+   the card): what ptxas says of it; no launch for an empty draw; a
+   captured draw replayed under three keys loaded into its KeyTable;
+   run A (eager and graphed), run G's default pass and run H's
+   three-light reference pass drawn by the kernel and again by
+   uniform_plain (the script swaps rng.uniform; the package has no
+   switch), all bit-equal, launches as the schedule gives, times in
+   turns and a profiled frame each; and the kernel against uniform_plain
+   at the shapes run A's frame draws ([15,360,000, 2], [15,360,000],
+   (15,000, 2) repeated 1,024 times) and at 15,360,001, with an int key
+   and a KeyTable key, bit for bit, timed beside its bound.
 
 Needs one CUDA card; exits non-zero (and prints no result) without one,
 or when run outside a checkout of the repository.  Imports nothing of
@@ -157,6 +172,7 @@ JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -194,6 +210,18 @@ VISIT_BF16_F32_OPS = 3
 TRI_FLOPS = 38
 SPH_FLOPS = 37
 RAY_FLOPS = 3
+#: 32-bit integer operations per second outside the tensor cores: the
+#: issue limit, one 32-lane instruction per clock from each of an SM's
+#: four schedulers (128 lane operations per SM and clock), 132 SMs at the
+#: 1.98 GHz that F32_FLOPS implies (which counts a fused multiply-add as
+#: two).  Not the 64 INT32 lanes per SM of the white paper: the compiler
+#: also issues integer adds to the FMA pipes (IMAD), and rng.cu's kernel
+#: ran past the 64-lane rate on the H100
+INT32_OPS = F32_FLOPS / 2
+#: u32 operations of one draw of ops/csrc/rng.cu, counted from its draw():
+#: 2 counter adds, 20 rounds of add, funnel shift and xor, 5 key
+#: injections of 2 adds, and xor, shift and or of the map to [1, 2)
+RNG_INT_OPS = 2 + 20 * 3 + 5 * 2 + 3
 
 #: the main path's device (the script checks there is a card)
 DEVICE = "cuda"
@@ -274,6 +302,7 @@ COUNTERS = {
     "wf2_pack_dyn": ("wavefront2", "pack_dyn_launches"),
     "wf2_pack_dyn_bf16": ("wavefront2", "pack_dyn_bf16_launches"),
     "wf2_decode": ("wavefront2", "decode_launches"),
+    "rng_uniform": ("rng", "launches"),
 }
 #: leaf prims a pack block stages in shared memory (WF_STAGE_PRIMS of
 #: ops/csrc/wavefront2.cu); a segment with more reads them from global
@@ -286,9 +315,11 @@ OFF_PATH = ("partition", "packet_dfs_bf16", "wf2_count_bf16",
 
 
 def _ops_module(name):
+    """The module of a kernel wrapper: under ops/, or the package's rng."""
     import importlib
 
-    return importlib.import_module(f"cuda_raytracer_tpu_torch.ops.{name}")
+    pkg = "cuda_raytracer_tpu_torch" + ("" if name == "rng" else ".ops")
+    return importlib.import_module(f"{pkg}.{name}")
 
 
 def reset_launches():
@@ -311,6 +342,7 @@ def read_launches():
 
 
 def phase_setup():
+    from cuda_raytracer_tpu_torch import rng
     from cuda_raytracer_tpu_torch.ops import _build, packet_dfs, partition
     from cuda_raytracer_tpu_torch.ops import wavefront2
 
@@ -320,16 +352,17 @@ def phase_setup():
                          text=True, check=True).stdout.strip().splitlines()
     print(f"[setup] nvcc: {ver[-1]}")
     t0 = time.perf_counter()
-    _build.build_all([("packet_dfs", packet_dfs.build_defines()),
-                      ("partition", ()), ("wavefront2", ())])
+    sources = (("packet_dfs", packet_dfs.build_defines()),
+               ("partition", ()), ("wavefront2", ()), ("rng", ()))
+    _build.build_all(sources)
     packet_dfs._load_library()
     partition._load_library()
     wavefront2._load_library()
-    print(f"[setup] packet_dfs.cu, partition.cu and wavefront2.cu built "
-          f"(one nvcc each, in parallel) and loaded in "
+    rng._load_library()
+    print(f"[setup] packet_dfs.cu, partition.cu, wavefront2.cu and rng.cu "
+          f"built (one nvcc each, in parallel) and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
-    for name, defines in (("packet_dfs", packet_dfs.build_defines()),
-                          ("partition", ()), ("wavefront2", ())):
+    for name, defines in sources:
         for line in _build.ptxas_report(name, defines):
             print(f"[setup] ptxas, {name}.cu: {line}")
 
@@ -516,6 +549,23 @@ def phase_kernel(dev):
     return max(a["max_abs_err"], b["max_abs_err"])
 
 
+def draws_per_frame(cfg, num_lights):
+    """rng.uniform calls (each one launch of the uniform kernel) in one
+    frame of ``cfg`` over ``num_lights`` lights: raygen's; at each depth
+    one per NEE sample and light; below max depth two for scatter (the
+    hemisphere draw, or draw_u2's shared one under rng_granule > 1, and
+    the Fresnel pick) and one for roulette from rr_start_depth on.
+    Compacted depths draw the same over their bucket."""
+    n = 1
+    for depth in range(cfg.max_depth):
+        if depth < len(cfg.nee_schedule):
+            n += cfg.nee_schedule[depth][0] * num_lights
+        if depth + 1 < cfg.max_depth:
+            n += 2 + bool(cfg.rr_start_depth
+                          and depth + 1 >= cfg.rr_start_depth)
+    return n
+
+
 def expected_launches(r, frames):
     """Launches per kernel that ``frames`` frames must make, from the
     config's pass classes and the scene's wavefront schedule: a depth
@@ -527,12 +577,13 @@ def expected_launches(r, frames):
     count and pack launches are their bf16 forms'; under whole-depth
     compaction the roulette depths' traces have no partition of their
     own, and the path state's partition runs before the first of them
-    and after each but the last."""
+    and after each but the last.  The uniform kernel: draws_per_frame."""
     cfg, bvh = r.config, r.scene.bvh
     inner = [lv.has_inner for lv in bvh.wf_levels]
     n_pack = inner.index(False) + 1 if False in inner else len(inner)
     n_count = int(inner[0])
     want = dict.fromkeys(COUNTERS, 0)
+    want["rng_uniform"] = draws_per_frame(cfg, r.scene.num_lights)
     bf = "_bf16" if cfg.slab_bf16 else ""
     # whole-depth compaction: one payload partition before the first
     # roulette depth and one after each roulette depth but the last; its
@@ -661,12 +712,13 @@ def box_ops(boxes, rays, bf16, visits=0):
             + visits * VISIT_BF16_F32_OPS), boxes * BOX_BF16_OPS
 
 
-def _bound(nbytes, flops, bf16_ops=0):
-    """The least time for ``nbytes`` of memory traffic and ``flops`` f32
-    and ``bf16_ops`` bf16 operations, each at its own peak (the two types
-    share the issue slots, so their times add)."""
+def _bound(nbytes, flops, bf16_ops=0, int_ops=0):
+    """The least time for ``nbytes`` of memory traffic and ``flops`` f32,
+    ``bf16_ops`` bf16 and ``int_ops`` INT32 operations, each at its own
+    peak (the types share the issue slots, so their times add)."""
     bytes_ms = nbytes / HBM_BPS * 1e3
-    ops_ms = (flops / F32_FLOPS + bf16_ops / BF16_FLOPS) * 1e3
+    ops_ms = (flops / F32_FLOPS + bf16_ops / BF16_FLOPS
+              + int_ops / INT32_OPS) * 1e3
     return dict(bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 bytes_ms=bytes_ms, ops_ms=ops_ms)
@@ -1995,7 +2047,9 @@ def _width16(n=121, small_n=8):
           f"{peak:.2f} GiB, kernel launches {launches}")
     check(r.dropped == 0 and bool(np.isfinite(img).all())
           and float(img.mean()) > 0.0, "W=16 frame: bad image")
-    check(not any(launches.values()), "W=16 frame launched a kernel")
+    draws = draws_per_frame(r.config, r.scene.num_lights)
+    check(launches == dict(dict.fromkeys(COUNTERS, 0), rng_uniform=draws),
+          f"W=16 frame launched a kernel other than its {draws} draws")
 
     w, h, spf, frames = 64, 32, 2, 2
     kw = fast_preset_kwargs(w, h, spf * frames)
@@ -3825,6 +3879,256 @@ def phase_run_i(n=121, size=(WIDTH, HEIGHT)):
     return results
 
 
+#: run J (phase 13): run I's settings whose frames are drawn once by the
+#: uniform kernel and once by its plain version: (label, how the renderer
+#: is made (``_run_i_make``), frames; the last after a small camera move)
+RUN_J = RUN_I[:3]
+#: the key of phase 13's draws outside a frame
+RNG_KEY = (1797259609, 2579123966)
+
+
+@contextlib.contextmanager
+def _plain_draws():
+    """A context in which rng.uniform is its plain version, uniform_plain
+    (int64 tensor ops on the card): a frame's twin drawn without the
+    kernel.  The package has no such switch; only this script swaps."""
+    from cuda_raytracer_tpu_torch import rng
+
+    kernel = rng.uniform
+    rng.uniform = rng.uniform_plain
+    try:
+        yield
+    finally:
+        rng.uniform = kernel
+
+
+def _draw_shapes(fn):
+    """fn()'s result and its rng.uniform calls as (shape, repeat), in
+    call order."""
+    from cuda_raytracer_tpu_torch import rng
+
+    calls, draw = [], rng.uniform
+
+    def record(key, shape, device, repeat=1):
+        calls.append((tuple(int(x) for x in shape), int(repeat)))
+        return draw(key, shape, device, repeat)
+
+    rng.uniform = record
+    try:
+        out = fn()
+    finally:
+        rng.uniform = draw
+    return out, calls
+
+
+def _rng_bound(shape, repeat):
+    """bound_ms of one draw: 4 bytes per output written, RNG_INT_OPS per
+    source draw (the repeat form's copies cost no hash)."""
+    n_src = math.prod(shape)
+    return _bound(4 * n_src * repeat, 0, int_ops=RNG_INT_OPS * n_src)
+
+
+def measure_rng(label, shape, repeat=1):
+    """The uniform kernel against uniform_plain on the card: with RNG_KEY
+    as ints and as a KeyTable entry, bit for bit; kernel, plain and
+    bound times."""
+    import torch
+
+    from cuda_raytracer_tpu_torch import rng
+
+    dev = torch.device(DEVICE)
+    table = rng.KeyTable(["k"], dev)
+    table.load({"k": RNG_KEY})
+    plain = rng.uniform_plain(RNG_KEY, shape, dev, repeat)
+    outs = {"int key": rng.uniform_cuda(RNG_KEY, shape, dev, repeat),
+            "KeyTable key": rng.uniform_cuda(table["k"], shape, dev, repeat)}
+    torch.cuda.synchronize()
+    same = {f: torch.equal(o.view(torch.int32), plain.view(torch.int32))
+            for f, o in outs.items()}
+    err = max(float((o - plain).abs().max()) for o in outs.values())
+    lo, hi = float(plain.min()), float(plain.max())
+    ms = cuda_time_ms(lambda: rng.uniform_cuda(table["k"], shape, dev,
+                                               repeat), 20)
+    plain_ms = cuda_time_ms(lambda: rng.uniform_plain(RNG_KEY, shape, dev,
+                                                      repeat), 3)
+    b = _rng_bound(shape, repeat)
+    print(f"[rng] {label}: shape {shape} x{repeat} ({plain.numel():,} "
+          f"outputs): bit-equal to uniform_plain {same}, values in "
+          f"[{lo:.7f}, {hi:.7f}]; kernel {ms:.4f} ms, plain {plain_ms:.3f} "
+          f"ms, bound {b['bound_ms']:.5f} ms by {b['bound_by']} (bytes "
+          f"{b['bytes_ms']:.5f}, ops {b['ops_ms']:.5f}): "
+          f"{b['bound_ms'] / ms:.1%} of the bound [{smi_line()}]")
+    check(all(same.values()), f"rng {label}: the kernel's bits differ from "
+          f"uniform_plain's ({same})")
+    check(tuple(plain.shape) == rng._repeated(shape, repeat)
+          and 0.0 <= lo and hi < 1.0, f"rng {label}: shape or range")
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, **b)
+
+
+def _rng_semantics():
+    """No launch for no outputs; a captured draw reads its KeyTable key
+    at each replay (a new key, new bits); the repeat form against
+    repeat_interleave of the plain draw at a ragged size."""
+    import torch
+
+    from cuda_raytracer_tpu_torch import rng
+
+    dev = torch.device(DEVICE)
+    before = rng.launches
+    empty = [rng.uniform(RNG_KEY, shape, dev) for shape in ((0,), (0, 2))]
+    check(rng.launches == before and all(e.numel() == 0 for e in empty),
+          "rng: an empty draw launched the kernel")
+    table = rng.KeyTable(["k"], dev)
+    table.load({"k": RNG_KEY})
+    shape = (WIDTH * HEIGHT, 2)
+    rng.uniform(table["k"], shape, dev)  # warm outside the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = rng.uniform(table["k"], shape, dev)
+    same = []
+    for key in (RNG_KEY, rng.fold_in(RNG_KEY, 1), rng.fold_in(RNG_KEY, 2)):
+        table.load({"k": key})
+        g.replay()
+        torch.cuda.synchronize()
+        want = rng.uniform_plain(key, shape, dev)
+        same.append(torch.equal(out.view(torch.int32),
+                                want.view(torch.int32)))
+    rag = rng.uniform(RNG_KEY, (37, 3), dev, repeat=5)
+    rag_ok = torch.equal(rag, torch.repeat_interleave(
+        rng.uniform_plain(RNG_KEY, (37, 3), dev), 5, dim=0))
+    print(f"[rng] no launch for empty draws; a captured draw replayed under "
+          f"three keys loaded into its KeyTable: bit-equal to each key's "
+          f"plain draw {same}; (37, 3) x5 equal to repeat_interleave "
+          f"{rag_ok}")
+    check(all(same), "rng: a graph replay did not read its KeyTable key")
+    check(rag_ok, "rng: the repeat form at (37, 3) x5")
+
+
+def _run_j_setting(label, kind, frames, docs, sky, n):
+    """One phase-13 setting, eager and graphed: frames drawn by the kernel
+    and frames drawn by uniform_plain, each renderer made and driven
+    under its draws; all four bit-equal frame by frame (raw and shown
+    image); launches as the schedule gives (no uniform kernel in the
+    plain twins); then one frame each in turns (kernel, plain, plain,
+    kernel) and a profiled frame each.  Returns the draws of run A's
+    first frame (``shapes``) besides the times."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    runs, rs, launches, shapes = {}, {}, {}, []
+    for graphed in (False, True):
+        for plain in (False, True):
+            with _plain_draws() if plain else contextlib.nullcontext():
+                r = _run_i_make(kind, graphed, docs, sky, n)
+                reset_launches()
+                runs[graphed, plain], calls = _draw_shapes(
+                    lambda: _run_i_frames(r, frames))
+                launches[graphed, plain] = read_launches()
+            if not (graphed or plain):
+                shapes = calls
+            want = _run_i_want(r, frames)
+            if plain:
+                want["rng_uniform"] = 0
+            check(launches[graphed, plain] == want, f"run J {label} "
+                  f"({'graphed' if graphed else 'eager'}, "
+                  f"{'plain' if plain else 'kernel'} draws): launches "
+                  f"{launches[graphed, plain]} != the schedule's {want}")
+            check(all(x["dropped"] == 0 for x in runs[graphed, plain]),
+                  f"run J {label}: dropped rays")
+            rs[graphed, plain] = r
+    ref = runs[False, False]
+    bad = {k: [f for f in range(frames)
+               if not (np.array_equal(ref[f]["raw"], v[f]["raw"])
+                       and np.array_equal(ref[f]["img"], v[f]["img"]))]
+           for k, v in runs.items()}
+    check(not any(bad.values()), f"run J {label}: frames differ from the "
+          f"eager kernel-drawn ones (graphed, plain): {bad}")
+    turns, busy = {}, {}
+    for graphed in (False, True):
+        for plain in (False, True, True, False):
+            with _plain_draws() if plain else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rs[graphed, plain].render()
+                torch.cuda.synchronize()
+            turns.setdefault((graphed, plain), []).append(
+                (time.perf_counter() - t0) * 1e3)
+        for plain in (False, True):
+            with _plain_draws() if plain else contextlib.nullcontext():
+                busy[graphed, plain] = _device_busy(
+                    rs[graphed, plain].render, min(turns[graphed, plain]))
+    desc = "; ".join(
+        f"{'graphed' if g else 'eager'} {'plain' if p else 'kernel'} "
+        f"draws: {', '.join(f'{t:.2f}' for t in turns[g, p])} ms, "
+        f"profiled {busy[g, p][0]:.1f} ms of kernels in {busy[g, p][2]} "
+        f"device launches, busy {busy[g, p][1]:.3f}"
+        for g in (False, True) for p in (False, True))
+    print(f"[run J] {label}: {frames} frames (the last after a camera move) "
+          f"bit-equal eager and graphed, kernel and plain draws; dropped 0; "
+          f"launches {launches[True, False]} = the schedule, the plain "
+          f"twins' without rng_uniform; in turns {desc} [{smi_line()}]")
+    res = dict(label=label, turns=turns, busy=busy, shapes=shapes,
+               launches=launches[True, False])
+    del rs, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_rng(n=121):
+    """Phase 13: the uniform kernel (ops/csrc/rng.cu).  What ptxas says of
+    it; no launch for an empty draw, a captured draw reading its KeyTable
+    key at each replay; run A (eager and graphed), run G's default pass
+    and run H's three-light reference pass (RUN_J) drawn by the kernel
+    and by uniform_plain in one process, bit-equal, launches as the
+    schedule gives, times in turns; then the kernel against uniform_plain
+    at every shape run A's frame draws, at 15,360,001 and under a
+    KeyTable key, timed beside its bound, and the frame's draws summed.
+    Returns the kernel's JSON row."""
+    import tempfile
+
+    from cuda_raytracer_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    for line in _build.ptxas_report("rng"):
+        print(f"[rng] ptxas, rng.cu: {line}")
+    _rng_semantics()
+    sky = sky_map()
+    results = []
+    with tempfile.TemporaryDirectory() as tmp:
+        docs = {}
+        # _run_i_make names the lightless document too
+        for lights in (("area",), ("area", "directional"), ()):
+            docs[lights] = os.path.join(tmp, f"run_j_{len(lights)}.dae")
+            with open(docs[lights], "w") as f:
+                f.write(run_c_document(n, lights))
+        for label, kind, frames in RUN_J:
+            results.append(_run_j_setting(label, kind, frames, docs, sky, n))
+    run_a = results[0]
+    per_frame = run_a["shapes"][:len(run_a["shapes"]) // RUN_J[0][2]]
+    lanes = WIDTH * HEIGHT * fast_config().samples_per_frame
+    measured = {}
+    for shape, repeat in dict.fromkeys(per_frame):
+        measured[shape, repeat] = measure_rng("run A's draw", shape, repeat)
+    odd = measure_rng("odd length", (lanes + 1,))
+    frame_ms = sum(measured[c]["ms"] for c in per_frame)
+    frame_bound = sum(_rng_bound(*c)["bound_ms"] for c in per_frame)
+    print(f"[rng] run A's frame: {len(per_frame)} draws "
+          f"{dict((c, per_frame.count(c)) for c in dict.fromkeys(per_frame))}"
+          f", kernel {frame_ms:.4f} ms summed, bound {frame_bound:.5f} ms; "
+          f"phase 13 took {time.perf_counter() - t0:.1f} s")
+    main = measured[(lanes, 2), 1]
+    err = max([odd["max_abs_err"]]
+              + [m["max_abs_err"] for m in measured.values()])
+    # not a pallas_call: it replaces the first of the JAX frame's draws
+    return dict(kernel_row("rng_uniform", "rng.cu", "",
+                           run_a["launches"]["rng_uniform"], main, err),
+                replaces="cuda_raytracer_tpu/ops/shade.py:181")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "cuda_raytracer_tpu_torch")):
@@ -3848,6 +4152,7 @@ def main() -> int:
     row_w2 = phase_run_g()
     rows_h = phase_run_h()
     phase_run_i()
+    row_rng = phase_rng()
     # the payload partition's row: its launches and times on the path that
     # runs it, whole-depth compaction (the shipped preset launches it 0
     # times)
@@ -3862,6 +4167,7 @@ def main() -> int:
     kernels.append(row_dyn)
     kernels.append(row_w2)
     kernels += rows_h
+    kernels.append(row_rng)
     print(f"[total] {time.perf_counter() - t_start:.1f} s from the start of "
           f"main, imports of torch and the port included")
 

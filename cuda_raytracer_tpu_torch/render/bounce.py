@@ -54,8 +54,7 @@ def make_stage_fns(cfg: RenderConfig):
         rng_granule > 1 (see cfg.rng_granule)."""
         g = cfg.rng_granule
         if g > 1 and n % g == 0:
-            u = rng.uniform(key, (n // g, 2), device)
-            return torch.repeat_interleave(u, g, dim=0)
+            return rng.uniform(key, (n // g, 2), device, repeat=g)
         if g > 1:
             warnings.warn(
                 f"rng_granule={g} does not divide the {n}-lane "

@@ -46,10 +46,12 @@ from typing import Callable, Dict, Hashable, Tuple
 
 import torch
 
+from .. import rng
 from ..ops import packet_dfs, partition, wavefront2
 
 #: the kernel wrappers' launch counters: (module, attribute)
 COUNTERS = (
+    (rng, "launches"),
     (packet_dfs, "launches"),
     (packet_dfs, "bf16_launches"),
     (partition, "launches"),

@@ -19,13 +19,16 @@ the port does not swap in ``torch.Generator``; it reproduces
   maps the top 23 bits to ``[1, 2)`` and subtracts 1.
 
 Keys are derived on the host (a few Python integer rounds); only the
-bulk ``uniform`` runs on the device, as int64 tensor ops masked to 32
-bits, so CPU and CUDA give the same bits, from key words given as ints
-or as tensors alike.
+bulk ``uniform`` runs on the device.  On a CUDA device it launches one
+kernel (ops/csrc/rng.cu: the whole hash and map per element, in u32
+registers) or raises; on the CPU it runs ``uniform_plain``, the same
+hash as int64 tensor ops masked to 32 bits.  Both give jax.random's
+bits, from key words given as ints or as tensors alike.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from collections.abc import Mapping
 from typing import Dict, Hashable, Iterator, List, Sequence, Tuple
@@ -37,6 +40,12 @@ Key = Tuple[int, int]
 _M32 = 0xFFFFFFFF
 _ROT0 = (13, 15, 26, 6)
 _ROT1 = (17, 29, 16, 24)
+
+#: launches of the uniform kernel (ops/csrc/rng.cu) since the count was
+#: last set to 0
+launches = 0
+
+_lib = None
 
 
 def _rotl(x, r: int):
@@ -84,15 +93,112 @@ def split(key: Key, num: int = 2) -> List[Key]:
     return [threefry2x32(key, 0, i) for i in range(num)]
 
 
-def uniform(key, shape: Sequence[int], device) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32)`` on ``device``.  The
-    key words are ints or 0-d int64 tensors on ``device`` (a
-    ``KeyTable`` entry); the bits are the same."""
+def _repeated(shape, repeat: int):
+    """The shape of ``shape``'s draw repeated ``repeat`` times along axis
+    0 (jnp.repeat)."""
+    shape = tuple(int(s) for s in shape)
+    if repeat == 1:
+        return shape
+    if repeat < 1 or not shape:
+        raise ValueError(f"repeat {repeat} of shape {shape}: want repeat "
+                         ">= 1 and a first axis")
+    return (shape[0] * repeat,) + shape[1:]
+
+
+def uniform(key, shape: Sequence[int], device, repeat: int = 1
+            ) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)`` on ``device``, each
+    row repeated ``repeat`` times along axis 0 (``jnp.repeat(..., repeat,
+    axis=0)``: draw_u2's per-granule draws).  The key words are ints or
+    0-d int64 tensors on ``device`` (a ``KeyTable`` entry); the bits are
+    the same.
+
+    On a CUDA device the kernel (or an error); on the CPU the plain
+    version."""
+    dev = (torch.device(device) if device is not None
+           else torch.get_default_device())
+    if dev.type == "cuda":
+        return uniform_cuda(key, shape, dev, repeat)
+    if dev.type == "cpu":
+        return uniform_plain(key, shape, dev, repeat)
+    raise ValueError(f"no uniform path for device {dev}")
+
+
+def uniform_plain(key, shape: Sequence[int], device, repeat: int = 1
+                  ) -> torch.Tensor:
+    """``uniform`` in int64 tensor ops (any device)."""
     idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
     b0, b1 = threefry2x32(key, idx >> 32, idx & _M32)
     fbits = ((b0 ^ b1) >> 9) | 0x3F800000  # < 2^31: exact in int32
-    return (fbits.to(torch.int32).view(torch.float32) - 1.0).reshape(
+    u = (fbits.to(torch.int32).view(torch.float32) - 1.0).reshape(
         tuple(shape))
+    if repeat != 1:
+        _repeated(shape, repeat)  # refuses what the kernel refuses
+        u = torch.repeat_interleave(u, repeat, dim=0)
+    return u
+
+
+def _load_library():
+    global _lib
+    if _lib is None:
+        # imported here: ops/ imports this module
+        from .ops._build import load_library
+
+        lib = load_library("rng")
+        p, ll = ctypes.c_void_p, ctypes.c_longlong
+        lib.rng_uniform.argtypes = [p, p, ctypes.c_uint32, ctypes.c_uint32,
+                                    p, ll, ll, ll, p]
+        lib.rng_uniform.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _key_words(key, dev):
+    """(pointer, pointer, word, word) of a key for the kernel: two
+    device pointers to int64 words (and zeros), or two null pointers and
+    the words."""
+    k0, k1 = key
+    tensors = [isinstance(k, torch.Tensor) for k in (k0, k1)]
+    if not any(tensors):
+        return None, None, int(k0) & _M32, int(k1) & _M32
+    if not all(tensors):
+        raise TypeError("key: both words ints or both tensors")
+    for k in (k0, k1):
+        if k.dtype != torch.int64 or k.numel() != 1 or k.device != dev:
+            raise ValueError(f"key word: {k.dtype} {tuple(k.shape)} on "
+                             f"{k.device}, want one int64 on {dev}")
+    return k0.data_ptr(), k1.data_ptr(), 0, 0
+
+
+def uniform_cuda(key, shape: Sequence[int], device, repeat: int = 1
+                 ) -> torch.Tensor:
+    """Launch the kernel on ``device``'s current stream (``uniform`` on
+    a CUDA device).  A tensor key is read on the device when the kernel
+    runs, never copied to the host."""
+    global launches
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("uniform_cuda needs a CUDA device")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    out = torch.empty(_repeated(shape, repeat), dtype=torch.float32,
+                      device=dev)
+    n = out.numel()
+    if n == 0:
+        return out
+    if repeat != 1 and n >= 1 << 32:
+        raise ValueError(f"repeat form of {n} outputs: the kernel takes "
+                         "fewer than 2^32")
+    p0, p1, h0, h1 = _key_words(key, dev)
+    inner = n // out.shape[0] if repeat != 1 else 1
+    err = _load_library().rng_uniform(
+        p0, p1, h0, h1, out.data_ptr(), n, inner, repeat,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rng_uniform kernel launch failed: cuda error "
+                           f"{err}")
+    launches += 1
+    return out
 
 
 class KeyTable(Mapping):
