@@ -9,8 +9,8 @@ main path at full size, checks the card against the CPU per pixel, and
 prints one JSON line for the kernels and, last, the device line.  Phases:
 
 1. set-up: the card's name and power limit, nvcc's version, the build of
-   packet_dfs.cu, partition.cu, wavefront2.cu and rng.cu (one nvcc each,
-   started together) and what ptxas reports for each kernel (registers, stack
+   packet_dfs.cu, partition.cu, wavefront2.cu, rng.cu and shade.cu (one
+   nvcc each, started together) and what ptxas reports for each kernel (registers, stack
    frame, spills, shared memory);
 2. the packet-DFS kernel against its plain version on 262,144 rays of
    terrain n=121 (28,800 tris): hit/miss, prim and t bit-equal, shadow
@@ -163,7 +163,26 @@ prints one JSON line for the kernels and, last, the device line.  Phases:
    turns and a profiled frame each; and the kernel against uniform_plain
    at the shapes run A's frame draws ([15,360,000, 2], [15,360,000],
    (15,000, 2) repeated 1,024 times) and at 15,360,001, with an int key
-   and a KeyTable key, bit for bit, timed beside its bound.
+   and a KeyTable key, bit for bit, timed beside its bound;
+14. run K, the shading kernels (ops/csrc/shade.cu: shade_hit, nee_prep,
+   nee_accum, scatter with its roulette; every stage of every frame on
+   the card): what ptxas says of them; every stage call of seven eager
+   frames (run A; run C's document under the fast preset: mirror and
+   glass; a refractive sphere, a point and a spot light under the
+   default preset; run G's --hemisphere cosine and --reference-compat;
+   run H's directional light and sky map; the lightless document's
+   hemisphere) held against its plain version on the same inputs, within
+   rtol 1e-5 / atol 1e-6 per float field (scatter's importance on a
+   diffuse lane whose weight is ill-conditioned: rtol 1e-5 plus the
+   weight's conditioning, from the inputs), bool and index fields exact,
+   every lane that differs near a threshold, every branch and lobe
+   reached; each kernel timed at run A's shapes beside the bytes its
+   call needs and its plain version; and runs A, B, B under
+   compact_depths, G's pass and H's reference pass, graphed, shaded by
+   the kernels and again by the plain stages (the script swaps the stage
+   functions; the package has no switch) in one process: pixels within
+   the card-vs-CPU gate, launches as the schedule gives, times in turns
+   and a profiled frame each.
 
 Needs one CUDA card; exits non-zero (and prints no result) without one,
 or when run outside a checkout of the repository.  Imports nothing of
@@ -303,6 +322,10 @@ COUNTERS = {
     "wf2_pack_dyn_bf16": ("wavefront2", "pack_dyn_bf16_launches"),
     "wf2_decode": ("wavefront2", "decode_launches"),
     "rng_uniform": ("rng", "launches"),
+    "shade_hit": ("shade_stages", "shade_hit_launches"),
+    "nee_prep": ("shade_stages", "nee_prep_launches"),
+    "nee_accum": ("shade_stages", "nee_accum_launches"),
+    "scatter": ("shade_stages", "scatter_launches"),
 }
 #: leaf prims a pack block stages in shared memory (WF_STAGE_PRIMS of
 #: ops/csrc/wavefront2.cu); a segment with more reads them from global
@@ -344,7 +367,7 @@ def read_launches():
 def phase_setup():
     from cuda_raytracer_tpu_torch import rng
     from cuda_raytracer_tpu_torch.ops import _build, packet_dfs, partition
-    from cuda_raytracer_tpu_torch.ops import wavefront2
+    from cuda_raytracer_tpu_torch.ops import shade_stages, wavefront2
 
     print(f"[setup] card: {smi_line()}")
     nvcc = _build.nvcc_command("", "")[0]
@@ -353,14 +376,16 @@ def phase_setup():
     print(f"[setup] nvcc: {ver[-1]}")
     t0 = time.perf_counter()
     sources = (("packet_dfs", packet_dfs.build_defines()),
-               ("partition", ()), ("wavefront2", ()), ("rng", ()))
+               ("partition", ()), ("wavefront2", ()), ("rng", ()),
+               ("shade", ()))
     _build.build_all(sources)
     packet_dfs._load_library()
     partition._load_library()
     wavefront2._load_library()
     rng._load_library()
-    print(f"[setup] packet_dfs.cu, partition.cu, wavefront2.cu and rng.cu "
-          f"built (one nvcc each, in parallel) and loaded in "
+    shade_stages._load_library()
+    print(f"[setup] packet_dfs.cu, partition.cu, wavefront2.cu, rng.cu and "
+          f"shade.cu built (one nvcc each, in parallel) and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, defines in sources:
         for line in _build.ptxas_report(name, defines):
@@ -566,6 +591,18 @@ def draws_per_frame(cfg, num_lights):
     return n
 
 
+def stage_launches(cfg, num_lights):
+    """Launches of each shading kernel (ops/csrc/shade.cu) in one frame of
+    ``cfg`` over ``num_lights`` lights: shade_hit once per depth,
+    nee_prep and nee_accum once per NEE sample and light, scatter (with
+    its roulette) once per depth below max depth.  Compacted depths
+    launch the same over their bucket."""
+    nee = sum(cfg.nee_schedule[depth][0] * num_lights
+              for depth in range(min(cfg.max_depth, len(cfg.nee_schedule))))
+    return dict(shade_hit=cfg.max_depth, nee_prep=nee, nee_accum=nee,
+                scatter=cfg.max_depth - 1)
+
+
 def expected_launches(r, frames):
     """Launches per kernel that ``frames`` frames must make, from the
     config's pass classes and the scene's wavefront schedule: a depth
@@ -577,13 +614,15 @@ def expected_launches(r, frames):
     count and pack launches are their bf16 forms'; under whole-depth
     compaction the roulette depths' traces have no partition of their
     own, and the path state's partition runs before the first of them
-    and after each but the last.  The uniform kernel: draws_per_frame."""
+    and after each but the last.  The uniform kernel: draws_per_frame;
+    the shading kernels: stage_launches."""
     cfg, bvh = r.config, r.scene.bvh
     inner = [lv.has_inner for lv in bvh.wf_levels]
     n_pack = inner.index(False) + 1 if False in inner else len(inner)
     n_count = int(inner[0])
     want = dict.fromkeys(COUNTERS, 0)
     want["rng_uniform"] = draws_per_frame(cfg, r.scene.num_lights)
+    want.update(stage_launches(cfg, r.scene.num_lights))
     bf = "_bf16" if cfg.slab_bf16 else ""
     # whole-depth compaction: one payload partition before the first
     # roulette depth and one after each roulette depth but the last; its
@@ -2048,8 +2087,11 @@ def _width16(n=121, small_n=8):
     check(r.dropped == 0 and bool(np.isfinite(img).all())
           and float(img.mean()) > 0.0, "W=16 frame: bad image")
     draws = draws_per_frame(r.config, r.scene.num_lights)
-    check(launches == dict(dict.fromkeys(COUNTERS, 0), rng_uniform=draws),
-          f"W=16 frame launched a kernel other than its {draws} draws")
+    shading = stage_launches(r.config, r.scene.num_lights)
+    check(launches == dict(dict.fromkeys(COUNTERS, 0), rng_uniform=draws,
+                           **shading),
+          f"W=16 frame launched a traversal kernel (want only its {draws} "
+          f"draws and the shading kernels {shading})")
 
     w, h, spf, frames = 64, 32, 2, 2
     kw = fast_preset_kwargs(w, h, spf * frames)
@@ -3680,6 +3722,12 @@ def _run_i_make(kind, graphed, docs, sky, n):
         r.load_static_scene(cornell_box_scene(with_spheres=True))
         r.set_viewpoint(*VIEW_A)
         return r
+    if kind == "run_b":
+        r = WavefrontRenderer(fast_config(**fuse), camera_mode="collada",
+                              device=DEVICE)
+        r.load_static_scene(terrain_scene(n=n))
+        r.set_viewpoint(*VIEW_B)
+        return r
     if kind == "shards":
         r = ShardedRenderer(fast_config(shard_mode="samples", **fuse),
                             [torch.device(DEVICE)] * 4)
@@ -4129,6 +4177,642 @@ def phase_rng(n=121):
                 replaces="cuda_raytracer_tpu/ops/shade.py:181")
 
 
+# ---------------------------------------------------------------------------
+# phase 14 (run K): the shading stages' kernels (ops/csrc/shade.cu)
+# ---------------------------------------------------------------------------
+
+#: the four shading kernels: name -> the stage function of the JAX
+#: package whose XLA fusion it replaces (not a pallas_call)
+SHADE_KERNELS = {
+    "shade_hit": "cuda_raytracer_tpu/render/bounce.py:71",
+    "nee_prep": "cuda_raytracer_tpu/render/bounce.py:86",
+    "nee_accum": "cuda_raytracer_tpu/render/bounce.py:93",
+    "scatter": "cuda_raytracer_tpu/render/bounce.py:99",
+}
+#: a kernel against its plain version on the card, per float field: the
+#: kernel rounds op by op (-fmad=false); torch's cross, vector_norm and
+#: sums may contract a multiply-add or sum in another order
+STAGE_RTOL, STAGE_ATOL = 1e-5, 1e-6
+#: a lane may disagree only where a quantity that decides a branch
+#: (backface, the frame's guide, ok, the light's side and cone, the fold's
+#: sign, a diffuse weight's 0, tir, the Fresnel pick, roulette) lies
+#: within this of its threshold (STAGE_RTOL on the scale of a unit
+#: vector).  One field alone is held to a wider tolerance set from its
+#: inputs: scatter's importance on a diffuse lane whose weight
+#: 2|dot(d, n)| is ill-conditioned (the dot's rounding bound over the dot
+#: above half of STAGE_RTOL), to STAGE_RTOL plus that conditioning
+NEAR = 1e-5
+#: the relative rounding bound of a three-term dot product, 3u / (1 - 3u)
+#: with u = 2^-24
+GAMMA_3 = 3 * 2.0 ** -24 / (1 - 3 * 2.0 ** -24)
+#: float operations per lane, counted from shade.cu (a sqrt, division,
+#: sin, cos, acos or atan2 as one; the shortest branch), for the bound
+SHADE_FLOPS = {"shade_hit": 230, "nee_prep": 45, "nee_accum": 5,
+               "scatter": 120}
+#: the branches the stage inputs of phase 14's frames must reach, by
+#: stage, and the BSDF lobes of scatter's lanes (scene/bsdf.py codes:
+#: diffuse, mirror, refraction, glass, emission)
+SHADE_BRANCHES = {
+    "shade_hit": {"emission", "emission + env miss", "no emission"},
+    "nee_prep": {"area", "area two-sided", "point", "spot", "directional",
+                 "hemisphere", "environment"},
+    "nee_accum": {"shadow test", "shadow test + prim_s >= 0"},
+    "scatter": {"fold", "fold + roulette", "uniform", "cosine"},
+}
+SHADE_LOBES = {0, 1, 2, 3, 4}
+LIGHT_NAMES = {0: "area", 1: "point", 2: "directional", 3: "hemisphere",
+               4: "spot", 5: "environment"}
+#: run K: the frames shaded by the kernels and again by the plain stages
+#: (label, how the renderer is made (``_run_i_make``))
+RUN_K = (
+    ("run A", "run_a"),
+    ("run B", "run_b"),
+    ("run B, compact_depths", "compact"),
+    ("run G default pass", "run_g"),
+    ("run H reference, three lights", "run_h"),
+)
+
+
+@contextlib.contextmanager
+def _plain_stages():
+    """A context in which the four shading stages are their plain
+    versions (torch ops on the card): a frame's twin shaded without the
+    kernels.  The package has no such switch; only this script swaps."""
+    from cuda_raytracer_tpu_torch.ops import shade_stages as SS
+
+    kernel = {k: getattr(SS, k) for k in SHADE_KERNELS}
+    for k in SHADE_KERNELS:
+        setattr(SS, k, getattr(SS, f"{k}_plain"))
+    try:
+        yield
+    finally:
+        for k, fn in kernel.items():
+            setattr(SS, k, fn)
+
+
+def _stage_compare(log, stage, branch, got, want, near, rtol=None):
+    """One call of a stage's kernel against its plain version: ``got``
+    and ``want`` map output names to tensors ([N] or [N, 3]).  A lane is
+    off where a bool or index field differs or a float field is outside
+    STAGE_RTOL / STAGE_ATOL; an off lane must be ``near`` a threshold.
+    ``rtol`` may map one float field to a per-lane [N] relative tolerance
+    that replaces STAGE_RTOL where it is larger (a tolerance set from the
+    inputs' conditioning); such lanes are counted, and those that need
+    more than STAGE_RTOL.  Adds the call to ``log[stage, branch]``."""
+    import torch
+
+    n = next(iter(want.values())).shape[0]
+    off = torch.zeros(n, dtype=torch.bool, device=near.device)
+    flips, err, rel, wide, used = {}, 0.0, 0.0, 0, 0
+    for name, b in want.items():
+        a = got[name]
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"{stage} ({branch}): {name} {a.dtype} {tuple(a.shape)} "
+              f"against {b.dtype} {tuple(b.shape)}")
+        if not b.dtype.is_floating_point:
+            lane = a != b
+        else:
+            close = torch.isclose(a, b, rtol=STAGE_RTOL, atol=STAGE_ATOL,
+                                  equal_nan=True)
+            if rtol is not None and name in rtol:
+                r = rtol[name] if b.dim() == 1 else rtol[name][:, None]
+                within = (a - b).abs() <= STAGE_ATOL + r * b.abs()
+                strict = close if close.dim() == 1 else close.all(-1)
+                close = close | within
+                lane_w = rtol[name] > STAGE_RTOL
+                wide += int(lane_w.sum())
+                used += int((lane_w & ~strict
+                             & (close if close.dim() == 1
+                                else close.all(-1))).sum())
+            lane = ~close if close.dim() == 1 else ~close.all(-1)
+        flips[name] = int(lane.sum())
+        far = torch.nonzero(lane & ~near).flatten()[:3].tolist()
+        for i in far:
+            print(f"[shade] {stage} ({branch}): lane {i} of {n}, {name}: "
+                  f"kernel {a[i].tolist()}, plain {b[i].tolist()}")
+        off |= lane
+    for name, b in want.items():
+        a = got[name]
+        if b.dtype.is_floating_point:
+            keep = ~off if b.dim() == 1 else ~off[:, None].expand_as(b)
+            fin = keep & torch.isfinite(b) & torch.isfinite(a)
+            diff = (a - b).abs()[fin]
+            if diff.numel():
+                err = max(err, float(diff.max()))
+                # relative error where the value is above atol
+                big = b.abs()[fin] > STAGE_ATOL
+                if bool(big.any()):
+                    rel = max(rel, float((diff[big] / b.abs()[fin][big]).max()))
+    n_off, n_far = int(off.sum()), int((off & ~near).sum())
+    e = log.setdefault((stage, branch), dict(calls=0, lanes=0, off=0, far=0,
+                                             near=0, wide=0, used=0,
+                                             err=0.0, rel=0.0, flips={}))
+    e["calls"] += 1
+    e["lanes"] += n
+    e["off"] += n_off
+    e["far"] += n_far
+    e["near"] += int(near.sum())
+    e["wide"] += wide
+    e["used"] += used
+    e["err"], e["rel"] = max(e["err"], err), max(e["rel"], rel)
+    for k, v in flips.items():
+        e["flips"][k] = e["flips"].get(k, 0) + v
+    return torch.nonzero(off & ~near).flatten()[:3].tolist()
+
+
+def _dot3(a, b):
+    return (a * b).sum(-1)
+
+
+@contextlib.contextmanager
+def _probe_stages(log, kept=None, lobes=None):
+    """A context in which every call of a shading stage runs its kernel
+    and its plain version on the same inputs (the same draws: the plain
+    scatter draws from the keys the kernel's draws came from), holds them
+    together (``_stage_compare``) and returns the kernel's outputs.
+    ``kept``, a dict, receives each stage's first call (scatter: its
+    first with roulette) as (kernel function, its arguments, plain
+    function, its arguments); ``lobes``, a set, the BSDF codes of
+    scatter's live lanes."""
+    import torch
+
+    from cuda_raytracer_tpu_torch.ops import shade as S
+    from cuda_raytracer_tpu_torch.ops import shade_stages as SS
+
+    real = {k: getattr(SS, k) for k in SHADE_KERNELS}
+    hit_fields = ("valid", "pt", "n", "dpdu", "dpdv", "wo_local", "bsdf",
+                  "t", "backface")
+
+    def keep(name, fk, ak, fp, ap):
+        if kept is not None and name not in kept:
+            kept[name] = (fk, ak, fp, ap)
+
+    def shade_hit(scene, o, d, t, prim, valid, imp, light, ce, eps, compat):
+        args = (scene, o, d, t, prim, valid, imp, light, ce, eps, compat)
+        hk, lk = SS.shade_hit_cuda(*args)
+        hp, lp = SS.shade_hit_plain(*args)
+        branch = ("no emission" if compat else
+                  "emission + env miss" if scene.has_env else "emission")
+        got = dict(zip(hit_fields, hk), light=lk)
+        want = dict(zip(hit_fields, hp), light=lp)
+        ny = hp.n[:, 1]
+        near = ((_dot3(hp.n, d).abs() <= NEAR) | ((ny - 1e-4).abs() <= NEAR)
+                | ((ny + 0.999).abs() <= NEAR))
+        _stage_compare(log, "shade_hit", branch, got, want, near)
+        keep("shade_hit", SS.shade_hit_cuda, args, SS.shade_hit_plain, args)
+        return hk, lk
+
+    def nee_prep(scene, hit, imp, li, u, weight, compat_two_sided=False):
+        args = (scene, hit, imp, li, u, weight, compat_two_sided)
+        ok_k = SS.nee_prep_cuda(*args)
+        ok_p = SS.nee_prep_plain(*args)
+        kind = scene.light_kinds[li]
+        branch = LIGHT_NAMES[kind] + (" two-sided" if compat_two_sided
+                                      and kind == 0 else "")
+        names = ("o", "wi", "max_t", "li", "ok")
+        wi = ok_p[1]
+        cos_surf = _dot3(hit.n, wi).abs()
+        near = (((ok_p[2] - 1e-2).abs() <= NEAR)
+                | ((cos_surf - 1e-2).abs() <= NEAR))
+        ldir = scene.light_direction[li]
+        if kind == 0:
+            near |= _dot3(wi, ldir).abs() <= NEAR
+        if kind == 4:
+            cone = torch.cos(scene.light_area[li] / 2)
+            near |= (_dot3(-wi, ldir) - cone).abs() <= NEAR
+        _stage_compare(log, "nee_prep", branch, dict(zip(names, ok_k)),
+                       dict(zip(names, ok_p)), near)
+        keep("nee_prep", SS.nee_prep_cuda, args, SS.nee_prep_plain, args)
+        return ok_k
+
+    def nee_accum(light, t_s, prim_s, max_t, li_imp, ok, eps, compat):
+        args = (light, t_s, prim_s, max_t, li_imp, ok, eps, compat)
+        lk = SS.nee_accum_cuda(*args)
+        lp = SS.nee_accum_plain(*args)
+        branch = "shadow test" + (" + prim_s >= 0" if compat else "")
+        # the same inputs and one subtraction: no lane may differ
+        near = torch.zeros_like(ok)
+        _stage_compare(log, "nee_accum", branch, dict(light=lk),
+                       dict(light=lp), near)
+        keep("nee_accum", SS.nee_accum_cuda, args, SS.nee_accum_plain, args)
+        return lk
+
+    def scatter(scene, hit, imp, keys, u, fold, rr_key, eps, hs):
+        n, dev = hit.t.shape[0], hit.t.device
+        uu, u_f, u_rr = SS.scatter_draws(keys, u, rr_key, n, dev)
+        args_k = (scene, hit, imp, uu, u_f, u_rr, fold, eps, hs)
+        args_p = (scene, hit, imp, keys, u, fold, rr_key, eps, hs)
+        out_k = SS.scatter_drawn(*args_k)
+        out_p = SS.scatter_plain(*args_p)
+        branch = ("fold" if fold else hs) + (" + roulette" if rr_key
+                                             is not None else "")
+        # the deciding quantities, from the same inputs
+        wo, ior = hit.wo_local, scene.bsdf_ior[hit.bsdf]
+        cos_o = torch.clamp(wo[:, 2], 1e-6, 1.0)
+        eta = torch.where(hit.backface, ior, 1.0 / ior)
+        sin2_t = eta * eta * torch.clamp_min(1.0 - cos_o * cos_o, 0.0)
+        r0 = ((1.0 - ior) / (1.0 + ior)) ** 2
+        fres = r0 + (1.0 - r0) * (1.0 - cos_o) ** 5
+        near = ((sin2_t - 1.0).abs() <= NEAR) | ((u_f - fres).abs() <= NEAR)
+        # a diffuse lane's weight 2|dot(d, n)| (uniform and fold sampling;
+        # cosine sampling's is the albedo): each version rounds the dot
+        # three times, so the two differ by at most
+        # 2 gamma_3 sum|d_i n_i| (the plain version's d and the hit's n);
+        # over |dot| that is the weight's conditioning, which carries
+        # into importance (roulette's 1/p with it).  The weight's
+        # threshold is 0 (valid needs importance > 0).
+        dp = out_p[1]
+        dn = _dot3(dp, hit.n).abs()
+        diffuse = (scene.bsdf_fn[hit.bsdf] == 0) & (hs != "cosine" or fold)
+        near |= diffuse & (dn <= NEAR)
+        if fold:
+            near |= _dot3(S._spherical_sample(uu), hit.n).abs() <= NEAR
+        cond = torch.where(diffuse & (dn > NEAR),
+                           2 * GAMMA_3 * (dp * hit.n).abs().sum(-1) / dn, 0.0)
+        cond = torch.where(cond > 0.5 * STAGE_RTOL, cond, 0.0)
+        if u_rr is not None:
+            # p from the plain version's importance before the roulette;
+            # where the weight is ill-conditioned, p is no closer than
+            # its conditioning
+            pre = SS.scatter_plain(scene, hit, imp, keys, u, fold, None,
+                                   eps, hs)[2]
+            p = torch.clamp(pre.amax(-1), 0.05, 1.0)
+            near |= (u_rr - p).abs() <= NEAR + cond * p
+        names = ("o", "d", "importance", "valid", "count_emission")
+        far = _stage_compare(log, "scatter", branch, dict(zip(names, out_k)),
+                             dict(zip(names, out_p)), near,
+                             rtol=dict(importance=STAGE_RTOL + cond))
+        for i in far:
+            dn = float(_dot3(out_p[1][i], hit.n[i]))
+            print(f"[shade] scatter ({branch}): lane {i}: bsdf "
+                  f"{int(scene.bsdf_fn[hit.bsdf[i]])}, backface "
+                  f"{bool(hit.backface[i])}, sin2_t {float(sin2_t[i])}, "
+                  f"u_f - fres {float(u_f[i] - fres[i])}, dot(d, n) {dn}, "
+                  f"importance in {imp[i].tolist()}"
+                  + (f", u_rr - p {float(u_rr[i] - p[i])}"
+                     if u_rr is not None else ""))
+        if lobes is not None:
+            fn = scene.bsdf_fn[hit.bsdf][hit.valid]
+            lobes.update(int(x) for x in torch.unique(fn).tolist())
+        if rr_key is not None:
+            keep("scatter", SS.scatter_drawn, args_k, SS.scatter_plain,
+                 args_p)
+        return out_k
+
+    probes = dict(shade_hit=shade_hit, nee_prep=nee_prep,
+                  nee_accum=nee_accum, scatter=scatter)
+    for k, fn in probes.items():
+        setattr(SS, k, fn)
+    try:
+        yield
+    finally:
+        for k, fn in real.items():
+            setattr(SS, k, fn)
+
+
+def refraction_scene():
+    """The Cornell box with its mirror and glass spheres and a third,
+    refractive sphere, lit by its area light, a point light and a spot
+    light aimed at the floor."""
+    from cuda_raytracer_tpu_torch.models.cornell import cornell_box_scene
+    from cuda_raytracer_tpu_torch.scene import static_scene as st
+    from cuda_raytracer_tpu_torch.scene.bsdf import RefractionBSDF
+
+    box = cornell_box_scene(with_spheres=True, sphere_bsdfs="classic")
+    objects = list(box.objects) + [st.SphereObject(
+        [0.0, 0.9, -0.5], 0.25, RefractionBSDF([0.9, 0.9, 0.9], 0.0, 1.45))]
+    lights = list(box.lights) + [
+        st.PointLight([2.0, 2.0, 2.0], [0.5, 1.2, 0.4]),
+        st.SpotLight([3.0, 3.0, 3.0], [-0.5, 1.4, 0.5], [0.3, -1.0, -0.2],
+                     50.0),
+    ]
+    return st.Scene(objects, lights)
+
+
+def _shade_branch_settings(docs, sky, n):
+    """(label, make) of the eager renderers whose frames phase 14 probes:
+    every branch of SHADE_BRANCHES and every lobe between them."""
+    from cuda_raytracer_tpu_torch.config import RenderConfig
+    from cuda_raytracer_tpu_torch.render.engine import WavefrontRenderer
+
+    size = ["--size", f"{WIDTH}x{HEIGHT}"]
+    doc = docs[("area",)]
+
+    def cli(flags):
+        def make():
+            cfg, mode = _cli_config([doc, *size, *flags], fuse_frame="no")
+            r = WavefrontRenderer(cfg, camera_mode=mode, device=DEVICE)
+            r.load_scene(doc)
+            return r
+        return make
+
+    def refraction(**over):
+        def make():
+            cfg = RenderConfig(width=WIDTH, height=HEIGHT, total_samples=2,
+                               samples_per_frame=2, fuse_frame="no", **over)
+            r = WavefrontRenderer(cfg, camera_mode="collada", device=DEVICE)
+            r.load_static_scene(refraction_scene())
+            r.set_viewpoint(*VIEW_A)
+            return r
+        return make
+
+    return (
+        ("run A (fast preset: fold, roulette, area light, emitter)",
+         lambda: _run_i_make("run_a", False, docs, sky, n)),
+        ("run C's document (fast preset: mirror, glass)",
+         cli(["--preset", "fast"])),
+        ("refraction sphere, point and spot light (default preset)",
+         refraction()),
+        ("run G --hemisphere cosine", cli(["--hemisphere", "cosine"])),
+        ("run G --reference-compat (two-sided)",
+         cli(["--reference-compat", "--camera-mode", "cutracer"])),
+        ("run H reference (directional, environment)",
+         lambda: _run_i_make("run_h", False, docs, sky, n)),
+        ("lightless document (hemisphere)",
+         lambda: _run_i_make("lightless", False, docs, sky, n)),
+    )
+
+
+def _rows_bytes(x, lanes=None):
+    """Bytes of tensor x a kernel must read or write: its rows where
+    ``lanes`` ([N] bool) is set (all rows for None), a stride-0 axis (the
+    camera's expand) counted once."""
+    row = x.element_size() * math.prod(
+        s for s, st in zip(x.shape[1:], x.stride()[1:]) if st != 0)
+    if x.dim() and x.stride(0) == 0:
+        return row
+    return row * (x.shape[0] if lanes is None else int(lanes.sum()))
+
+
+def _tensors(obj):
+    """The tensors in a nest of tuples (HitRecords included) and values."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (tuple, list)):
+        return [t for x in obj for t in _tensors(x)]
+    return []
+
+
+def stage_reads(name, ak, out):
+    """(tensor, lanes) of what shading stage ``name``'s call ``ak`` (the
+    kernel's arguments), whose outputs are ``out``, must read in this
+    call's data: each input on the lanes whose outputs need it (lanes
+    None: every lane).  shade_packed counts the rows of the prims hit;
+    the per-BSDF and per-light tables (under 1 KB) and the environment
+    map's texels are not counted."""
+    import torch
+
+    from cuda_raytracer_tpu_torch.render import flatscene as F
+    from cuda_raytracer_tpu_torch.scene import bsdf as B
+
+    if name == "nee_accum":
+        light, t_s, prim_s, max_t, li, ok, eps, compat = ak
+        passes = ok & (t_s > max_t - eps)
+        reads = [(light, None), (ok, None), (t_s, ok), (max_t, ok)]
+        if compat:
+            reads.append((prim_s, passes))
+            passes = passes & (prim_s >= 0)
+        return reads + [(li, passes)]
+    scene = ak[0]
+    if name == "shade_hit":
+        _, o, d, t, prim, valid, imp, light, ce, eps, compat = ak
+        hit = prim >= 0
+        reads = [(o, None), (d, None), (prim, None), (t, hit)]
+        rows = torch.zeros(scene.shade_packed.shape[0], dtype=torch.bool,
+                           device=prim.device)
+        rows[prim[hit].long()] = True
+        reads.append((scene.shade_packed, rows))
+        if compat:
+            return reads
+        emitter = hit & (scene.bsdf_fn[out[0].bsdf] == B.BSDF_EMISSION)
+        # the environment's miss test reads valid; the emission, ce then
+        # importance
+        miss = torch.zeros_like(hit)
+        if scene.has_env:
+            reads.append((valid, ~hit))
+            miss = ~hit & valid
+        return reads + [(light, None), (ce, emitter | miss),
+                        (imp, (emitter | miss) & ce)]
+    if name == "nee_prep":
+        _, hit, imp, li, u, weight, two_sided = ak
+        kind = scene.light_kinds[li]
+        ok = out[4]
+        diffuse = hit.valid & (scene.bsdf_fn[hit.bsdf] == B.BSDF_DIFFUSE)
+        reads = [(hit.valid, None), (hit.bsdf, hit.valid), (hit.n, diffuse),
+                 (imp, ok)]
+        if kind in (F.LIGHT_AREA, F.LIGHT_POINT, F.LIGHT_SPOT):
+            reads.append((hit.pt, None))
+        if kind in (F.LIGHT_AREA, F.LIGHT_HEMISPHERE, F.LIGHT_ENV):
+            reads.append((u, None))
+        return reads
+    _, hit, imp, u, u_f, u_rr, fold, eps, hs = ak
+    fn = scene.bsdf_fn[hit.bsdf]
+    diffuse, emit = fn == B.BSDF_DIFFUSE, fn == B.BSDF_EMISSION
+    # an emitter's lane takes the glass lobe's direction (the plain
+    # version's last choice) with a weight of 0
+    glassy = (fn == B.BSDF_GLASS) | emit
+    reads = [(hit.bsdf, None), (hit.valid, None), (hit.pt, None),
+             (hit.n, None), (hit.dpdu, ~diffuse if fold else None),
+             (hit.dpdv, ~diffuse if fold else None), (hit.wo_local, ~diffuse),
+             (hit.backface, glassy | (fn == B.BSDF_REFRACTION)),
+             (u, diffuse), (u_f, glassy), (imp, ~emit)]
+    if u_rr is not None:
+        # where the path lives on before the roulette (importance over p
+        # is above 0 where importance is)
+        lives = hit.valid & ~emit & (out[2].amax(-1) > 0)
+        reads.append((u_rr, lives))
+    return reads
+
+
+#: bytes written between timed calls so that no input is still in the
+#: card's 50 MB L2 cache: the bytes bound counts each input read from
+#: device memory once
+L2_FLUSH_BYTES = 256 << 20
+
+
+def measure_stage(name, kept):
+    """A shading kernel against its plain version at run A's shapes (the
+    inputs its first call met; scatter's first with roulette): kernel and
+    plain ms, each call after a write of L2_FLUSH_BYTES, and the bound
+    from the bytes this call must move (each input on the lanes that need
+    it, ``stage_reads``, read once; each output written once, nee_prep's
+    ``o`` being hit.pt itself) and SHADE_FLOPS."""
+    import torch
+
+    fk, ak, fp, ap = kept
+    inputs = _tensors(ak)
+    res = fk(*ak)
+    out = [t for t in _tensors(res) if not any(t is x for x in inputs)]
+    reads = stage_reads(name, ak, res)
+    nbytes = (sum(_rows_bytes(x, lanes) for x, lanes in reads)
+              + sum(_rows_bytes(t) for t in out))
+    lanes = out[0].shape[0]
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                        device=out[0].device)
+    ms = cuda_time_ms(lambda: fk(*ak), 10, prep=flush.zero_)
+    plain_ms = cuda_time_ms(lambda: fp(*ap), 3, prep=flush.zero_)
+    b = _bound(nbytes, SHADE_FLOPS[name] * lanes)
+    print(f"[shade] {name} kernel at run A's shapes ({lanes:,} lanes, "
+          f"{nbytes / lanes:.1f} B a lane needed): {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms ({plain_ms / ms:.1f}x), bound "
+          f"{b['bound_ms']:.5f} ms by {b['bound_by']} (bytes "
+          f"{b['bytes_ms']:.5f}, ops {b['ops_ms']:.5f}): "
+          f"{b['bound_ms'] / ms:.1%} of the bound [{smi_line()}]")
+    return dict(ms=ms, plain_ms=plain_ms, lanes=lanes, nbytes=nbytes, **b)
+
+
+def _run_k_setting(label, kind, frames, docs, sky, n):
+    """One run-K setting, graphed: frames shaded by the kernels and frames
+    shaded by the plain stages, each renderer made and driven under its
+    stages; launches as the schedule gives (no shading kernel in the
+    plain twins); the kernel frames within the card-vs-CPU gate of the
+    plain ones, frame by frame; then one frame each in turns (kernel,
+    plain, plain, kernel) and a profiled frame each."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    runs, rs, launches = {}, {}, {}
+    for plain in (False, True):
+        with _plain_stages() if plain else contextlib.nullcontext():
+            r = _run_i_make(kind, True, docs, sky, n)
+            reset_launches()
+            runs[plain] = _run_i_frames(r, frames)
+            launches[plain] = read_launches()
+        want = _run_i_want(r, frames)
+        if plain:
+            want.update(dict.fromkeys(SHADE_KERNELS, 0))
+        check(launches[plain] == want, f"run K {label} "
+              f"({'plain' if plain else 'kernel'} stages): launches "
+              f"{launches[plain]} != the schedule's {want}")
+        check(all(x["dropped"] == 0 for x in runs[plain]),
+              f"run K {label}: dropped rays")
+        rs[plain] = r
+    gate = []
+    for f in range(frames):
+        a, b = runs[False][f]["raw"], runs[True][f]["raw"]
+        bad = ~np.isclose(a, b, rtol=PIXEL_RTOL, atol=PIXEL_ATOL).all(-1)
+        gate.append((1.0 - float(bad.mean()),
+                     float(np.abs(a - b).max()),
+                     bool(np.array_equal(a, b))))
+        check(float(bad.mean()) <= MAX_BAD, f"run K {label}: frame {f} "
+              f"shaded by the kernels differs from the plain stages' in "
+              f"{int(bad.sum())} pixels")
+    turns, busy = {False: [], True: []}, {}
+    for plain in (False, True, True, False):
+        with _plain_stages() if plain else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rs[plain].render()
+            torch.cuda.synchronize()
+        turns[plain].append((time.perf_counter() - t0) * 1e3)
+    for plain in (False, True):
+        with _plain_stages() if plain else contextlib.nullcontext():
+            busy[plain] = _device_busy(rs[plain].render, min(turns[plain]))
+    per_frame = {k: launches[False][k] // frames for k in SHADE_KERNELS}
+    print(f"[run K] {label}: {frames} graphed frames (the last after a "
+          f"camera move) shaded by the kernels against the plain stages: "
+          f"pixels within rtol={PIXEL_RTOL} atol={PIXEL_ATOL} "
+          f"{[f'{g[0]:.5f}' for g in gate]}, max |diff| "
+          f"{[f'{g[1]:.3g}' for g in gate]}, bit-equal {[g[2] for g in gate]};"
+          f" dropped 0; shading launches per frame {per_frame} (the plain "
+          f"twins' 0); in turns kernel {turns[False][0]:.2f}, plain "
+          f"{turns[True][0]:.2f}, plain {turns[True][1]:.2f}, kernel "
+          f"{turns[False][1]:.2f} ms; profiled frame kernel stages "
+          f"{busy[False][0]:.1f} ms of kernels in {busy[False][2]} device "
+          f"launches, busy {busy[False][1]:.3f}; plain stages "
+          f"{busy[True][0]:.1f} ms in {busy[True][2]}, busy "
+          f"{busy[True][1]:.3f} [{smi_line()}]")
+    res = dict(label=label, turns=turns, busy=busy, gate=gate,
+               launches=launches[False])
+    del rs, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_shade(n=121, frames=2):
+    """Phase 14 (run K): the shading kernels (ops/csrc/shade.cu).  What
+    ptxas says of them; every call of every stage in seven eager frames
+    (_shade_branch_settings: the fast and default presets, mirror, glass
+    and refraction, cosine and two-sided, all six light kinds) held
+    against its plain version on the same inputs, every branch of
+    SHADE_BRANCHES and every lobe reached; each kernel timed against its
+    bound and its plain version at run A's shapes; then RUN_K's frames,
+    graphed, shaded by the kernels and by the plain stages in one process
+    (_run_k_setting).  Returns the four kernels' JSON rows."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from cuda_raytracer_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    for line in _build.ptxas_report("shade"):
+        print(f"[shade] ptxas, shade.cu: {line}")
+    sky = sky_map()
+    log, kept, lobes = {}, {}, set()
+    with tempfile.TemporaryDirectory() as tmp:
+        docs = {}
+        for lights in (("area",), ("area", "directional"), ()):
+            docs[lights] = os.path.join(tmp, f"run_k_{len(lights)}.dae")
+            with open(docs[lights], "w") as f:
+                f.write(run_c_document(n, lights))
+        for i, (label, make) in enumerate(_shade_branch_settings(docs, sky,
+                                                                 n)):
+            r = make()
+            with _probe_stages(log, kept if i == 0 else None, lobes):
+                r.render()
+            check(r.dropped == 0, f"phase 14 {label}: dropped rays")
+            del r
+            gc.collect()
+            torch.cuda.empty_cache()
+        t_probe = time.perf_counter() - t0
+        for (stage, branch), e in sorted(log.items()):
+            print(f"[shade] {stage} ({branch}): {e['calls']} call(s), "
+                  f"{e['lanes']:,} lanes; max abs err {e['err']:.3g}, max "
+                  f"rel err {e['rel']:.3g} (rtol={STAGE_RTOL}, "
+                  f"atol={STAGE_ATOL}); lanes off {e['off']} (by field "
+                  f"{e['flips']}), all near a threshold: {e['far'] == 0} "
+                  f"({e['near']:,} such lanes); importance held to a "
+                  f"tolerance from its conditioning on {e['wide']:,} lanes, "
+                  f"{e['used']} of them beyond rtol={STAGE_RTOL}")
+        for (stage, branch), e in log.items():
+            check(e["far"] == 0, f"{stage} ({branch}): {e['far']} lanes "
+                  f"differ from the plain version away from any threshold")
+        for stage, want in SHADE_BRANCHES.items():
+            got = {b for s, b in log if s == stage}
+            check(want <= got, f"phase 14: {stage} never ran "
+                  f"{sorted(want - got)}")
+        check(SHADE_LOBES <= lobes, f"phase 14: scatter never met lobes "
+              f"{sorted(SHADE_LOBES - lobes)}")
+        print(f"[shade] every branch reached ({sum(e['calls'] for e in log.values())} "
+              f"stage calls), scatter's lobes {sorted(lobes)}; probe frames "
+              f"{t_probe:.1f} s")
+        measured = {k: measure_stage(k, kept[k]) for k in SHADE_KERNELS}
+        kept.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        results = [_run_k_setting(label, kind, frames, docs, sky, n)
+                   for label, kind in RUN_K]
+    run_a = results[0]
+    check(all(run_a["launches"][k] > 0 for k in SHADE_KERNELS),
+          f"run K: run A never launched a shading kernel "
+          f"{run_a['launches']}")
+    print(f"[shade] phase 14 took {time.perf_counter() - t0:.1f} s")
+    rows = []
+    for k in SHADE_KERNELS:
+        err = max(e["err"] for (s, _), e in log.items() if s == k)
+        rows.append(dict(kernel_row(k, "shade.cu", "",
+                                    run_a["launches"][k], measured[k], err),
+                         replaces=SHADE_KERNELS[k]))
+    return rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "cuda_raytracer_tpu_torch")):
@@ -4153,6 +4837,7 @@ def main() -> int:
     rows_h = phase_run_h()
     phase_run_i()
     row_rng = phase_rng()
+    rows_shade = phase_shade()
     # the payload partition's row: its launches and times on the path that
     # runs it, whole-depth compaction (the shipped preset launches it 0
     # times)
@@ -4168,6 +4853,7 @@ def main() -> int:
     kernels.append(row_w2)
     kernels += rows_h
     kernels.append(row_rng)
+    kernels += rows_shade
     print(f"[total] {time.perf_counter() - t_start:.1f} s from the start of "
           f"main, imports of torch and the port included")
 

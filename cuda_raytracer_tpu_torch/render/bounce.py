@@ -30,7 +30,7 @@ import torch
 
 from .. import rng
 from ..config import RenderConfig
-from ..ops import shade as S
+from ..ops import shade_stages as SS
 from ..render.flatscene import FlatScene
 from .backends import make_trace_fn
 
@@ -66,44 +66,32 @@ def make_stage_fns(cfg: RenderConfig):
 
     def shade_hit(scene, o, d, t, prim, valid, importance, light,
                   count_emission):
-        hit = S.compute_hits(scene, o, d, t, prim, cfg.origin_eps)
-        if not cfg.reference_compat:
-            light = light + S.emission_at_hits(
-                scene, hit, importance, count_emission
-            )
-            if scene.has_env:
-                miss = valid & (prim < 0)
-                light = light + S.env_miss_radiance(
-                    scene, d, importance, miss, count_emission
-                )
-        return hit, light
+        return SS.shade_hit(scene, o, d, t, prim, valid, importance, light,
+                            count_emission, cfg.origin_eps,
+                            cfg.reference_compat)
 
     def nee_prep(scene, hit, importance, key, li, weight):
         u = draw_u2(key, hit.t.shape[0], hit.t.device)
-        return S.nee_shadow_rays(
-            scene, hit, importance, li, u, weight,
-            compat_two_sided=cfg.reference_compat,
-        )
+        return SS.nee_prep(scene, hit, importance, li, u, weight,
+                           compat_two_sided=cfg.reference_compat)
 
     def nee_accum(light, t_s, prim_s, max_t, li_imp, ok):
-        passes = t_s > max_t - cfg.shadow_eps
-        if cfg.reference_compat:
-            passes = passes & (prim_s >= 0)
-        return light + torch.where((ok & passes)[:, None], li_imp, 0.0)
+        return SS.nee_accum(light, t_s, prim_s, max_t, li_imp, ok,
+                            cfg.shadow_eps, cfg.reference_compat)
 
     def scatter(scene, hit, importance, keys):
-        """``keys``: (shared, hemisphere, fresnel), the depth's scatter
-        keys (frame_keys)."""
-        k_shared, k_hemi, k_fresnel = keys
-        u = w = None
+        """``keys``: (shared, hemisphere, fresnel, roulette), the depth's
+        scatter keys (frame_keys); roulette None where the depth runs
+        none."""
+        k_shared, k_hemi, k_fresnel, k_rr = keys
+        u, fold = None, False
         if cfg.rng_granule > 1:
             u = draw_u2(k_shared, hit.t.shape[0], hit.t.device)
-            if cfg.rng_fold_dirs and cfg.hemisphere_sampling == "uniform":
-                # antithetic fold: one uniform sphere direction per granule
-                u, w = None, S._spherical_sample(u)
-        return S.scatter(scene, hit, importance, None,
-                         cfg.origin_eps, cfg.hemisphere_sampling,
-                         u=u, w_shared=w, split_keys=(k_hemi, k_fresnel))
+            # antithetic fold: one uniform sphere direction per granule
+            fold = cfg.rng_fold_dirs and cfg.hemisphere_sampling == "uniform"
+        return SS.scatter(scene, hit, importance, (k_hemi, k_fresnel), u,
+                          fold, k_rr, cfg.origin_eps,
+                          cfg.hemisphere_sampling)
 
     return {
         "trace": trace,
@@ -173,7 +161,8 @@ def run_bounce_loop(J, cfg: RenderConfig, scene: FlatScene, o, d, keys,
 
 def run_depth(J, cfg: RenderConfig, scene: FlatScene, carry, keys, depth):
     """One depth: closest-hit trace, emission, NEE shadow passes, and
-    (below max depth) BSDF scatter + optional Russian roulette.
+    (below max depth) BSDF scatter + optional Russian roulette, each
+    shading stage one kernel on the card (ops/shade_stages.py).
     ``carry`` is (o, d, valid, importance, light, count_emission,
     dropped); ``keys`` the frame's key table (frame_keys)."""
     (o, d, valid, importance, light, count_emission, dropped) = carry
@@ -204,18 +193,14 @@ def run_depth(J, cfg: RenderConfig, scene: FlatScene, carry, keys, depth):
                 light, res_s.t, res_s.prim, max_t, li_imp, ok
             )
     if depth + 1 < cfg.max_depth:
+        # Russian roulette (in the scatter stage): survive with p =
+        # max(importance), reweight by 1/p (unbiased)
+        rr = cfg.rr_start_depth and depth + 1 >= cfg.rr_start_depth
         o, d, importance, valid, count_emission = J["scatter"](
             scene, hit, importance,
             (keys["shared", depth], keys["hemi", depth],
-             keys["fresnel", depth])
+             keys["fresnel", depth], keys["rr", depth] if rr else None)
         )
-        if cfg.rr_start_depth and depth + 1 >= cfg.rr_start_depth:
-            # Russian roulette: survive with p = max(importance),
-            # reweight by 1/p (unbiased)
-            p = torch.clamp(importance.amax(-1), 0.05, 1.0)
-            u_rr = rng.uniform(keys["rr", depth], tuple(p.shape), p.device)
-            valid = valid & (u_rr < p)
-            importance = importance / p[:, None]
     return (o, d, valid, importance, light, count_emission, dropped)
 
 

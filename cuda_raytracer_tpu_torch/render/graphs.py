@@ -47,7 +47,7 @@ from typing import Callable, Dict, Hashable, Tuple
 import torch
 
 from .. import rng
-from ..ops import packet_dfs, partition, wavefront2
+from ..ops import packet_dfs, partition, shade_stages, wavefront2
 
 #: the kernel wrappers' launch counters: (module, attribute)
 COUNTERS = (
@@ -63,6 +63,10 @@ COUNTERS = (
     (wavefront2, "pack_dyn_launches"),
     (wavefront2, "pack_dyn_bf16_launches"),
     (wavefront2, "decode_launches"),
+    (shade_stages, "shade_hit_launches"),
+    (shade_stages, "nee_prep_launches"),
+    (shade_stages, "nee_accum_launches"),
+    (shade_stages, "scatter_launches"),
 )
 
 #: launches made by warm-up runs since last set to 0, by (module's short

@@ -33,6 +33,7 @@ from cuda_raytracer_tpu_torch.scene import skeleton
 from cuda_raytracer_tpu_torch.utils.image import load_png, to_uint8
 
 from test_torch_collada import assert_same
+from torch_threads import _one_torch_thread  # noqa: F401
 
 PACKAGES = {
     "port": types.SimpleNamespace(dyn=dynamic_scene, ci=collada_info,

@@ -23,6 +23,7 @@ from cuda_raytracer_tpu_torch.render.flatscene import (
 )
 from cuda_raytracer_tpu_torch.scene import static_scene as st
 from cuda_raytracer_tpu_torch.scene.bsdf import DiffuseBSDF
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _soup(mod, bsdf):

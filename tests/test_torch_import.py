@@ -19,6 +19,7 @@ from cuda_raytracer_tpu_torch.render import flatscene
 from cuda_raytracer_tpu_torch.render.engine import WavefrontRenderer
 from cuda_raytracer_tpu_torch.render.pathtracer import PathTracer
 from cuda_raytracer_tpu_torch.scene import dynamic_scene
+from torch_threads import _one_torch_thread  # noqa: F401
 
 PKG_DIR = os.path.dirname(cuda_raytracer_tpu_torch.__file__)
 REPO = os.path.dirname(PKG_DIR)

@@ -18,6 +18,7 @@ from cuda_raytracer_tpu_torch import native
 from cuda_raytracer_tpu_torch.accel.bvh import BVHAccel
 from cuda_raytracer_tpu_torch.models.terrain import terrain_scene
 from cuda_raytracer_tpu_torch.render.flatscene import flatten_scene
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 def nodes(bvh):

@@ -20,6 +20,7 @@ import torch
 
 from cuda_raytracer_tpu_torch.ops import partition as pt
 from cuda_raytracer_tpu_torch.ops import wavefront2 as wf
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _liveness(name, n):

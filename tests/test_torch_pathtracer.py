@@ -37,6 +37,7 @@ from cuda_raytracer_tpu_torch.scene import static_scene as st
 from cuda_raytracer_tpu_torch.scene.bsdf import DiffuseBSDF
 from cuda_raytracer_tpu_torch.scene.camera import Camera
 from cuda_raytracer_tpu_torch.utils.image import load_png
+from torch_threads import _one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-9, 1e-12
 

@@ -18,6 +18,7 @@ from PIL import Image
 from cuda_raytracer_tpu.utils.image import load_png as jax_load_png
 
 from cuda_raytracer_tpu_torch.utils.image import load_png
+from torch_threads import _one_torch_thread  # noqa: F401
 
 W, H = 13, 11
 CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}

@@ -42,6 +42,7 @@ from cuda_raytracer_tpu_torch.render.engine import WavefrontRenderer
 from cuda_raytracer_tpu_torch.utils.image import load_png
 
 from test_torch_collada import document
+from torch_threads import _one_torch_thread  # noqa: F401
 
 W, H, SPF, FRAMES = 64, 32, 2, 2
 RTOL, ATOL, MAX_BAD = 1e-4, 1e-5, 0.01

@@ -23,6 +23,7 @@ from cuda_raytracer_tpu_torch.render import engine
 from cuda_raytracer_tpu_torch.utils import image
 
 from test_torch_collada import document
+from torch_threads import _one_torch_thread  # noqa: F401
 
 @pytest.fixture
 def pil_image():

@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 
 from cuda_raytracer_tpu_torch import rng
+from torch_threads import _one_torch_thread  # noqa: F401
 
 
 def _key(k):

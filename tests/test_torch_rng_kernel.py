@@ -29,6 +29,7 @@ from cuda_raytracer_tpu_torch.models.cornell import cornell_box_scene
 from cuda_raytracer_tpu_torch.models.terrain import terrain_scene
 from cuda_raytracer_tpu_torch.render.engine import WavefrontRenderer
 from cuda_raytracer_tpu_torch.scene import static_scene as st
+from torch_threads import _one_torch_thread  # noqa: F401
 
 SEED, DATA = 15618, 2001
 W, H, SPF = 32, 32, 2

@@ -23,6 +23,7 @@ from cuda_raytracer_tpu_torch import scene as port_scene
 from cuda_raytracer_tpu_torch.scene import collada, dynamic_scene, skeleton
 
 from test_torch_collada import assert_same, document
+from torch_threads import _one_torch_thread  # noqa: F401
 
 PACKAGES = {
     "port": types.SimpleNamespace(collada=collada, dyn=dynamic_scene,

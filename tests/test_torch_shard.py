@@ -36,6 +36,7 @@ from cuda_raytracer_tpu_torch.parallel import shard
 from cuda_raytracer_tpu_torch.render.flatscene import flatten_scene
 
 from test_torch_collada import document
+from torch_threads import _one_torch_thread  # noqa: F401
 
 NDEV = 8
 RTOL, ATOL, MAX_BAD = 1e-4, 1e-5, 0.01

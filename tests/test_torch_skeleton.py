@@ -21,6 +21,7 @@ from cuda_raytracer_tpu.scene import widgets as jax_widgets
 
 from cuda_raytracer_tpu_torch.scene import bsdf, collada_info, dynamic_scene
 from cuda_raytracer_tpu_torch.scene import skeleton, widgets
+from torch_threads import _one_torch_thread  # noqa: F401
 
 PACKAGES = {
     "port": types.SimpleNamespace(sk=skeleton, w=widgets, dyn=dynamic_scene,

@@ -36,6 +36,7 @@ from cuda_raytracer_tpu_torch.render.flatscene import BSDF_DIFFUSE
 from cuda_raytracer_tpu_torch.utils.timing import LapTimer, RayThroughput
 
 from test_torch_collada import document
+from torch_threads import _one_torch_thread  # noqa: F401
 
 VIEW = ([0, 0.75, 2.5], [0, 0.75, 0])
 #: the FlatScene tables that hold the BSDFs

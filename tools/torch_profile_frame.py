@@ -14,7 +14,10 @@ lights, the camera render_cli -e leaves) configuration (the fast preset as shipp
 packet-DFS; 800x600, 32 spp per frame, depth 4, NEE 1x1.0) on one card:
 a warm-up frame, then one frame with every bounce-loop stage timed by
 CUDA events around it (trace, shade_hit, nee_prep by light kind,
-nee_accum, scatter, plus raygen and film) and, inside the wavefront traces, the partition
+nee_accum, scatter, plus raygen and film; each shading stage's row names
+its kernel of ops/csrc/shade.cu, whose device time the profiled frame
+prints beside the stage's, the rest being the stage's glue) and, inside
+the wavefront traces, the partition
 of the rays into the level-0 queue, the count kernel (with its region
 plan), the pack kernel (with the next level's counts and plan) and the
 decode kernel of the hit keys (the merge), with the live entries the
@@ -50,6 +53,12 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
+
+#: the shading stages' kernels (ops/csrc/shade.cu), by stage row
+STAGE_KERNELS = {"shade_hit": "shade_hit_kernel",
+                 "nee_prep": "nee_prep_kernel",
+                 "nee_accum": "nee_accum_kernel",
+                 "scatter": "scatter_kernel"}
 
 
 def main() -> int:
@@ -186,14 +195,20 @@ def main() -> int:
               "its shadow trace per light): "
               + ", ".join(f"{int(k)} of {n}" for n, k in live))
     total = 0.0
-    print(f"[stages] one frame, {frame_ms:.1f} ms on the host clock:")
+    stage_ms = {}
+    print(f"[stages] one frame, {frame_ms:.1f} ms on the host clock "
+          f"(in brackets the stage's kernel, ops/csrc/shade.cu):")
     for name, evs in sorted(events.items(),
                             key=lambda kv: -sum(s.elapsed_time(e)
                                                 for s, e in kv[1])):
         ms = sum(s.elapsed_time(e) for s, e in evs)
         total += ms
-        print(f"  {name:24s} {ms:9.2f} ms in {len(evs)} call(s)")
-    print(f"  {'(sum of stages)':24s} {total:9.2f} ms")
+        stage = name.split(" ")[0]
+        stage_ms[stage] = stage_ms.get(stage, 0.0) + ms
+        label = (f"{name} [{STAGE_KERNELS[stage]}]" if stage in STAGE_KERNELS
+                 else name)
+        print(f"  {label:44s} {ms:9.2f} ms in {len(evs)} call(s)")
+    print(f"  {'(sum of stages)':44s} {total:9.2f} ms")
 
     # --- profiler: device time by kernel (the event wrappers stay) ------
     from torch.autograd import DeviceType
@@ -229,6 +244,16 @@ def main() -> int:
     for e in rows[:25]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms "
               f"{e.count:6d}x  {e.key[:90]}")
+    # each shading stage: its kernel's device time beside the stage's
+    # event time; what is left is the stage's glue (its draws, the
+    # allocation of its outputs, launch gaps)
+    for stage, kernel in STAGE_KERNELS.items():
+        mine = [e for e in rows if kernel in e.key]
+        k_ms = sum(e.self_device_time_total for e in mine) / 1e3
+        s_ms = stage_ms.get(stage, 0.0)
+        print(f"[kernels] {stage}: {kernel} {k_ms:.3f} ms in "
+              f"{sum(e.count for e in mine)} launch(es) of the stage's "
+              f"{s_ms:.3f} ms; glue {s_ms - k_ms:.3f} ms")
     for mod, name, fn in saved:
         setattr(mod, name, fn)
     graphed(make(cfg), frame_ms)
