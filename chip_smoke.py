@@ -9,9 +9,10 @@ main path at full size, checks the card against the CPU per pixel, and
 prints one JSON line for the kernels and, last, the device line.  Phases:
 
 1. set-up: the card's name and power limit, nvcc's version, the build of
-   packet_dfs.cu, partition.cu, wavefront2.cu, rng.cu and shade.cu (one
-   nvcc each, started together) and what ptxas reports for each kernel (registers, stack
-   frame, spills, shared memory);
+   packet_dfs.cu, partition.cu, wavefront2.cu, rng.cu, shade.cu,
+   raygen.cu and film.cu (one nvcc each, started together) and what
+   ptxas reports for each kernel (registers, stack frame, spills, shared
+   memory);
 2. the packet-DFS kernel against its plain version on 262,144 rays of
    terrain n=121 (28,800 tris): hit/miss, prim and t bit-equal, shadow
    decisions equal, dropped == 0; kernel, plain and bound times; and the
@@ -161,9 +162,10 @@ prints one JSON line for the kernels and, last, the device line.  Phases:
    uniform_plain (the script swaps rng.uniform; the package has no
    switch), all bit-equal, launches as the schedule gives, times in
    turns and a profiled frame each; and the kernel against uniform_plain
-   at the shapes run A's frame draws ([15,360,000, 2], [15,360,000],
-   (15,000, 2) repeated 1,024 times) and at 15,360,001, with an int key
-   and a KeyTable key, bit for bit, timed beside its bound;
+   at the shapes run A's frame draws ([15,360,000], (15,000, 2)
+   repeated 1,024 times), at [15,360,000, 2] (the per-lane draw;
+   raygen's own is hashed in raygen.cu) and at 15,360,001, with an int
+   key and a KeyTable key, bit for bit, timed beside its bound;
 14. run K, the shading kernels (ops/csrc/shade.cu: shade_hit, nee_prep,
    nee_accum, scatter with its roulette; every stage of every frame on
    the card): what ptxas says of them; every stage call of seven eager
@@ -182,7 +184,26 @@ prints one JSON line for the kernels and, last, the device line.  Phases:
    the kernels and again by the plain stages (the script swaps the stage
    functions; the package has no switch) in one process: pixels within
    the card-vs-CPU gate, launches as the schedule gives, times in turns
-   and a profiled frame each.
+   and a profiled frame each;
+15. run L, the frame's two ends (ops/csrc/raygen.cu: the camera rays with
+   their draws hashed in place; film.cu: reconstruct + accumulate, and the
+   3x3 median): what ptxas says of them; run A, run G's default pass, its
+   ``--reference-compat --camera-mode cutracer`` setting and run F's four
+   shards, 3 frames each (the last after a camera move) on the kernels,
+   eager and graphed, and on the plain routes, graphed (the script swaps
+   raygen and the film; the package has no switch): eager and graphed
+   bit-equal, kernel frames within the card-vs-CPU gate of plain ones,
+   launches as the schedule gives (raygen and the film once a frame, the
+   median where the accumulated samples are below the threshold), times
+   in turns and a profiled frame each; raygen against its plain version
+   (d within rtol 1e-5 / atol 1e-6 on every lane) on run A's camera
+   (tiles32s, and tiles8), run G's raster pass, the cutracer basis and a
+   tiles shard of run F (row_offset 450 of 600, a partial tile row); the
+   film on the frames' own inputs (within rtol 1e-5 / atol 1e-6, the
+   sample count on the device and by value; reconstruct and accumulate
+   alone) and the median in both modes bit-equal to the plain median;
+   each timed beside its bound (L2 emptied first), its plain version and,
+   for the film, torch's mean over the samples.
 
 Needs one CUDA card; exits non-zero (and prints no result) without one,
 or when run outside a checkout of the repository.  Imports nothing of
@@ -326,6 +347,9 @@ COUNTERS = {
     "nee_prep": ("shade_stages", "nee_prep_launches"),
     "nee_accum": ("shade_stages", "nee_accum_launches"),
     "scatter": ("shade_stages", "scatter_launches"),
+    "raygen": ("shade", "raygen_launches"),
+    "film": ("filters", "film_launches"),
+    "median3x3": ("filters", "median_launches"),
 }
 #: leaf prims a pack block stages in shared memory (WF_STAGE_PRIMS of
 #: ops/csrc/wavefront2.cu); a segment with more reads them from global
@@ -351,6 +375,36 @@ def reset_launches():
     for mod, attr in COUNTERS.values():
         setattr(_ops_module(mod), attr, 0)
     graphs.warmup_launches.clear()
+    _median_frames.clear()
+    _watch_medians()
+
+
+#: frames rendered since reset_launches() whose film runs the median
+#: (the accumulated samples below cfg.post_process_threshold), by id of
+#: the renderer
+_median_frames = {}
+
+
+def _watch_medians():
+    """Note each frame of a WavefrontRenderer or ShardedRenderer that runs
+    the median in _median_frames (their render() wrapped once): the
+    schedule of median3x3 launches, read by expected_launches."""
+    from cuda_raytracer_tpu_torch.parallel.shard import ShardedRenderer
+    from cuda_raytracer_tpu_torch.render.engine import WavefrontRenderer
+
+    for cls in (WavefrontRenderer, ShardedRenderer):
+        render = cls.render
+        if getattr(render, "notes_medians", False):
+            continue
+
+        def noted(self, _render=render):
+            cfg = getattr(self, "config", None) or self.cfg
+            if self.image_samples < cfg.post_process_threshold:
+                _median_frames[id(self)] = _median_frames.get(id(self), 0) + 1
+            return _render(self)
+
+        noted.notes_medians = True
+        cls.render = noted
 
 
 def read_launches():
@@ -366,8 +420,9 @@ def read_launches():
 
 def phase_setup():
     from cuda_raytracer_tpu_torch import rng
-    from cuda_raytracer_tpu_torch.ops import _build, packet_dfs, partition
-    from cuda_raytracer_tpu_torch.ops import shade_stages, wavefront2
+    from cuda_raytracer_tpu_torch.ops import _build, filters, packet_dfs
+    from cuda_raytracer_tpu_torch.ops import partition, shade, shade_stages
+    from cuda_raytracer_tpu_torch.ops import wavefront2
 
     print(f"[setup] card: {smi_line()}")
     nvcc = _build.nvcc_command("", "")[0]
@@ -377,15 +432,13 @@ def phase_setup():
     t0 = time.perf_counter()
     sources = (("packet_dfs", packet_dfs.build_defines()),
                ("partition", ()), ("wavefront2", ()), ("rng", ()),
-               ("shade", ()))
+               ("shade", ()), ("raygen", ()), ("film", ()))
     _build.build_all(sources)
-    packet_dfs._load_library()
-    partition._load_library()
-    wavefront2._load_library()
-    rng._load_library()
-    shade_stages._load_library()
-    print(f"[setup] packet_dfs.cu, partition.cu, wavefront2.cu, rng.cu and "
-          f"shade.cu built (one nvcc each, in parallel) and loaded in "
+    for mod in (packet_dfs, partition, wavefront2, rng, shade_stages, shade,
+                filters):
+        mod._load_library()
+    print(f"[setup] {', '.join(f'{s}.cu' for s, _ in sources)} built (one "
+          f"nvcc each, in parallel) and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, defines in sources:
         for line in _build.ptxas_report(name, defines):
@@ -575,13 +628,14 @@ def phase_kernel(dev):
 
 
 def draws_per_frame(cfg, num_lights):
-    """rng.uniform calls (each one launch of the uniform kernel) in one
-    frame of ``cfg`` over ``num_lights`` lights: raygen's; at each depth
-    one per NEE sample and light; below max depth two for scatter (the
-    hemisphere draw, or draw_u2's shared one under rng_granule > 1, and
-    the Fresnel pick) and one for roulette from rr_start_depth on.
-    Compacted depths draw the same over their bucket."""
-    n = 1
+    """Launches of the uniform kernel in one frame of ``cfg`` over
+    ``num_lights`` lights: at each depth one per NEE sample and light;
+    below max depth two for scatter (the hemisphere draw, or draw_u2's
+    shared one under rng_granule > 1, and the Fresnel pick) and one for
+    roulette from rr_start_depth on.  Compacted depths draw the same over
+    their bucket.  Raygen's draw is hashed inside its own kernel (on the
+    CPU, raygen's plain version makes one more rng.uniform call)."""
+    n = 0
     for depth in range(cfg.max_depth):
         if depth < len(cfg.nee_schedule):
             n += cfg.nee_schedule[depth][0] * num_lights
@@ -603,7 +657,7 @@ def stage_launches(cfg, num_lights):
                 scatter=cfg.max_depth - 1)
 
 
-def expected_launches(r, frames):
+def expected_launches(r, frames, medians=None):
     """Launches per kernel that ``frames`` frames must make, from the
     config's pass classes and the scene's wavefront schedule: a depth
     makes one closest-hit trace and one shadow trace per NEE sample and
@@ -615,7 +669,9 @@ def expected_launches(r, frames):
     compaction the roulette depths' traces have no partition of their
     own, and the path state's partition runs before the first of them
     and after each but the last.  The uniform kernel: draws_per_frame;
-    the shading kernels: stage_launches."""
+    the shading kernels: stage_launches; raygen and the film one each a
+    frame, the median ``medians`` times (None: the frames of r that ran
+    it since reset_launches(), _median_frames)."""
     cfg, bvh = r.config, r.scene.bvh
     inner = [lv.has_inner for lv in bvh.wf_levels]
     n_pack = inner.index(False) + 1 if False in inner else len(inner)
@@ -623,6 +679,7 @@ def expected_launches(r, frames):
     want = dict.fromkeys(COUNTERS, 0)
     want["rng_uniform"] = draws_per_frame(cfg, r.scene.num_lights)
     want.update(stage_launches(cfg, r.scene.num_lights))
+    want.update(raygen=1, film=1)
     bf = "_bf16" if cfg.slab_bf16 else ""
     # whole-depth compaction: one payload partition before the first
     # roulette depth and one after each roulette depth but the last; its
@@ -649,7 +706,22 @@ def expected_launches(r, frames):
             want["wf2_pack" + bf] += traces * n_pack
             want["wf2_count" + bf] += traces * n_count
             want["wf2_decode"] += traces
-    return {k: v * frames for k, v in want.items()}
+    want = {k: v * frames for k, v in want.items()}
+    want["median3x3"] = (_median_frames.get(id(r), 0) if medians is None
+                         else medians)
+    return want
+
+
+def sharded_launches(sr, frames):
+    """Launches ``frames`` frames of ShardedRenderer sr make: each shard
+    one shard's schedule (its raygen, bounce loop and reconstruct, one
+    film launch), and on mesh[0] each frame's accumulate (one film launch)
+    and, where the frame runs it, the median."""
+    want = {k: v * len(sr.mesh) for k, v in
+            expected_launches(sr._host, frames, medians=0).items()}
+    want["film"] += frames
+    want["median3x3"] = _median_frames.get(id(sr), 0)
+    return want
 
 
 def run_slice(label, scene_fn, frames, viewpoint=None, **over):
@@ -2088,10 +2160,11 @@ def _width16(n=121, small_n=8):
           and float(img.mean()) > 0.0, "W=16 frame: bad image")
     draws = draws_per_frame(r.config, r.scene.num_lights)
     shading = stage_launches(r.config, r.scene.num_lights)
+    ends = dict(raygen=1, film=1, median3x3=_median_frames.get(id(r), 0))
     check(launches == dict(dict.fromkeys(COUNTERS, 0), rng_uniform=draws,
-                           **shading),
+                           **shading, **ends),
           f"W=16 frame launched a traversal kernel (want only its {draws} "
-          f"draws and the shading kernels {shading})")
+          f"draws, the shading kernels {shading} and its ends {ends})")
 
     w, h, spf, frames = 64, 32, 2, 2
     kw = fast_preset_kwargs(w, h, spf * frames)
@@ -2528,7 +2601,7 @@ def _drive_sharded(label, n_shards, mode, n, spf):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     launches = read_launches()
-    want = {k: v * n_shards for k, v in expected_launches(sr._host, 1).items()}
+    want = sharded_launches(sr, 1)
     img = sr.get_raw_image()
     check(img.shape == (cfg.height, cfg.width, 3)
           and bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
@@ -3745,6 +3818,8 @@ def _run_i_make(kind, graphed, docs, sky, n):
         "run_g": (docs[("area",)], []),
         "run_h": (docs[("area", "directional")], []),
         "lightless": (docs[()], ["--preset", "fast", "-m", "4", "-s", "4"]),
+        "cutracer": (docs[("area",)], ["--reference-compat", "--camera-mode",
+                                       "cutracer"]),
     }[kind]
     cfg, mode = _cli_config([doc, *size, *flags], **fuse)
     r = WavefrontRenderer(cfg, camera_mode=mode, device=DEVICE)
@@ -3790,8 +3865,7 @@ def _run_i_frames(r, frames):
 def _run_i_want(r, frames):
     """The launches ``frames`` frames of r make by its schedule."""
     if hasattr(r, "mesh"):
-        return {k: v * len(r.mesh)
-                for k, v in expected_launches(r._host, frames).items()}
+        return sharded_launches(r, frames)
     return expected_launches(r, frames)
 
 
@@ -4168,13 +4242,18 @@ def phase_rng(n=121):
           f"{dict((c, per_frame.count(c)) for c in dict.fromkeys(per_frame))}"
           f", kernel {frame_ms:.4f} ms summed, bound {frame_bound:.5f} ms; "
           f"phase 13 took {time.perf_counter() - t0:.1f} s")
-    main = measured[(lanes, 2), 1]
-    err = max([odd["max_abs_err"]]
+    # the per-lane [N, 2] shape (the reference preset's hemisphere draw,
+    # ops/shade.py:618), which the fast frame no longer draws through
+    # this kernel since raygen hashes its own
+    main = measured.get(((lanes, 2), 1)) or measure_rng(
+        "[N, 2] per-lane draw", (lanes, 2))
+    err = max([odd["max_abs_err"], main["max_abs_err"]]
               + [m["max_abs_err"] for m in measured.values()])
-    # not a pallas_call: it replaces the first of the JAX frame's draws
+    # not a pallas_call: it replaces the JAX frame's draws (raygen's now
+    # in raygen.cu), the per-lane hemisphere draw first
     return dict(kernel_row("rng_uniform", "rng.cu", "",
                            run_a["launches"]["rng_uniform"], main, err),
-                replaces="cuda_raytracer_tpu/ops/shade.py:181")
+                replaces="cuda_raytracer_tpu/ops/shade.py:618")
 
 
 # ---------------------------------------------------------------------------
@@ -4813,6 +4892,372 @@ def phase_shade(n=121, frames=2):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 15 (run L): the camera rays' and the film's kernels (raygen.cu,
+# film.cu)
+# ---------------------------------------------------------------------------
+
+#: the kernels at the two ends of a frame: name -> (source, the JAX code
+#: whose XLA fusion it replaces; not a pallas_call)
+END_KERNELS = {
+    "raygen": ("raygen.cu", "cuda_raytracer_tpu/ops/shade.py:139"),
+    "film": ("film.cu", "cuda_raytracer_tpu/ops/filters.py:13"),
+    "median3x3": ("film.cu", "cuda_raytracer_tpu/ops/filters.py:42"),
+}
+#: float operations per lane of raygen_kernel's pinhole branch, counted
+#: from raygen.cu: the pixel's 2 conversions, x's add and division, y's
+#: two adds and division, sx and sy (2 products, a difference each), the
+#: three c2w rows (2 products, 2 sums each), the sum of squares (5), its
+#: clamp and sqrt, three divisions
+RAYGEN_FLOPS = 2 + 2 + 3 + 6 + 12 + 5 + 2 + 3
+#: run L: the settings whose frames run on the kernels, eager and graphed,
+#: and on the plain routes, graphed (label, how the renderer is made,
+#: ``_run_i_make``)
+RUN_L = (
+    ("run A", "run_a"),
+    ("run G default pass", "run_g"),
+    ("run G --reference-compat --camera-mode cutracer", "cutracer"),
+    ("run F, 4 shards of the card", "shards"),
+)
+
+
+@contextlib.contextmanager
+def _plain_ends():
+    """A context in which raygen and the film are their plain versions
+    (torch ops on the card; raygen's draw an rng.uniform launch): a
+    frame's twin without the kernels.  The package has no such switch;
+    only this script swaps."""
+    from cuda_raytracer_tpu_torch.ops import filters as F
+    from cuda_raytracer_tpu_torch.ops import shade as S
+
+    kept = [(m, n, getattr(m, n)) for m, n in (
+        (S, "generate_camera_rays"), (S, "generate_camera_rays_cutracer"),
+        (F, "reconstruct"), (F, "accumulate"), (F, "film"),
+        (F, "median_filter_3x3"))]
+    for m, n, _ in kept:
+        setattr(m, n, getattr(m, f"{n}_plain"))
+    try:
+        yield
+    finally:
+        for m, n, fn in kept:
+            setattr(m, n, fn)
+
+
+def _timed_pair(kernel, plain, nbytes, flops=0, int_ops=0, library=None):
+    """ms of kernel() (10 calls) and plain() (3) and library() (3, where
+    given), each after a write of L2_FLUSH_BYTES, and the bound."""
+    import torch
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    ms = cuda_time_ms(kernel, 10, prep=flush.zero_)
+    plain_ms = cuda_time_ms(plain, 3, prep=flush.zero_)
+    lib_ms = (None if library is None
+              else cuda_time_ms(library, 3, prep=flush.zero_))
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                **_bound(nbytes, flops, int_ops=int_ops))
+
+
+def _line(b):
+    return (f"{b['ms']:.4f} ms, plain {b['plain_ms']:.3f} ms "
+            f"({b['plain_ms'] / b['ms']:.1f}x)"
+            + ("" if b["library_ms"] is None
+               else f", library {b['library_ms']:.4f} ms")
+            + f", bound {b['bound_ms']:.5f} ms by {b['bound_by']} (bytes "
+            f"{b['bytes_ms']:.5f}, ops {b['ops_ms']:.5f}): "
+            f"{b['bound_ms'] / b['ms']:.1%} of the bound")
+
+
+def measure_raygen(label, cutracer, args, kw, timed=False):
+    """raygen's kernel against its plain version on the card, under
+    RNG_KEY (a KeyTable key for the kernel, the int key for the plain
+    version): d within STAGE_RTOL / STAGE_ATOL on every lane, o the same
+    stride-0 expand; kernel, plain and bound times where ``timed``.
+    ``args``/``kw``: the function's arguments after the key."""
+    import numpy as np
+    import torch
+
+    from cuda_raytracer_tpu_torch import rng
+    from cuda_raytracer_tpu_torch.ops import shade as S
+
+    dev = torch.device(DEVICE)
+    name = "generate_camera_rays" + ("_cutracer" if cutracer else "")
+    fk, fp = getattr(S, f"{name}_cuda"), getattr(S, f"{name}_plain")
+    # the camera on the card, as the fused frame holds it: no copy from
+    # the host inside a timed call
+    args = tuple(torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                 device=dev)
+                 if isinstance(a, np.ndarray) else a for a in args)
+    table = rng.KeyTable(["k"], dev)
+    table.load({"k": RNG_KEY})
+    o, d = fk(table["k"], *args, device=dev, **kw)
+    o2, d2 = fp(RNG_KEY, *args, device=dev, **kw)
+    torch.cuda.synchronize()
+    n = d.shape[0]
+    bad = int((~torch.isclose(d, d2, rtol=STAGE_RTOL, atol=STAGE_ATOL))
+              .any(-1).sum())
+    err = float((d - d2).abs().max())
+    same_o = torch.equal(o, o2) and o.stride(0) == 0
+    res = dict(max_abs_err=err, lanes=n)
+    desc = ""
+    if timed:
+        res.update(_timed_pair(
+            lambda: fk(table["k"], *args, device=dev, **kw),
+            lambda: fp(RNG_KEY, *args, device=dev, **kw), 12 * n,
+            RAYGEN_FLOPS * n, 2 * RNG_INT_OPS * n))
+        desc = "; kernel " + _line(res)
+    print(f"[raygen] {label}: {n:,} lanes, d within rtol={STAGE_RTOL} "
+          f"atol={STAGE_ATOL} of the plain version on all but {bad} lanes, "
+          f"max abs err {err:.3g}; o the camera's stride-0 expand, equal "
+          f"{same_o}{desc} [{smi_line()}]")
+    check(bad == 0, f"raygen {label}: {bad} lanes of d differ from the "
+          f"plain version")
+    check(same_o, f"raygen {label}: o is not the camera's expand")
+    return res
+
+
+def _raygen_cases(rs):
+    """measure_raygen on the cameras of run L's renderers: run A's
+    (tiles32s, timed), its tiles8 order, run G's raster reference pass,
+    the cutracer basis of run C's document, and a tiles shard of run F
+    (the last slab of 150 rows at row_offset 450 of 600, tiles32s: a
+    partial tile row of 22)."""
+    out = {}
+    a = rs["run A"]
+    cfg = a.config
+    cam = (a.camera.pos, a.camera.c2w, *a._tan_half())
+    out["run A"] = measure_raygen(
+        "run A (tiles32s)", False, (WIDTH, HEIGHT, cfg.samples_per_frame,
+                                    *cam), dict(pix_order="tiles32s"),
+        timed=True)
+    measure_raygen("run A's camera, tiles8", False,
+                   (WIDTH, HEIGHT, cfg.samples_per_frame, *cam),
+                   dict(pix_order="tiles8"))
+    g = rs["run G default pass"]
+    measure_raygen("run G's reference pass (raster)", False,
+                   (WIDTH, HEIGHT, g.config.samples_per_frame,
+                    g.camera.pos, g.camera.c2w, *g._tan_half()),
+                   dict(pix_order=None), timed=True)
+    c = rs["run G --reference-compat --camera-mode cutracer"]
+    measure_raygen("cutracer camera of run C's document", True,
+                   (WIDTH, HEIGHT, c.config.samples_per_frame,
+                    *c._cutracer_arrays()), dict(pix_order=None))
+    rows = HEIGHT // 4
+    measure_raygen("run F tiles shard (rows 450-599, tiles32s)", False,
+                   (WIDTH, rows, cfg.samples_per_frame, *cam),
+                   dict(pix_order="tiles32s", row_offset=3 * rows,
+                        full_height=HEIGHT))
+    return out
+
+
+def measure_film(label, r, kept):
+    """The film kernel against its plain version on the card, on the
+    inputs a frame's film met (``kept``: light, final_img, image_samples;
+    the last call with samples already accumulated): one launch of
+    reconstruct + accumulate within STAGE_RTOL / STAGE_ATOL (with the
+    sample count as a 0-d device tensor and as a float), reconstruct and
+    accumulate alone (the sharded renderer's calls), and the median in
+    both modes bit-equal to the plain median of the same image; kernel,
+    plain, library and bound times of both kernels."""
+    import torch
+
+    from cuda_raytracer_tpu_torch.ops import filters as F
+
+    light, final_img, old = kept
+    cfg = r.config
+    w, h, spp = cfg.width, cfg.height, cfg.samples_per_frame
+    inv, major = r._inv_order, cfg.sample_order == "tiles32s"
+    old_t = torch.tensor(float(old), dtype=torch.float32, device=DEVICE)
+    args = (w, h, spp, inv, major)
+    want = F.film_plain(light, final_img, old_t, float(spp), *args)
+    errs, bad = [], 0
+    for o in (old_t, float(old)):
+        got = F.film_cuda(light, final_img, o, float(spp), *args)
+        bad += int((~torch.isclose(got, want, rtol=STAGE_RTOL,
+                                   atol=STAGE_ATOL)).sum())
+        errs.append(float((got - want).abs().max()))
+    img_k = F.reconstruct_cuda(light, *args)
+    img_p = F.reconstruct_plain(light, *args)
+    acc_k = F.accumulate_cuda(final_img, img_p, old_t, float(spp))
+    acc_p = F.accumulate_plain(final_img, img_p, old_t, float(spp))
+    for k, p in ((img_k, img_p), (acc_k, acc_p)):
+        bad += int((~torch.isclose(k, p, rtol=STAGE_RTOL,
+                                   atol=STAGE_ATOL)).sum())
+        errs.append(float((k - p).abs().max()))
+    med_same = {}
+    for compat in (False, True):
+        mk = F.median_filter_3x3_cuda(want, compat)
+        mp = F.median_filter_3x3_plain(want, compat)
+        med_same[compat] = torch.equal(mk.view(torch.int32),
+                                       mp.view(torch.int32))
+    torch.cuda.synchronize()
+    view = ((spp, -1, 3), 0) if major else ((-1, spp, 3), 1)
+    film_b = _timed_pair(
+        lambda: F.film_cuda(light, final_img, old_t, float(spp), *args),
+        lambda: F.film_plain(light, final_img, old_t, float(spp), *args),
+        _nbytes(light, final_img, want)
+        + (0 if inv is None else _nbytes(inv)),
+        library=lambda: light.view(*view[0]).mean(view[1]))
+    compat = cfg.reference_compat
+    med_b = _timed_pair(lambda: F.median_filter_3x3_cuda(want, compat),
+                        lambda: F.median_filter_3x3_plain(want, compat),
+                        2 * _nbytes(want))
+    print(f"[film] {label}: {w}x{h}, {spp} spp "
+          f"({'sample' if major else 'pixel'}-major, inv_order "
+          f"{inv is not None}), old weight {float(old)}: film (reconstruct "
+          f"+ accumulate, the weight on the device and by value), "
+          f"reconstruct and accumulate alone within rtol={STAGE_RTOL} "
+          f"atol={STAGE_ATOL} of the plain versions on all but {bad} "
+          f"values, max abs err {max(errs):.3g}; median bit-equal to the "
+          f"plain median (default, compat) {med_same}; film kernel "
+          f"{_line(film_b)}; median ({'compat' if compat else 'default'}) "
+          f"{_line(med_b)} [{smi_line()}]")
+    check(bad == 0, f"film {label}: {bad} values differ from the plain "
+          f"versions")
+    check(all(med_same.values()), f"film {label}: the median kernel's bits "
+          f"differ from the plain median's ({med_same})")
+    return dict(film=dict(film_b, max_abs_err=max(errs)),
+                median3x3=dict(med_b, max_abs_err=0.0))
+
+
+def _run_l_setting(label, kind, frames, docs, sky, n):
+    """One run-L setting: frames on the kernels, eager and graphed, and on
+    the plain routes (_plain_ends), graphed, each renderer made and driven
+    under its routes; launches as the schedule gives (the plain twins: no
+    raygen, film or median launch, and raygen's draw through the uniform
+    kernel); eager and graphed kernel frames bit-equal, the last after a
+    camera move; kernel frames within the card-vs-CPU gate of plain ones;
+    then one graphed frame each in turns (kernel, plain, plain, kernel)
+    and a profiled frame each.  Returns the renderers, the times and the
+    eager renderer's film inputs (the last call with samples already
+    accumulated)."""
+    import numpy as np
+    import torch
+
+    runs, rs, launches, kept = {}, {}, {}, []
+    for graphed, plain in ((False, False), (True, False), (True, True)):
+        with _plain_ends() if plain else contextlib.nullcontext():
+            r = _run_i_make(kind, graphed, docs, sky, n)
+            if not (graphed or plain or hasattr(r, "mesh")):
+                film = r._film
+
+                def keep(light, with_median, final_img, samples, _f=film):
+                    if float(samples) > 0 or not kept:
+                        kept[:] = [(light, final_img, samples)]
+                    return _f(light, with_median, final_img, samples)
+
+                r._film = keep
+            reset_launches()
+            runs[graphed, plain] = _run_i_frames(r, frames)
+            launches[graphed, plain] = read_launches()
+        want = _run_i_want(r, frames)
+        if plain:
+            want["rng_uniform"] += want["raygen"]
+            want.update(dict.fromkeys(END_KERNELS, 0))
+        check(launches[graphed, plain] == want, f"run L {label} "
+              f"({'graphed' if graphed else 'eager'}, "
+              f"{'plain' if plain else 'kernel'} ends): launches "
+              f"{launches[graphed, plain]} != the schedule's {want}")
+        check(all(x["dropped"] == 0 for x in runs[graphed, plain]),
+              f"run L {label}: dropped rays")
+        rs[graphed, plain] = r
+    eager, graphed = runs[False, False], runs[True, False]
+    same = [bool(np.array_equal(a["raw"], b["raw"])
+                 and np.array_equal(a["img"], b["img"]))
+            for a, b in zip(eager, graphed)]
+    check(all(same), f"run L {label}: graphed frames differ from the eager "
+          f"ones {same}")
+    gate = []
+    for f in range(frames):
+        a, b = graphed[f]["raw"], runs[True, True][f]["raw"]
+        bad = ~np.isclose(a, b, rtol=PIXEL_RTOL, atol=PIXEL_ATOL).all(-1)
+        gate.append((1.0 - float(bad.mean()), float(np.abs(a - b).max())))
+        check(float(bad.mean()) <= MAX_BAD, f"run L {label}: frame {f} on "
+              f"the kernels differs from the plain routes' in "
+              f"{int(bad.sum())} pixels")
+    turns, busy = {False: [], True: []}, {}
+    for plain in (False, True, True, False):
+        with _plain_ends() if plain else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rs[True, plain].render()
+            torch.cuda.synchronize()
+        turns[plain].append((time.perf_counter() - t0) * 1e3)
+    for plain in (False, True):
+        with _plain_ends() if plain else contextlib.nullcontext():
+            busy[plain] = _device_busy(rs[True, plain].render,
+                                       min(turns[plain]))
+    per_frame = {k: launches[True, False][k] for k in END_KERNELS}
+    print(f"[run L] {label}: {frames} frames (the last after a camera "
+          f"move), eager and graphed bit-equal {same}; on the kernels "
+          f"against the plain routes: pixels within rtol={PIXEL_RTOL} "
+          f"atol={PIXEL_ATOL} {[f'{g[0]:.5f}' for g in gate]}, max |diff| "
+          f"{[f'{g[1]:.3g}' for g in gate]}; dropped 0; launches of "
+          f"{frames} frames {per_frame} (the plain twins' 0, and one more "
+          f"uniform launch for each raygen); graphed in turns kernel "
+          f"{turns[False][0]:.2f}, plain {turns[True][0]:.2f}, plain "
+          f"{turns[True][1]:.2f}, kernel {turns[False][1]:.2f} ms; profiled "
+          f"frame kernels {busy[False][0]:.2f} ms of kernels in "
+          f"{busy[False][2]} device launches, busy {busy[False][1]:.3f}; "
+          f"plain {busy[True][0]:.2f} ms in {busy[True][2]}, busy "
+          f"{busy[True][1]:.3f} [{smi_line()}]")
+    return dict(r=rs[False, False], launches=launches[True, False],
+                turns=turns, busy=busy, kept=kept)
+
+
+def phase_raygen_film(n=121, frames=3):
+    """Phase 15 (run L): the camera rays' and the film's kernels
+    (ops/csrc/raygen.cu, film.cu).  What ptxas says of them; RUN_L's
+    frames on the kernels, eager and graphed, and on the plain routes
+    (_run_l_setting); raygen against its plain version at five settings
+    (_raygen_cases) and the film and median on the frames' own inputs
+    (measure_film), each timed beside its bound.  Returns the three
+    kernels' JSON rows."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from cuda_raytracer_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    for name in ("raygen", "film"):
+        for line in _build.ptxas_report(name):
+            print(f"[run L] ptxas, {name}.cu: {line}")
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        docs = {}
+        for lights in (("area",), ("area", "directional"), ()):
+            docs[lights] = os.path.join(tmp, f"run_l_{len(lights)}.dae")
+            with open(docs[lights], "w") as f:
+                f.write(run_c_document(n, lights))
+        for label, kind in RUN_L:
+            res[label] = _run_l_setting(label, kind, frames, docs, None, n)
+            gc.collect()
+            torch.cuda.empty_cache()
+    rs = {k: v["r"] for k, v in res.items()}
+    measured = _raygen_cases(rs)
+    films = {}
+    for label in ("run A", "run G default pass",
+                  "run G --reference-compat --camera-mode cutracer"):
+        films[label] = measure_film(label, rs[label], res[label]["kept"][0])
+    run_a = res["run A"]
+    check(all(run_a["launches"][k] > 0 for k in END_KERNELS),
+          f"run L: run A never launched a kernel of its ends "
+          f"{run_a['launches']}")
+    print(f"[run L] phase 15 took {time.perf_counter() - t0:.1f} s")
+    rows = []
+    for k, (source, replaces) in END_KERNELS.items():
+        m = measured["run A"] if k == "raygen" else films["run A"][k]
+        rows.append(dict(kernel_row(k, source, "", run_a["launches"][k], m,
+                                    m["max_abs_err"], m["library_ms"]
+                                    if k == "film" else None),
+                         replaces=replaces))
+    del res, rs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "cuda_raytracer_tpu_torch")):
@@ -4838,6 +5283,7 @@ def main() -> int:
     phase_run_i()
     row_rng = phase_rng()
     rows_shade = phase_shade()
+    rows_ends = phase_raygen_film()
     # the payload partition's row: its launches and times on the path that
     # runs it, whole-depth compaction (the shipped preset launches it 0
     # times)
@@ -4854,6 +5300,7 @@ def main() -> int:
     kernels += rows_h
     kernels.append(row_rng)
     kernels += rows_shade
+    kernels += rows_ends
     print(f"[total] {time.perf_counter() - t_start:.1f} s from the start of "
           f"main, imports of torch and the port included")
 

@@ -1,0 +1,161 @@
+// Camera rays: jittered pinhole or cutracer rays, their draws hashed in
+// place, one pass.
+//
+// Not a pl.pallas_call.  Replaces XLA's fusion of the JAX engine's raygen
+// program (cuda_raytracer_tpu/ops/shade.py:139-189 generate_camera_rays
+// and :192-227 generate_camera_rays_cutracer, through _pix_from_slot
+// :63-104), into which XLA fuses the program's jax.random.uniform(key,
+// (n, 2)) draw (:181, :213).  The plain PyTorch versions are ops/shade.py's
+// generate_camera_rays_plain and generate_camera_rays_cutracer_plain.
+//
+// One thread per lane i:
+//   * the pixel: slot i / spp (pixel-major), or i % (W * H) under
+//     tiles32s (sample-major), mapped to its pixel in raster order,
+//     through the tiles8 or tiles32s closed form (a partial last tile row,
+//     height % 32, packed densely), or through an index table; all in
+//     int32 (the wrapper refuses 2^31 lanes or more);
+//   * the draw: elements 2i and 2i + 1 of jax.random.uniform(key, (n, 2)),
+//     threefry.cuh's hash, bit for bit; the key by value or read on the
+//     device (a KeyTable entry), so a captured graph draws the next
+//     frame's key;
+//   * the direction: the plain version's ops one rounding at a time
+//     (built with -fmad=false, no fast math): (p + u) / W divided (torch
+//     on the CPU divides; on the card it multiplies by the float32
+//     reciprocal), the pinhole's (2x - 1) tan and (1 - 2y) tan, the c2w
+//     products summed in order, or the cutracer's normalised (x - 0.5,
+//     y - 0.5, 1) over (left, up, look_at); _norm's sum of squares in
+//     order, its clamp at 1e-20 (NaN through), the sqrt and three
+//     divisions.  The camera's c2w (or the cutracer's vectors) is read
+//     through device pointers, so a captured graph sees a moved camera;
+//     tan_half_h / tan_half_v are launch parameters (a new field of view
+//     captures anew).
+//   * d [N, 3] written once.  o is the camera position's stride-0 expand,
+//     which no kernel writes.
+//
+// Bound on the H100: integer operations.  Per lane two draws of 75 u32
+// operations (150) against 12 bytes of d written, above the card's
+// integer issue rate over its memory rate (about 10 per byte).
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "threefry.cuh"
+
+#define GBLOCK 256
+
+// sample orders (ops/shade.py _pix_from_slot)
+#define ORDER_RASTER 0
+#define ORDER_TILES8 1
+#define ORDER_TILES32S 2
+#define ORDER_TABLE 3
+
+struct RaygenArgs {
+  long long n;  // lanes: width * height * spp, below 2^31
+  // the key's words as int64 on the device, or both null: h0, h1
+  const long long* kp0;
+  const long long* kp1;
+  // pinhole: cam0 = c2w [3, 3] row-major; cutracer: cam0, cam1, cam2 =
+  // left, up, look_at [3]
+  const float* cam0;
+  const float* cam1;
+  const float* cam2;
+  const long long* table;  // ORDER_TABLE: slot -> pixel
+  float* d;                // out [n, 3]
+  unsigned h0, h1;
+  int width, height, spp;
+  int full_height, row_offset;  // the pinhole's slab of a taller sensor
+  int order, cutracer;
+  float tan_h, tan_v;
+};
+
+__device__ __forceinline__ int pix_from_slot(int pix, const RaygenArgs& a) {
+  const int width = a.width;
+  if (a.order == ORDER_RASTER) return pix;
+  if (a.order == ORDER_TABLE) return (int)a.table[pix];
+  if (a.order == ORDER_TILES8) {
+    const int tx_count = width / 8;
+    const int tile = pix / 64, within = pix % 64;
+    const int ty = tile / tx_count, tx = tile % tx_count;
+    return (ty * 8 + within / 8) * width + tx * 8 + within % 8;
+  }
+  const int t = 32;
+  const int ntx = width / t;
+  const int full_rows = a.height / t;
+  const int rem = a.height % t;
+  const int q_full_end = full_rows * ntx * t * t;
+  if (rem == 0 || pix < q_full_end) {
+    const int tr = pix / (ntx * t * t), w = pix % (ntx * t * t);
+    const int tx = w / (t * t), v = w % (t * t);
+    return (tr * t + v / t) * width + tx * t + v % t;
+  }
+  const int q2 = pix - q_full_end;
+  const int cells = rem * t;
+  const int tx = q2 / cells, v = q2 % cells;
+  return (full_rows * t + v / t) * width + tx * t + v % t;
+}
+
+// torch.clamp_min(s, 1e-20): NaN stays NaN
+__device__ __forceinline__ float clamp_eps(float s) {
+  return s < 1e-20f ? 1e-20f : s;
+}
+
+__global__ void __launch_bounds__(GBLOCK) raygen_kernel(const RaygenArgs a) {
+  const long long li = (long long)blockIdx.x * GBLOCK + threadIdx.x;
+  if (li >= a.n) return;
+  const int i = (int)li;
+  const int slot = a.order == ORDER_TILES32S ? i % (a.width * a.height)
+                                             : i / a.spp;
+  const int pix = pix_from_slot(slot, a);
+  const float px = (float)(pix % a.width);
+  const float py = (float)(pix / a.width);
+  const Key k = load_key(a.kp0, a.kp1, a.h0, a.h1);
+  const float u0 = draw(2ull * (unsigned long long)i, k);
+  const float u1 = draw(2ull * (unsigned long long)i + 1ull, k);
+  const float x = (px + u0) / (float)a.width;
+  float dx, dy, dz;
+  if (a.cutracer) {
+    const float y = (py + u1) / (float)a.height;
+    const float kx = x - 0.5f, ky = y - 0.5f;
+    const float s = sqrtf(clamp_eps(kx * kx + ky * ky + 1.0f * 1.0f));
+    const float k0 = kx / s, k1 = ky / s, k2 = 1.0f / s;
+    const float* l = a.cam0;
+    const float* u = a.cam1;
+    const float* f = a.cam2;
+    dx = k0 * l[0] + k1 * u[0] + k2 * f[0];
+    dy = k0 * l[1] + k1 * u[1] + k2 * f[1];
+    dz = k0 * l[2] + k1 * u[2] + k2 * f[2];
+  } else {
+    const float y = ((py + (float)a.row_offset) + u1) / (float)a.full_height;
+    const float sx = (2.0f * x - 1.0f) * a.tan_h;
+    const float sy = (1.0f - 2.0f * y) * a.tan_v;
+    const float* c = a.cam0;
+    const float vx = sx * c[0] + sy * c[1] - c[2];
+    const float vy = sx * c[3] + sy * c[4] - c[5];
+    const float vz = sx * c[6] + sy * c[7] - c[8];
+    const float s = sqrtf(clamp_eps(vx * vx + vy * vy + vz * vz));
+    dx = vx / s;
+    dy = vy / s;
+    dz = vz / s;
+  }
+  float* o = a.d + 3 * li;
+  o[0] = dx;
+  o[1] = dy;
+  o[2] = dz;
+}
+
+// ---------------------------------------------------------------------------
+// C interface: one launch on the caller's stream; nothing for n <= 0
+// ---------------------------------------------------------------------------
+
+extern "C" int raygen(const RaygenArgs* a, void* stream) {
+  if (a->n > 0)
+    raygen_kernel<<<(unsigned)((a->n + GBLOCK - 1) / GBLOCK), GBLOCK, 0,
+                    (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+// sizeof the argument block, for the wrapper's layout check
+extern "C" long long raygen_args_size(void) {
+  return (long long)sizeof(RaygenArgs);
+}

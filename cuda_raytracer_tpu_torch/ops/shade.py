@@ -6,10 +6,18 @@ and in the same op order.  Random draws come from the port's threefry
 (``rng``), so with the same key both packages draw the same numbers.
 Every function is dense over the ray dimension; BSDF dispatch computes
 all lobes and selects by tag.
+
+The camera rays are a kernel on the card (``ops/csrc/raygen.cu``: the
+pixel, the draw and the direction in one pass): on a CUDA device
+``generate_camera_rays`` and ``generate_camera_rays_cutracer`` launch it
+or raise; on the CPU they run their plain versions (``*_plain``, the op
+chains below); any other device is refused.  ``raygen_launches`` counts
+the kernel's launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
@@ -35,6 +43,10 @@ from ..scene.bsdf import (
 )
 
 INF = float("inf")
+
+#: launches of the camera rays' kernel (ops/csrc/raygen.cu) since the
+#: count was last set to 0
+raygen_launches = 0
 
 
 def _dot(a, b):
@@ -122,6 +134,16 @@ def tiles32s_rank(width: int, height: int) -> np.ndarray:
     return rank.reshape(-1)
 
 
+def _raygen_path(device) -> str:
+    """The camera rays' path for ``device`` (None: torch's default):
+    "cuda" or "cpu"."""
+    dev = (torch.device(device) if device is not None
+           else torch.get_default_device())
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"no camera rays path for device {dev}")
+    return dev.type
+
+
 def generate_camera_rays(
     key,
     width: int,
@@ -140,7 +162,29 @@ def generate_camera_rays(
     layouts).  ``cam_pos`` [3] and ``cam_c2w`` [3, 3] are arrays, or
     float32 tensors on ``device`` (a captured frame's camera buffer,
     which a move rewrites).  Returns (o, d) [N, 3] float32 on
-    ``device``."""
+    ``device``: o the camera position's stride-0 expand."""
+    args = (key, width, height, spp, cam_pos, cam_c2w, tan_half_h,
+            tan_half_v, pix_order, row_offset, full_height, device)
+    if _raygen_path(device) == "cuda":
+        return generate_camera_rays_cuda(*args)
+    return generate_camera_rays_plain(*args)
+
+
+def generate_camera_rays_plain(
+    key,
+    width: int,
+    height: int,
+    spp: int,
+    cam_pos,
+    cam_c2w,
+    tan_half_h: float,
+    tan_half_v: float,
+    pix_order=None,
+    row_offset: int = 0,
+    full_height: int = None,
+    device=None,
+):
+    """``generate_camera_rays`` in torch ops (any device)."""
     n = width * height * spp
     if full_height is None:
         full_height = height
@@ -167,7 +211,8 @@ def _on_device(x, device):
     is (no copy from the host: a captured frame reads its buffer)."""
     if isinstance(x, torch.Tensor):
         return x
-    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+    return torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                           device=device)
 
 
 def generate_camera_rays_cutracer(
@@ -187,6 +232,26 @@ def generate_camera_rays_cutracer(
     sample layouts are generate_camera_rays'.  The four vectors are
     arrays, or float32 tensors on ``device`` (as generate_camera_rays'
     camera).  Returns (o, d) [N, 3] float32 on ``device``."""
+    args = (key, width, height, spp, origin, look_at, up, left, pix_order,
+            device)
+    if _raygen_path(device) == "cuda":
+        return generate_camera_rays_cutracer_cuda(*args)
+    return generate_camera_rays_cutracer_plain(*args)
+
+
+def generate_camera_rays_cutracer_plain(
+    key,
+    width: int,
+    height: int,
+    spp: int,
+    origin,
+    look_at,
+    up,
+    left,
+    pix_order=None,
+    device=None,
+):
+    """``generate_camera_rays_cutracer`` in torch ops (any device)."""
     n = width * height * spp
     i = torch.arange(n, dtype=torch.int64, device=device)
     pslot = i % (width * height) if pix_order == "tiles32s" else i // spp
@@ -203,6 +268,168 @@ def generate_camera_rays_cutracer(
     d = (k[:, 0:1] * basis[0] + k[:, 1:2] * basis[1]
          + k[:, 2:3] * basis[2])
     return _on_device(origin, device).expand(d.shape), d
+
+
+# ---------------------------------------------------------------------------
+# the camera rays' kernel (ops/csrc/raygen.cu)
+# ---------------------------------------------------------------------------
+
+#: raygen.cu's sample orders: None (raster), "tiles8", "tiles32s", and an
+#: index table
+_ORDER = {None: 0, "tiles8": 1, "tiles32s": 2}
+_ORDER_TABLE = 3
+
+_P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
+    ctypes.c_float
+
+
+class _RaygenArgs(ctypes.Structure):
+    _fields_ = [
+        ("n", _L), ("kp0", _P), ("kp1", _P), ("cam0", _P), ("cam1", _P),
+        ("cam2", _P), ("table", _P), ("d", _P), ("h0", ctypes.c_uint32),
+        ("h1", ctypes.c_uint32), ("width", _I), ("height", _I), ("spp", _I),
+        ("full_height", _I), ("row_offset", _I), ("order", _I),
+        ("cutracer", _I), ("tan_h", _F), ("tan_v", _F),
+    ]
+
+
+_lib = None
+
+
+def _load_library():
+    global _lib
+    if _lib is None:
+        from ._build import load_library
+
+        lib = load_library("raygen")
+        lib.raygen_args_size.restype = ctypes.c_longlong
+        size = lib.raygen_args_size()
+        if size != ctypes.sizeof(_RaygenArgs):
+            raise RuntimeError(f"raygen.cu: RaygenArgs is {size} bytes, its "
+                               f"ctypes mirror {ctypes.sizeof(_RaygenArgs)}")
+        lib.raygen.argtypes = [ctypes.POINTER(_RaygenArgs), ctypes.c_void_p]
+        lib.raygen.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _launch(name: str, args, dev) -> bool:
+    """Launch kernel ``name`` on ``dev``'s current stream; False (and no
+    launch) for no lanes."""
+    lib = _load_library()
+    if args.n == 0:
+        return False
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = getattr(lib, name)(ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cuda error {err}")
+    return True
+
+
+def _cuda_device(device):
+    dev = (torch.device(device) if device is not None
+           else torch.get_default_device())
+    if dev.type != "cuda":
+        raise ValueError("the camera rays' kernel needs a CUDA device")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _camera(x, name, dev, shape):
+    """A camera array as a contiguous float32 tensor of ``shape`` on
+    ``dev``: an array is copied there, a tensor (the captured frame's
+    camera buffer) is taken as it is and must already be one."""
+    t = _on_device(x, dev)
+    if (t.dtype != torch.float32 or t.device != dev
+            or tuple(t.shape) != shape or not t.is_contiguous()):
+        raise ValueError(f"camera {name}: {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}; the kernel takes contiguous float32 "
+                         f"{list(shape)} on {dev}")
+    return t
+
+
+def _raygen_launch(key, width, height, spp, pix_order, dev, a):
+    """Fill the sample layout and key of block ``a``, launch it and
+    return d [N, 3]."""
+    global raygen_launches
+    n = width * height * spp
+    if n >= 1 << 31:
+        raise ValueError(f"{n} camera rays: the kernel takes fewer than "
+                         "2^31")
+    a.n, a.width, a.height, a.spp = n, width, height, spp
+    if isinstance(pix_order, torch.Tensor):
+        table = pix_order
+        if (table.dtype != torch.int64 or table.device != dev
+                or tuple(table.shape) != (width * height,)
+                or not table.is_contiguous()):
+            raise ValueError(f"pix_order: {table.dtype} "
+                             f"{tuple(table.shape)} on {table.device}; the "
+                             f"kernel takes a contiguous int64 "
+                             f"[{width * height}] on {dev}")
+        a.order, a.table = _ORDER_TABLE, table.data_ptr()
+    elif pix_order in _ORDER:
+        a.order = _ORDER[pix_order]
+    else:
+        raise ValueError(f"unknown pix_order {pix_order!r}")
+    a.kp0, a.kp1, a.h0, a.h1 = rng._key_words(key, dev)
+    d = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    a.d = d.data_ptr()
+    if _launch("raygen", a, dev):
+        raygen_launches += 1
+    return d
+
+
+def generate_camera_rays_cuda(
+    key,
+    width: int,
+    height: int,
+    spp: int,
+    cam_pos,
+    cam_c2w,
+    tan_half_h: float,
+    tan_half_v: float,
+    pix_order=None,
+    row_offset: int = 0,
+    full_height: int = None,
+    device=None,
+):
+    """``generate_camera_rays``' kernel on the current stream.  The key
+    and the camera are read on the device when the kernel runs."""
+    dev = _cuda_device(device)
+    pos = _camera(cam_pos, "pos", dev, (3,))
+    c2w = _camera(cam_c2w, "c2w", dev, (3, 3))
+    a = _RaygenArgs(cam0=c2w.data_ptr(), row_offset=row_offset,
+                    full_height=height if full_height is None
+                    else full_height,
+                    tan_h=float(np.float32(tan_half_h)),
+                    tan_v=float(np.float32(tan_half_v)))
+    d = _raygen_launch(key, width, height, spp, pix_order, dev, a)
+    return pos.expand(d.shape), d
+
+
+def generate_camera_rays_cutracer_cuda(
+    key,
+    width: int,
+    height: int,
+    spp: int,
+    origin,
+    look_at,
+    up,
+    left,
+    pix_order=None,
+    device=None,
+):
+    """``generate_camera_rays_cutracer``'s kernel on the current
+    stream."""
+    dev = _cuda_device(device)
+    pos = _camera(origin, "origin", dev, (3,))
+    vecs = [_camera(v, name, dev, (3,)) for v, name in
+            ((left, "left"), (up, "up"), (look_at, "look_at"))]
+    a = _RaygenArgs(cutracer=1, full_height=height)
+    a.cam0, a.cam1, a.cam2 = (v.data_ptr() for v in vecs)
+    d = _raygen_launch(key, width, height, spp, pix_order, dev, a)
+    return pos.expand(d.shape), d
 
 
 # ---------------------------------------------------------------------------

@@ -342,12 +342,10 @@ class WavefrontRenderer:
 
     def _film(self, light, with_median: bool, final_img, image_samples):
         cfg = self.config
-        img = F.reconstruct(light, cfg.width, cfg.height,
-                            cfg.samples_per_frame,
-                            inv_order=self._inv_order,
-                            sample_major=cfg.sample_order == "tiles32s")
-        final = F.accumulate(final_img, img, image_samples,
-                             float(cfg.samples_per_frame))
+        final = F.film(light, final_img, image_samples,
+                       float(cfg.samples_per_frame), cfg.width, cfg.height,
+                       cfg.samples_per_frame, inv_order=self._inv_order,
+                       sample_major=cfg.sample_order == "tiles32s")
         post = (F.median_filter_3x3(final, cfg.reference_compat)
                 if with_median else final)
         return final, post

@@ -47,7 +47,8 @@ from typing import Callable, Dict, Hashable, Tuple
 import torch
 
 from .. import rng
-from ..ops import packet_dfs, partition, shade_stages, wavefront2
+from ..ops import filters, packet_dfs, partition, shade, shade_stages
+from ..ops import wavefront2
 
 #: the kernel wrappers' launch counters: (module, attribute)
 COUNTERS = (
@@ -67,6 +68,9 @@ COUNTERS = (
     (shade_stages, "nee_prep_launches"),
     (shade_stages, "nee_accum_launches"),
     (shade_stages, "scatter_launches"),
+    (shade, "raygen_launches"),
+    (filters, "film_launches"),
+    (filters, "median_launches"),
 )
 
 #: launches made by warm-up runs since last set to 0, by (module's short

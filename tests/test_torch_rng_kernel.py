@@ -10,8 +10,9 @@
   version; another device is refused.
 * The draws of one small CPU frame, counted by wrapping ``rng.uniform``,
   are what ``chip_smoke.expected_launches`` schedules for the kernel on
-  the card: the fast preset, the reference preset, three lights (area,
-  directional, environment) and ``compact_depths``.
+  the card, raygen's draw (hashed inside the camera rays' kernel there)
+  under its ``raygen`` entry: the fast preset, the reference preset,
+  three lights (area, directional, environment) and ``compact_depths``.
 """
 
 import numpy as np
@@ -27,6 +28,7 @@ from cuda_raytracer_tpu_torch import rng
 from cuda_raytracer_tpu_torch.config import RenderConfig, fast_preset_kwargs
 from cuda_raytracer_tpu_torch.models.cornell import cornell_box_scene
 from cuda_raytracer_tpu_torch.models.terrain import terrain_scene
+from cuda_raytracer_tpu_torch.ops import shade as S
 from cuda_raytracer_tpu_torch.render.engine import WavefrontRenderer
 from cuda_raytracer_tpu_torch.scene import static_scene as st
 from torch_threads import _one_torch_thread  # noqa: F401
@@ -171,17 +173,32 @@ def test_draws_per_frame_are_the_schedule(case, monkeypatch):
     r = WavefrontRenderer(cfg(), camera_mode="collada", device="cpu")
     r.load_static_scene(scene())
     r.set_viewpoint(*view)
-    calls, draw = [], rng.uniform
+    calls, raygen, draw = [], [], rng.uniform
+    in_raygen = []
 
     def counted(key, shape, device, repeat=1):
         out = draw(key, shape, device, repeat)
-        calls.append(out.numel())
+        (raygen if in_raygen else calls).append(out.numel())
         return out
 
+    def plain_raygen(fn):
+        def rays(*a, **k):
+            in_raygen.append(True)
+            try:
+                return fn(*a, **k)
+            finally:
+                in_raygen.pop()
+        return rays
+
     monkeypatch.setattr(rng, "uniform", counted)
+    for name in ("generate_camera_rays_plain",
+                 "generate_camera_rays_cutracer_plain"):
+        monkeypatch.setattr(S, name, plain_raygen(getattr(S, name)))
     r.render()
     assert all(calls), "a frame drew nothing (no launch on the card)"
-    assert len(calls) == expected_launches(r, 1)["rng_uniform"]
+    want = expected_launches(r, 1, medians=1)
+    assert len(calls) == want["rng_uniform"]
+    assert len(raygen) == want["raygen"] == 1 and all(raygen)
     if case == "compact_depths":
         assert r.compacting and all(r.live_counts)
     if case == "three lights":

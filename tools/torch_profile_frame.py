@@ -12,19 +12,21 @@ or run-H (run C's document with a directional light beside its area
 light, and the sky map attached as ``render_cli -e`` attaches it: three
 lights, the camera render_cli -e leaves) configuration (the fast preset as shipped, or with the roulette depths through
 packet-DFS; 800x600, 32 spp per frame, depth 4, NEE 1x1.0) on one card:
-a warm-up frame, then one frame with every bounce-loop stage timed by
-CUDA events around it (trace, shade_hit, nee_prep by light kind,
-nee_accum, scatter, plus raygen and film; each shading stage's row names
-its kernel of ops/csrc/shade.cu, whose device time the profiled frame
-prints beside the stage's, the rest being the stage's glue) and, inside
+a warm-up frame, then two frames (the first of an accumulation, whose
+film runs the median, and a later one) with every bounce-loop stage
+timed by CUDA events around it (trace, shade_hit, nee_prep by light
+kind, nee_accum, scatter, plus raygen and film; each row of a stage
+with kernels names them (ops/csrc/shade.cu, raygen.cu, film.cu), and
+each profiled frame prints their device time beside the stage's, the
+rest being the stage's glue) and, inside
 the wavefront traces, the partition
 of the rays into the level-0 queue, the count kernel (with its region
 plan), the pack kernel (with the next level's counts and plan) and the
 decode kernel of the hit keys (the merge), with the live entries the
 partition found per trace; then the device launches of one wavefront
 closest-hit and one shadow trace of that frame (torch.profiler); then
-one frame under torch.profiler for device time by kernel name and the
-device's busy share of the frame.  With ``--compact-depths`` the frame
+the two frames again under torch.profiler for device time by kernel
+name and the device's busy share of each.  With ``--compact-depths`` the frame
 runs whole-depth compaction (``compact_depths=True``; "auto" fuses the
 frame on the card): the roulette depths' stages run over the live
 lanes, and the path state's packing (``pack_state``) and partition are
@@ -36,8 +38,9 @@ stage table needs the stages dispatched one by one, so it is taken on
 the eager frame (``fuse_frame="no"``; with ``--compact-depths``, which
 needs a fused frame, the per-depth programs called without capture).
 Last, the frame as the engine runs it on the card, as CUDA graphs
-(render/graphs.py): a first frame (warm-up, capture, replay), one frame
-on the host clock, one with the depth laps (``CRT_TIME_DEPTHS``, taken
+(render/graphs.py): a first frame (warm-up, capture, replay), a later
+frame on the host clock, the first frame of an accumulation (the
+median's film) after a reset, one with the depth laps (``CRT_TIME_DEPTHS``, taken
 between the graphs) and one under torch.profiler (device time, busy
 share, device launches).  Prints the card's name and power limit first.
 """
@@ -54,11 +57,15 @@ import time
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
-#: the shading stages' kernels (ops/csrc/shade.cu), by stage row
-STAGE_KERNELS = {"shade_hit": "shade_hit_kernel",
-                 "nee_prep": "nee_prep_kernel",
-                 "nee_accum": "nee_accum_kernel",
-                 "scatter": "scatter_kernel"}
+#: the kernels of a stage row: the shading stages' (ops/csrc/shade.cu),
+#: raygen's (raygen.cu) and the film's (film.cu: reconstruct + accumulate,
+#: and the median where the frame runs it)
+STAGE_KERNELS = {"shade_hit": ("shade_hit_kernel",),
+                 "nee_prep": ("nee_prep_kernel",),
+                 "nee_accum": ("nee_accum_kernel",),
+                 "scatter": ("scatter_kernel",),
+                 "raygen": ("raygen_kernel",),
+                 "film": ("film_kernel", "median3x3_kernel")}
 
 
 def main() -> int:
@@ -184,31 +191,22 @@ def main() -> int:
         return trace_wf(scene, o, d, valid, t_limit, *a, **kw)
 
     backends.trace_closest_wavefront = keep_first
-    t0 = time.perf_counter()
-    r.render()
-    torch.cuda.synchronize()
-    frame_ms = (time.perf_counter() - t0) * 1e3
-    backends.trace_closest_wavefront = trace_wf
-    if live:
-        print("[live] entries the partition kept, per wavefront trace in "
-              "frame order (each roulette depth's closest-hit trace, then "
-              "its shadow trace per light): "
-              + ", ".join(f"{int(k)} of {n}" for n, k in live))
-    total = 0.0
-    stage_ms = {}
-    print(f"[stages] one frame, {frame_ms:.1f} ms on the host clock "
-          f"(in brackets the stage's kernel, ops/csrc/shade.cu):")
-    for name, evs in sorted(events.items(),
-                            key=lambda kv: -sum(s.elapsed_time(e)
-                                                for s, e in kv[1])):
-        ms = sum(s.elapsed_time(e) for s, e in evs)
-        total += ms
-        stage = name.split(" ")[0]
-        stage_ms[stage] = stage_ms.get(stage, 0.0) + ms
-        label = (f"{name} [{STAGE_KERNELS[stage]}]" if stage in STAGE_KERNELS
-                 else name)
-        print(f"  {label:44s} {ms:9.2f} ms in {len(evs)} call(s)")
-    print(f"  {'(sum of stages)':44s} {total:9.2f} ms")
+    # the first frame of an accumulation (its film runs the median), then
+    # a later one (the median only below post_process_threshold samples)
+    r._reset_accumulation()
+    frames = []
+    for which in ("first frame", "later frame"):
+        events.clear()
+        live.clear()
+        median = r.image_samples < r.config.post_process_threshold
+        t0 = time.perf_counter()
+        r.render()
+        torch.cuda.synchronize()
+        frame_ms = (time.perf_counter() - t0) * 1e3
+        backends.trace_closest_wavefront = trace_wf
+        label = f"{which}, {'with' if median else 'without'} the median"
+        stage_ms = _stage_table(label, events, frame_ms, live)
+        frames.append((label, frame_ms, stage_ms))
 
     # --- profiler: device time by kernel (the event wrappers stay) ------
     from torch.autograd import DeviceType
@@ -228,40 +226,70 @@ def main() -> int:
               f" trace ({len(scene.bvh.wf_levels)} levels): "
               f"{sum(e.count for e in kern)} device launches: "
               + ", ".join(f"{e.count}x {e.key[:48]}" for e in kern))
-    torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        r.render()
+    r._reset_accumulation()
+    for label, frame_ms, stage_ms in frames:
         torch.cuda.synchronize()
-    # kernel rows only (operator rows repeat their kernels' time)
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    dev_total = sum(e.self_device_time_total for e in rows) / 1e3
-    print(f"[profiler] one frame: {dev_total:.1f} ms of device kernel "
-          f"time in {sum(e.count for e in rows)} launches; busy share "
-          f"of the unprofiled {frame_ms:.1f} ms frame "
-          f"{dev_total / frame_ms:.3f}")
-    rows.sort(key=lambda e: -e.self_device_time_total)
-    for e in rows[:25]:
-        print(f"  {e.self_device_time_total / 1e3:9.2f} ms "
-              f"{e.count:6d}x  {e.key[:90]}")
-    # each shading stage: its kernel's device time beside the stage's
-    # event time; what is left is the stage's glue (its draws, the
-    # allocation of its outputs, launch gaps)
-    for stage, kernel in STAGE_KERNELS.items():
-        mine = [e for e in rows if kernel in e.key]
-        k_ms = sum(e.self_device_time_total for e in mine) / 1e3
-        s_ms = stage_ms.get(stage, 0.0)
-        print(f"[kernels] {stage}: {kernel} {k_ms:.3f} ms in "
-              f"{sum(e.count for e in mine)} launch(es) of the stage's "
-              f"{s_ms:.3f} ms; glue {s_ms - k_ms:.3f} ms")
+        with profile(activities=acts) as prof:
+            r.render()
+            torch.cuda.synchronize()
+        # kernel rows only (operator rows repeat their kernels' time)
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        dev_total = sum(e.self_device_time_total for e in rows) / 1e3
+        print(f"[profiler] {label}: {dev_total:.1f} ms of device kernel "
+              f"time in {sum(e.count for e in rows)} launches; busy share "
+              f"of the unprofiled {frame_ms:.1f} ms frame "
+              f"{dev_total / frame_ms:.3f}")
+        rows.sort(key=lambda e: -e.self_device_time_total)
+        for e in rows[:25]:
+            print(f"  {e.self_device_time_total / 1e3:9.2f} ms "
+                  f"{e.count:6d}x  {e.key[:90]}")
+        # each stage with kernels: their device time beside the stage's
+        # event time; what is left is the stage's glue (its draws, the
+        # allocation of its outputs, launch gaps)
+        for stage, kernels in STAGE_KERNELS.items():
+            mine = [e for e in rows if any(k in e.key for k in kernels)]
+            k_ms = sum(e.self_device_time_total for e in mine) / 1e3
+            s_ms = stage_ms.get(stage, 0.0)
+            print(f"[kernels] {label}: {stage}: {' + '.join(kernels)} "
+                  f"{k_ms:.3f} ms in {sum(e.count for e in mine)} "
+                  f"launch(es) of the stage's {s_ms:.3f} ms; glue "
+                  f"{s_ms - k_ms:.3f} ms")
     for mod, name, fn in saved:
         setattr(mod, name, fn)
-    graphed(make(cfg), frame_ms)
+    graphed(make(cfg), frames[-1][1])
     return 0
 
 
+def _stage_table(label, events, frame_ms, live):
+    """Print one frame's stage table (and the partition's live entries);
+    returns ms by stage."""
+    if live:
+        print(f"[live] {label}: entries the partition kept, per wavefront "
+              "trace in frame order (each roulette depth's closest-hit "
+              "trace, then its shadow trace per light): "
+              + ", ".join(f"{int(k)} of {n}" for n, k in live))
+    total = 0.0
+    stage_ms = {}
+    print(f"[stages] {label}, {frame_ms:.1f} ms on the host clock (in "
+          f"brackets the stage's kernels, ops/csrc/):")
+    for name, evs in sorted(events.items(),
+                            key=lambda kv: -sum(s.elapsed_time(e)
+                                                for s, e in kv[1])):
+        ms = sum(s.elapsed_time(e) for s, e in evs)
+        total += ms
+        stage = name.split(" ")[0]
+        stage_ms[stage] = stage_ms.get(stage, 0.0) + ms
+        text = (f"{name} [{' + '.join(STAGE_KERNELS[stage])}]"
+                if stage in STAGE_KERNELS else name)
+        print(f"  {text:44s} {ms:9.2f} ms in {len(evs)} call(s)")
+    print(f"  {'(sum of stages)':44s} {total:9.2f} ms")
+    return stage_ms
+
+
 def graphed(r, eager_ms):
-    """The frame as CUDA graphs: first frame, one on the host clock, the
+    """The frame as CUDA graphs: first frame, a later one on the host
+    clock, the first frame of an accumulation (the median's film), the
     depth laps, a profiled one (device time, busy share, launches)."""
     import torch
     from torch.autograd import DeviceType
@@ -275,7 +303,11 @@ def graphed(r, eager_ms):
         return (time.perf_counter() - t0) * 1e3
 
     first = frame()
+    frame()  # a later frame: for the fast preset, the film without median
     ms = frame()
+    # the first frame of an accumulation: its film runs the median
+    r._reset_accumulation()
+    median_ms = frame()
     os.environ["CRT_TIME_DEPTHS"] = "1"
     try:
         lap_ms = frame()
@@ -294,7 +326,9 @@ def graphed(r, eager_ms):
           f"captured, {len(r.graphs)} keys): first frame {first:.1f} ms "
           f"(warm-up {r.graphs.warmup_s * 1e3:.1f} ms and captures "
           f"{r.graphs.capture_s * 1e3:.1f} ms of it), "
-          f"then {ms:.1f} ms on the host clock (eager {eager_ms:.1f}); with "
+          f"then {ms:.1f} ms on the host clock (eager {eager_ms:.1f}), "
+          f"{median_ms:.1f} ms for the first frame of an accumulation (the "
+          f"median's film) after a reset; with "
           f"depth laps {lap_ms:.1f} ms: "
           + ", ".join(f"{k} {v:.2f}" for k, v in laps.items())
           + f"; profiled: {dev:.1f} ms of device kernel time in "
