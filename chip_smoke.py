@@ -197,13 +197,18 @@ prints one JSON line for the kernels and, last, the device line.  Phases:
    median where the accumulated samples are below the threshold), times
    in turns and a profiled frame each; raygen against its plain version
    (d within rtol 1e-5 / atol 1e-6 on every lane) on run A's camera
-   (tiles32s, and tiles8), run G's raster pass, the cutracer basis and a
-   tiles shard of run F (row_offset 450 of 600, a partial tile row); the
-   film on the frames' own inputs (within rtol 1e-5 / atol 1e-6, the
-   sample count on the device and by value; reconstruct and accumulate
-   alone) and the median in both modes bit-equal to the plain median;
-   each timed beside its bound (L2 emptied first), its plain version and,
-   for the film, torch's mean over the samples.
+   (tiles32s, and tiles8), run G's raster pass, the cutracer basis, a
+   tiles shard of run F (row_offset 450 of 600, a partial tile row) and
+   1248x702 at 5 spp (tiles32s: no divisor of the layout a power of
+   two); the film on the frames' own inputs (within rtol 1e-5 / atol
+   1e-6, the sample count on the device and by value; reconstruct and
+   accumulate alone) and the median in both modes bit-equal to the plain
+   median; the median on an 800x600 image with NaN payloads, +-0, +-inf
+   and ties, bit-equal to the plain median on the CPU in both modes (and
+   on the card up to the order of equal keys, which torch.sort there
+   need not keep); each timed beside its bound (L2 emptied first) and
+   its plain version, and the film beside torch's mean over the samples
+   (the reconstruct without inv_order or the accumulate).
 
 Needs one CUDA card; exits non-zero (and prints no result) without one,
 or when run outside a checkout of the repository.  Imports nothing of
@@ -4910,6 +4915,12 @@ END_KERNELS = {
 #: three c2w rows (2 products, 2 sums each), the sum of squares (5), its
 #: clamp and sqrt, three divisions
 RAYGEN_FLOPS = 2 + 2 + 3 + 6 + 12 + 5 + 2 + 3
+#: raygen's setting whose divisors are none of them powers of two (W, H,
+#: spp): 39 tile columns of 32, a 30-row partial tile row, 5 spp
+ODD_RAYGEN = (1248, 702, 5)
+#: the median's synthetic image (H, W, seed): run A's size, with NaN (two
+#: payloads), +-0, +-inf and runs of equal values (``tie_image``)
+TIE_IMAGE = (HEIGHT, WIDTH, 15)
 #: run L: the settings whose frames run on the kernels, eager and graphed,
 #: and on the plain routes, graphed (label, how the renderer is made,
 #: ``_run_i_make``)
@@ -5018,9 +5029,9 @@ def measure_raygen(label, cutracer, args, kw, timed=False):
 def _raygen_cases(rs):
     """measure_raygen on the cameras of run L's renderers: run A's
     (tiles32s, timed), its tiles8 order, run G's raster reference pass,
-    the cutracer basis of run C's document, and a tiles shard of run F
-    (the last slab of 150 rows at row_offset 450 of 600, tiles32s: a
-    partial tile row of 22)."""
+    the cutracer basis of run C's document, a tiles shard of run F (the
+    last slab of 150 rows at row_offset 450 of 600, tiles32s: a partial
+    tile row of 22), and run A's camera at ODD_RAYGEN (timed)."""
     out = {}
     a = rs["run A"]
     cfg = a.config
@@ -5046,6 +5057,11 @@ def _raygen_cases(rs):
                    (WIDTH, rows, cfg.samples_per_frame, *cam),
                    dict(pix_order="tiles32s", row_offset=3 * rows,
                         full_height=HEIGHT))
+    w, h, spp = ODD_RAYGEN
+    measure_raygen(f"run A's camera at {w}x{h}, {spp} spp (tiles32s: "
+                   f"{w // 32} tile columns, a {h % 32}-row partial tile row)",
+                   False, (w, h, spp, *cam), dict(pix_order="tiles32s"),
+                   timed=True)
     return out
 
 
@@ -5095,8 +5111,13 @@ def measure_film(label, r, kept):
         lambda: F.film_cuda(light, final_img, old_t, float(spp), *args),
         lambda: F.film_plain(light, final_img, old_t, float(spp), *args),
         _nbytes(light, final_img, want)
-        + (0 if inv is None else _nbytes(inv)),
-        library=lambda: light.view(*view[0]).mean(view[1]))
+        + (0 if inv is None else _nbytes(inv)))
+    # no PyTorch call computes the film; torch's mean alone is the
+    # reconstruct without inv_order or the accumulate: a partial yardstick
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    mean_ms = cuda_time_ms(lambda: light.view(*view[0]).mean(view[1]), 3,
+                           prep=flush.zero_)
+    del flush
     compat = cfg.reference_compat
     med_b = _timed_pair(lambda: F.median_filter_3x3_cuda(want, compat),
                         lambda: F.median_filter_3x3_plain(want, compat),
@@ -5109,14 +5130,81 @@ def measure_film(label, r, kept):
           f"atol={STAGE_ATOL} of the plain versions on all but {bad} "
           f"values, max abs err {max(errs):.3g}; median bit-equal to the "
           f"plain median (default, compat) {med_same}; film kernel "
-          f"{_line(film_b)}; median ({'compat' if compat else 'default'}) "
-          f"{_line(med_b)} [{smi_line()}]")
+          f"{_line(film_b)}; torch mean alone (not the same function: no "
+          f"inv_order, no accumulate) {mean_ms:.4f} ms; median "
+          f"({'compat' if compat else 'default'}) {_line(med_b)} "
+          f"[{smi_line()}]")
     check(bad == 0, f"film {label}: {bad} values differ from the plain "
           f"versions")
     check(all(med_same.values()), f"film {label}: the median kernel's bits "
           f"differ from the plain median's ({med_same})")
     return dict(film=dict(film_b, max_abs_err=max(errs)),
                 median3x3=dict(med_b, max_abs_err=0.0))
+
+
+def tie_image(h, w, seed):
+    """An [h, w, 3] float32 image with NaN (two payloads, one of them
+    negative), +-0, infinities and runs of equal values."""
+    import numpy as np
+
+    g = np.random.default_rng(seed)
+    img = g.integers(-3, 4, (h, w, 3)).astype(np.float32) * 0.5
+    img[g.random((h, w, 3)) < 0.15] = -0.0
+    img[g.random((h, w, 3)) < 0.1] = np.nan
+    img[g.random((h, w, 3)) < 0.03] = -np.inf
+    img[g.random((h, w, 3)) < 0.03] = np.inf
+    bits = img.view(np.uint32)
+    nan = np.isnan(img)
+    bits[nan & (g.random((h, w, 3)) < 0.5)] = 0xFFC00001
+    return img
+
+
+def _float_order(x):
+    """median3x3_kernel's key of each float of ``x`` as int64: -0 as +0,
+    every NaN last."""
+    import torch
+
+    b = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    b = torch.where(x == 0, torch.zeros_like(b), b)
+    key = torch.where(b >= 1 << 31, 0xFFFFFFFF - b, b | (1 << 31))
+    return torch.where(torch.isnan(x), torch.full_like(b, 0xFFFFFFFF), key)
+
+
+def measure_median_ties():
+    """The median kernel on TIE_IMAGE in both modes: bit-equal to the
+    plain version run on the CPU (torch.sort there keeps equal keys in
+    index order, as jnp.sort does), and against the plain version on the
+    card, whose torch.sort of 9 keys need not be stable: the values where
+    the two differ in bits, which must tie in the sort (the same key: +-0,
+    or NaN payloads); times beside the bound and the plain version."""
+    import torch
+
+    from cuda_raytracer_tpu_torch.ops import filters as F
+
+    h, w, seed = TIE_IMAGE
+    img = torch.as_tensor(tie_image(h, w, seed), device=DEVICE)
+    for compat in (False, True):
+        mk = F.median_filter_3x3_cuda(img, compat)
+        mp = F.median_filter_3x3_plain(img, compat)
+        mc = F.median_filter_3x3_plain(img.cpu(), compat)
+        torch.cuda.synchronize()
+        same_cpu = torch.equal(mk.cpu().view(torch.int32),
+                               mc.view(torch.int32))
+        n_differ = int((mk.view(torch.int32) != mp.view(torch.int32)).sum())
+        ties = bool(torch.equal(_float_order(mk), _float_order(mp)))
+        b = _timed_pair(lambda: F.median_filter_3x3_cuda(img, compat),
+                        lambda: F.median_filter_3x3_plain(img, compat),
+                        2 * _nbytes(img))
+        mode = "compat" if compat else "default"
+        print(f"[median] {w}x{h} with NaN (two payloads), +-0, +-inf and "
+              f"ties, {mode}: bit-equal to the plain version on the CPU "
+              f"{same_cpu}; against the plain version on the card "
+              f"{n_differ} values differ in bits, all of them ties of the "
+              f"sort {ties}; kernel {_line(b)} [{smi_line()}]")
+        check(same_cpu, f"median {mode}: the kernel's bits differ from the "
+              f"plain version's on the CPU")
+        check(ties, f"median {mode}: the kernel and the plain version on "
+              f"the card pick values of different keys")
 
 
 def _run_l_setting(label, kind, frames, docs, sky, n):
@@ -5208,10 +5296,10 @@ def phase_raygen_film(n=121, frames=3):
     """Phase 15 (run L): the camera rays' and the film's kernels
     (ops/csrc/raygen.cu, film.cu).  What ptxas says of them; RUN_L's
     frames on the kernels, eager and graphed, and on the plain routes
-    (_run_l_setting); raygen against its plain version at five settings
-    (_raygen_cases) and the film and median on the frames' own inputs
-    (measure_film), each timed beside its bound.  Returns the three
-    kernels' JSON rows."""
+    (_run_l_setting); raygen against its plain version at six settings
+    (_raygen_cases), the film and median on the frames' own inputs
+    (measure_film) and the median on TIE_IMAGE (measure_median_ties),
+    each timed beside its bound.  Returns the three kernels' JSON rows."""
     import gc
     import tempfile
 
@@ -5240,6 +5328,7 @@ def phase_raygen_film(n=121, frames=3):
     for label in ("run A", "run G default pass",
                   "run G --reference-compat --camera-mode cutracer"):
         films[label] = measure_film(label, rs[label], res[label]["kept"][0])
+    measure_median_ties()
     run_a = res["run A"]
     check(all(run_a["launches"][k] > 0 for k in END_KERNELS),
           f"run L: run A never launched a kernel of its ends "
@@ -5249,9 +5338,7 @@ def phase_raygen_film(n=121, frames=3):
     for k, (source, replaces) in END_KERNELS.items():
         m = measured["run A"] if k == "raygen" else films["run A"][k]
         rows.append(dict(kernel_row(k, source, "", run_a["launches"][k], m,
-                                    m["max_abs_err"], m["library_ms"]
-                                    if k == "film" else None),
-                         replaces=replaces))
+                                    m["max_abs_err"]), replaces=replaces))
     del res, rs
     gc.collect()
     torch.cuda.empty_cache()

@@ -22,14 +22,19 @@
 // without the accumulate, its accumulate the kernel over one sample per
 // pixel (a mean of one is the sample itself, exactly).
 //
-// median3x3_kernel, one thread per pixel: per channel the 9 neighbours
-// (dy, dx in row order; clamped at the edges, or white outside under
-// reference_compat), each as a 64-bit key (the float's order, with -0 ==
-// +0 and every NaN equal and last, as torch.sort and jnp.sort compare,
-// then the neighbour's index), sorted by a 25-comparator network; the
-// unique keys make it the stable sort, so the value at ascending index 4
-// (5 under compat) is the plain sort's element, bit for bit, ties of
-// +-0 and NaN included.
+// median3x3_kernel, a block of 32 x 8 threads, one pixel each: the
+// block's tile and its one-pixel halo loaded once into shared memory
+// (each row a coalesced run of the image; the edge clamp, or the white
+// pad under reference_compat, applied at the load), each value beside
+// its 32-bit key (the float's order, with -0 == +0 and every NaN equal
+// and last, as torch.sort and jnp.sort compare).  Per channel the 9
+// neighbours' keys (dy, dx in row order) go through a min/max network:
+// the median-of-9 network for index 4, the sorting network pruned to
+// index 5 under compat.  The stable sort's pick follows from the key m
+// so selected and the neighbours' indices: of the neighbours whose key
+// is m, the (K - c)-th in index order, c being those below m.  Its value
+// is read back from the tile, so the result is the plain sort's element
+// bit for bit, ties of +-0 and NaN payloads included.
 //
 // Bound on the H100: bytes.  film: each sample read once (12 B a sample),
 // inv_order (8 B a pixel), the old image where it accumulates and the
@@ -83,31 +88,37 @@ __global__ void __launch_bounds__(FBLOCK) film_kernel(const FilmArgs a) {
   o[2] = m2;
 }
 
-// the sort key of a neighbour: its float's order in the high word (-0 as
-// +0, every NaN above +inf), its index below, so no two keys tie
-__device__ __forceinline__ unsigned long long median_key(float v, int idx) {
+// the float's order as an unsigned key: -0 as +0, every NaN above +inf, so
+// that unsigned order is the order torch.sort and jnp.sort compare by
+__device__ __forceinline__ uint32_t float_order(float v) {
   uint32_t b = __float_as_uint(v);
   if (v == 0.0f) b = 0u;
   uint32_t ord = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
   if (v != v) ord = 0xFFFFFFFFu;
-  return ((unsigned long long)ord << 4) | (unsigned long long)idx;
+  return ord;
 }
 
-#define CE(i, j)                                             \
-  {                                                          \
-    const unsigned long long lo = k[i] < k[j] ? k[i] : k[j]; \
-    k[j] = k[i] < k[j] ? k[j] : k[i];                        \
-    k[i] = lo;                                               \
+// compare-exchange of two keys: k[i] the smaller, k[j] the larger
+#define CE(i, j)                         \
+  {                                      \
+    const uint32_t lo = min(k[i], k[j]); \
+    k[j] = max(k[i], k[j]);              \
+    k[i] = lo;                           \
   }
 
-// the element at ascending index K of the 9 values: the values' keys
-// sorted (25 comparators; what does not reach index K is left out by the
-// compiler), then the value whose index the K-th key holds
+// the key at ascending index K of 9 keys (k is overwritten): for K = 4 the
+// 19-comparator median-of-9 network (Paeth's), else a 25-comparator
+// sorting network; what does not reach index K is left out by the
+// compiler
 template <int K>
-__device__ __forceinline__ float select9(const float* v) {
-  unsigned long long k[9];
-#pragma unroll
-  for (int i = 0; i < 9; ++i) k[i] = median_key(v[i], i);
+__device__ __forceinline__ uint32_t select9(uint32_t* k) {
+  if (K == 4) {
+    CE(1, 2) CE(4, 5) CE(7, 8) CE(0, 1) CE(3, 4) CE(6, 7)
+    CE(1, 2) CE(4, 5) CE(7, 8) CE(0, 3) CE(5, 8) CE(4, 7)
+    CE(3, 6) CE(1, 4) CE(2, 5) CE(4, 7) CE(4, 2) CE(6, 4)
+    CE(4, 2)
+    return k[4];
+  }
   CE(0, 3) CE(1, 7) CE(2, 5) CE(4, 8)
   CE(0, 7) CE(2, 4) CE(3, 8) CE(5, 6)
   CE(0, 2) CE(1, 3) CE(4, 5) CE(7, 8)
@@ -115,11 +126,32 @@ __device__ __forceinline__ float select9(const float* v) {
   CE(0, 1) CE(2, 4) CE(3, 5) CE(6, 8)
   CE(2, 3) CE(4, 5) CE(6, 7)
   CE(1, 2) CE(3, 4) CE(5, 6)
-  const int idx = (int)(k[K] & 15ull);
-  float r = v[0];
+  return k[K];
+}
+
+// The stable sort's element at index K of 9 keys, as the neighbour's
+// number: m = the K-th smallest key; c = the neighbours below m; of the
+// neighbours equal to m, the (K - c)-th in index order.  Equal keys keep
+// their index order in a stable sort, so this is the neighbour whose
+// value torch.sort and jnp.sort put at index K, bit for bit (+-0 and NaN
+// payloads included).
+template <int K>
+__device__ __forceinline__ int stable_pick9(const uint32_t* key) {
+  uint32_t k[9];
 #pragma unroll
-  for (int i = 1; i < 9; ++i) r = idx == i ? v[i] : r;
-  return r;
+  for (int i = 0; i < 9; ++i) k[i] = key[i];
+  const uint32_t m = select9<K>(k);
+  int j = K;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) j -= key[i] < m ? 1 : 0;
+  int pick = 0;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    const bool eq = key[i] == m;
+    pick = eq && j == 0 ? i : pick;
+    j -= eq ? 1 : 0;
+  }
+  return pick;
 }
 
 struct MedianArgs {
@@ -128,33 +160,83 @@ struct MedianArgs {
   int h, w, compat;
 };
 
-// COMPAT: white outside the image and index 5; else edge clamp, index 4
+// a block: MW x MH threads, one pixel each; its tile with a one-pixel
+// halo, (MH + 2) rows of MP pixels of 3 channels, values and keys (two
+// pixels a thread, MH rows apart, took 3% longer on the H100 at 800x600)
+#define MW 32
+#define MH 8
+#define MP (MW + 2)
+#define MTILE ((MH + 2) * MP * 3)
+
+struct MedianTile {
+  float v[MTILE];
+  uint32_t key[MTILE];
+};
+
+// The kernel's two phases around its barrier (the host build of the tests
+// runs them as two loops over a block's threads).  Phase 1: the block's
+// tile and halo, each row a run of (MW + 2) * 3 floats of the image (a
+// warp's loads coalesce), edge-clamped, or white outside under COMPAT.
+#define MLOADS ((MTILE + MW * MH - 1) / (MW * MH))  // loads a thread
+
 template <bool COMPAT>
-__global__ void __launch_bounds__(FBLOCK)
-    median3x3_kernel(const MedianArgs a) {
-  const int h = a.h, w = a.w;
-  const float* __restrict__ img = a.img;
-  const long long p = (long long)blockIdx.x * FBLOCK + threadIdx.x;
-  if (p >= (long long)h * w) return;
-  const int y = (int)(p / w), x = (int)(p % w);
-  float v[3][9];
+__device__ __forceinline__ void median_load(const MedianArgs& a,
+                                            MedianTile& t) {
+  const int x0 = (int)blockIdx.x * MW - 1, y0 = (int)blockIdx.y * MH - 1;
+  const int first = threadIdx.y * MW + threadIdx.x;
+  float v[MLOADS];
+  // every load issued before the first is used
 #pragma unroll
-  for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
-      int yy = y + dy - 1, xx = x + dx - 1;
-      const bool outside = yy < 0 || yy >= h || xx < 0 || xx >= w;
-      yy = yy < 0 ? 0 : (yy >= h ? h - 1 : yy);
-      xx = xx < 0 ? 0 : (xx >= w ? w - 1 : xx);
-      const float* q = img + 3 * ((long long)yy * w + xx);
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        v[c][dy * 3 + dx] = COMPAT && outside ? 1.0f : q[c];
-    }
+  for (int k = 0; k < MLOADS; ++k) {
+    const int e = first + k * MW * MH;
+    const int row = e / (MP * 3), col = e - row * (MP * 3);
+    const int cx = col / 3, c = col - cx * 3;
+    int y = y0 + row, x = x0 + cx;
+    const bool outside = y < 0 || y >= a.h || x < 0 || x >= a.w;
+    y = y < 0 ? 0 : (y >= a.h ? a.h - 1 : y);
+    x = x < 0 ? 0 : (x >= a.w ? a.w - 1 : x);
+    v[k] = (COMPAT && outside) || e >= MTILE
+               ? 1.0f
+               : a.img[3 * ((long long)y * a.w + x) + c];
   }
 #pragma unroll
-  for (int c = 0; c < 3; ++c)
-    a.out[3 * p + c] = select9<COMPAT ? 5 : 4>(v[c]);
+  for (int k = 0; k < MLOADS; ++k) {
+    const int e = first + k * MW * MH;
+    if (e < MTILE) {
+      t.v[e] = v[k];
+      t.key[e] = float_order(v[k]);
+    }
+  }
+}
+
+// Phase 2: the thread's pixel, per channel the neighbour (dy, dx in row
+// order) at ascending index 4 (5 under COMPAT)
+template <bool COMPAT>
+__device__ __forceinline__ void median_pixel(const MedianArgs& a,
+                                             const MedianTile& t) {
+  const int x = (int)blockIdx.x * MW + threadIdx.x;
+  const int y = (int)blockIdx.y * MH + threadIdx.y;
+  if (x >= a.w || y >= a.h) return;
+  const int at = 3 * (threadIdx.y * MP + threadIdx.x);
+  float* out = a.out + 3 * ((long long)y * a.w + x);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    uint32_t key[9];
+#pragma unroll
+    for (int i = 0; i < 9; ++i)
+      key[i] = t.key[at + 3 * ((i / 3) * MP + i % 3) + c];
+    const int i = stable_pick9<COMPAT ? 5 : 4>(key);
+    out[c] = t.v[at + 3 * ((i / 3) * MP + i % 3) + c];
+  }
+}
+
+template <bool COMPAT>
+__global__ void __launch_bounds__(MW * MH)
+    median3x3_kernel(const MedianArgs a) {
+  __shared__ MedianTile t;
+  median_load<COMPAT>(a, t);
+  __syncthreads();
+  median_pixel<COMPAT>(a, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -174,13 +256,14 @@ extern "C" int film(const FilmArgs* a, void* stream) {
 }
 
 extern "C" int median3x3(const MedianArgs* a, void* stream) {
-  const long long n = (long long)a->h * a->w;
-  if (n > 0) {
+  if ((long long)a->h * a->w > 0) {
+    const dim3 grid((a->w + MW - 1) / MW, (a->h + MH - 1) / MH);
+    const dim3 block(MW, MH);
     cudaStream_t s = (cudaStream_t)stream;
     if (a->compat)
-      median3x3_kernel<true><<<blocks_for(n), FBLOCK, 0, s>>>(*a);
+      median3x3_kernel<true><<<grid, block, 0, s>>>(*a);
     else
-      median3x3_kernel<false><<<blocks_for(n), FBLOCK, 0, s>>>(*a);
+      median3x3_kernel<false><<<grid, block, 0, s>>>(*a);
   }
   return (int)cudaGetLastError();
 }

@@ -8,12 +8,18 @@
 // (n, 2)) draw (:181, :213).  The plain PyTorch versions are ops/shade.py's
 // generate_camera_rays_plain and generate_camera_rays_cutracer_plain.
 //
-// One thread per lane i:
-//   * the pixel: slot i / spp (pixel-major), or i % (W * H) under
-//     tiles32s (sample-major), mapped to its pixel in raster order,
+// One thread per lane i (fewer than 2^31 lanes, so every index is a u32):
+//   * the pixel (px, py): slot i / spp (pixel-major), or i % (W * H)
+//     under tiles32s (sample-major), mapped to its pixel in raster order,
 //     through the tiles8 or tiles32s closed form (a partial last tile row,
-//     height % 32, packed densely), or through an index table; all in
-//     int32 (the wrapper refuses 2^31 lanes or more);
+//     height % 32, packed densely), or through an index table.  No
+//     runtime division: each divisor of the order is a launch constant
+//     with its magic pair (Div, made by the wrapper from the static shape
+//     alone, so a captured graph replays them as it replays tan_h), and a
+//     quotient is one high product and a shift; tile sizes are shifts
+//     and masks.  px < W in every order the wrapper takes (tiles32s needs
+//     W % 32 == 0, tiles8 W % 8 == 0), so px and py are the plain
+//     version's pix % W and pix / W;
 //   * the draw: elements 2i and 2i + 1 of jax.random.uniform(key, (n, 2)),
 //     threefry.cuh's hash, bit for bit; the key by value or read on the
 //     device (a KeyTable entry), so a captured graph draws the next
@@ -29,8 +35,10 @@
 //     through device pointers, so a captured graph sees a moved camera;
 //     tan_half_h / tan_half_v are launch parameters (a new field of view
 //     captures anew).
-//   * d [N, 3] written once.  o is the camera position's stride-0 expand,
-//     which no kernel writes.
+//   * d [N, 3] written once, three floats a thread (a block's d staged
+//     in shared memory and written as 16-byte vectors took 6% longer on
+//     the H100, 800x600 at 32 spp).  o is the camera position's stride-0
+//     expand, which no kernel writes.
 //
 // Bound on the H100: integer operations.  Per lane two draws of 75 u32
 // operations (150) against 12 bytes of d written, above the card's
@@ -50,6 +58,13 @@
 #define ORDER_TILES32S 2
 #define ORDER_TABLE 3
 
+// a divisor d with its magic pair: n / d == __umulhi(2n, m) >> s for every
+// 0 <= n < 2^31 (s = ceil(log2 d), m = ceil(2^(31 + s) / d); the wrapper's
+// _div, checked against // in the tests)
+struct Div {
+  unsigned d, m, s;
+};
+
 struct RaygenArgs {
   long long n;  // lanes: width * height * spp, below 2^31
   // the key's words as int64 on the device, or both null: h0, h1
@@ -67,32 +82,51 @@ struct RaygenArgs {
   int full_height, row_offset;  // the pinhole's slab of a taller sensor
   int order, cutracer;
   float tan_h, tan_v;
+  // the order's divisors: lane -> slot by spp (W * H under tiles32s);
+  // slot -> pixel by W (raster, table), W / 8 tiles (tiles8) or the
+  // W / 32 * 1024 slots of a full tile row (tiles32s); the partial tile
+  // row's 32 * (H % 32) slots a tile (tiles32s, else 0)
+  Div lane_div, pix_div, part_div;
+  // tiles32s: the slots of the full tile rows, and the partial row's
+  // first pixel row
+  unsigned q_full_end, part_y0;
 };
 
-__device__ __forceinline__ int pix_from_slot(int pix, const RaygenArgs& a) {
-  const int width = a.width;
-  if (a.order == ORDER_RASTER) return pix;
-  if (a.order == ORDER_TABLE) return (int)a.table[pix];
+__device__ __forceinline__ unsigned quot(unsigned n, const Div& v) {
+  return __umulhi(n + n, v.m) >> v.s;
+}
+
+// lane i's pixel, column and row
+__device__ __forceinline__ void pixel_of(unsigned i, const RaygenArgs& a,
+                                         unsigned& px, unsigned& py) {
+  if (a.order == ORDER_TILES32S) {
+    const unsigned slot = i - quot(i, a.lane_div) * a.lane_div.d;
+    if (slot < a.q_full_end) {
+      const unsigned tr = quot(slot, a.pix_div);
+      const unsigned w = slot - tr * a.pix_div.d;  // tile w >> 10, cell
+      py = tr * 32u + ((w & 1023u) >> 5);
+      px = (w >> 10) * 32u + (w & 31u);
+    } else {
+      const unsigned q2 = slot - a.q_full_end;
+      const unsigned tx = quot(q2, a.part_div);
+      const unsigned v = q2 - tx * a.part_div.d;
+      py = a.part_y0 + (v >> 5);
+      px = tx * 32u + (v & 31u);
+    }
+    return;
+  }
+  const unsigned slot = quot(i, a.lane_div);
   if (a.order == ORDER_TILES8) {
-    const int tx_count = width / 8;
-    const int tile = pix / 64, within = pix % 64;
-    const int ty = tile / tx_count, tx = tile % tx_count;
-    return (ty * 8 + within / 8) * width + tx * 8 + within % 8;
+    const unsigned tile = slot >> 6, within = slot & 63u;
+    const unsigned ty = quot(tile, a.pix_div);
+    py = ty * 8u + (within >> 3);
+    px = (tile - ty * a.pix_div.d) * 8u + (within & 7u);
+    return;
   }
-  const int t = 32;
-  const int ntx = width / t;
-  const int full_rows = a.height / t;
-  const int rem = a.height % t;
-  const int q_full_end = full_rows * ntx * t * t;
-  if (rem == 0 || pix < q_full_end) {
-    const int tr = pix / (ntx * t * t), w = pix % (ntx * t * t);
-    const int tx = w / (t * t), v = w % (t * t);
-    return (tr * t + v / t) * width + tx * t + v % t;
-  }
-  const int q2 = pix - q_full_end;
-  const int cells = rem * t;
-  const int tx = q2 / cells, v = q2 % cells;
-  return (full_rows * t + v / t) * width + tx * t + v % t;
+  const unsigned pix =
+      a.order == ORDER_TABLE ? (unsigned)a.table[slot] : slot;
+  py = quot(pix, a.pix_div);
+  px = pix - py * a.pix_div.d;
 }
 
 // torch.clamp_min(s, 1e-20): NaN stays NaN
@@ -100,18 +134,16 @@ __device__ __forceinline__ float clamp_eps(float s) {
   return s < 1e-20f ? 1e-20f : s;
 }
 
-__global__ void __launch_bounds__(GBLOCK) raygen_kernel(const RaygenArgs a) {
-  const long long li = (long long)blockIdx.x * GBLOCK + threadIdx.x;
-  if (li >= a.n) return;
-  const int i = (int)li;
-  const int slot = a.order == ORDER_TILES32S ? i % (a.width * a.height)
-                                             : i / a.spp;
-  const int pix = pix_from_slot(slot, a);
-  const float px = (float)(pix % a.width);
-  const float py = (float)(pix / a.width);
+// lane i's direction into out[0..2]
+__device__ __forceinline__ void ray_of(unsigned i, const RaygenArgs& a,
+                                       float* out) {
+  unsigned ipx, ipy;
+  pixel_of(i, a, ipx, ipy);
+  const float px = (float)ipx, py = (float)ipy;
   const Key k = load_key(a.kp0, a.kp1, a.h0, a.h1);
-  const float u0 = draw(2ull * (unsigned long long)i, k);
-  const float u1 = draw(2ull * (unsigned long long)i + 1ull, k);
+  // 2i + 1 < 2^32: the counters' high words are 0
+  const float u0 = draw((unsigned long long)(2u * i), k);
+  const float u1 = draw((unsigned long long)(2u * i + 1u), k);
   const float x = (px + u0) / (float)a.width;
   float dx, dy, dz;
   if (a.cutracer) {
@@ -138,10 +170,14 @@ __global__ void __launch_bounds__(GBLOCK) raygen_kernel(const RaygenArgs a) {
     dy = vy / s;
     dz = vz / s;
   }
-  float* o = a.d + 3 * li;
-  o[0] = dx;
-  o[1] = dy;
-  o[2] = dz;
+  out[0] = dx;
+  out[1] = dy;
+  out[2] = dz;
+}
+
+__global__ void __launch_bounds__(GBLOCK) raygen_kernel(const RaygenArgs a) {
+  const unsigned i = blockIdx.x * GBLOCK + threadIdx.x;
+  if (i < (unsigned)a.n) ray_of(i, a, a.d + 3ull * i);
 }
 
 // ---------------------------------------------------------------------------

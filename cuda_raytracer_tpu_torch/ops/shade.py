@@ -281,16 +281,51 @@ _ORDER_TABLE = 3
 
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
     ctypes.c_float
+_U = ctypes.c_uint32
+
+
+class _Div(ctypes.Structure):
+    """raygen.cu's Div: a divisor and its magic pair (``_div``)."""
+    _fields_ = [("d", _U), ("m", _U), ("s", _U)]
+
+
+def _div(d: int) -> _Div:
+    """d with (m, s) such that n // d == ((2n * m) >> 32) >> s for every
+    0 <= n < 2^31: s = ceil(log2 d), m = ceil(2^(31 + s) / d) < 2^32.
+    Exact: e = m * d - 2^(31 + s) < d <= 2^s, so n * m / 2^(31 + s) =
+    n / d + n * e / (d * 2^(31 + s)) adds less than 1 / d to n / d.  A
+    divisor of 0 (an order's unused one) gives zeros."""
+    if d <= 0:
+        return _Div(0, 0, 0)
+    s = (d - 1).bit_length()
+    return _Div(d, -(-(1 << (31 + s)) // d), s)
 
 
 class _RaygenArgs(ctypes.Structure):
     _fields_ = [
         ("n", _L), ("kp0", _P), ("kp1", _P), ("cam0", _P), ("cam1", _P),
-        ("cam2", _P), ("table", _P), ("d", _P), ("h0", ctypes.c_uint32),
-        ("h1", ctypes.c_uint32), ("width", _I), ("height", _I), ("spp", _I),
+        ("cam2", _P), ("table", _P), ("d", _P), ("h0", _U), ("h1", _U),
+        ("width", _I), ("height", _I), ("spp", _I),
         ("full_height", _I), ("row_offset", _I), ("order", _I),
         ("cutracer", _I), ("tan_h", _F), ("tan_v", _F),
+        ("lane_div", _Div), ("pix_div", _Div), ("part_div", _Div),
+        ("q_full_end", _U), ("part_y0", _U),
     ]
+
+
+def _layout(a, width, height, spp):
+    """The divisors of block ``a``'s order (its ``order`` set), from the
+    static shape alone: a captured graph replays them."""
+    if a.order == _ORDER["tiles32s"]:
+        full = height // 32
+        a.lane_div = _div(width * height)
+        a.pix_div = _div(width // 32 * 1024)
+        a.part_div = _div(32 * (height % 32))
+        a.q_full_end, a.part_y0 = full * (width // 32) * 1024, 32 * full
+    else:
+        a.lane_div = _div(spp)
+        a.pix_div = _div(width // 8 if a.order == _ORDER["tiles8"]
+                         else width)
 
 
 _lib = None
@@ -370,8 +405,16 @@ def _raygen_launch(key, width, height, spp, pix_order, dev, a):
         a.order, a.table = _ORDER_TABLE, table.data_ptr()
     elif pix_order in _ORDER:
         a.order = _ORDER[pix_order]
+        # the tile orders' bijections, which the kernel's closed forms
+        # assume (RenderConfig asks the same)
+        tile = {"tiles8": 8, "tiles32s": 32}.get(pix_order, 1)
+        if width % tile:
+            raise ValueError(f"pix_order {pix_order!r}: the kernel takes "
+                             f"a width that is a multiple of {tile}, not "
+                             f"{width}")
     else:
         raise ValueError(f"unknown pix_order {pix_order!r}")
+    _layout(a, width, height, spp)
     a.kp0, a.kp1, a.h0, a.h1 = rng._key_words(key, dev)
     d = torch.empty((n, 3), dtype=torch.float32, device=dev)
     a.d = d.data_ptr()

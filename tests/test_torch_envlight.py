@@ -385,13 +385,11 @@ def test_env_miss_radiance():
     assert int((got.abs().sum(-1) > 0).sum()) == int((miss & ce).sum())
 
 
-@pytest.mark.parametrize("kind", [LIGHT_DIRECTIONAL, LIGHT_HEMISPHERE,
-                                  LIGHT_ENV],
-                         ids=["directional", "hemisphere", "environment"])
-def test_nee_shadow_rays_no_limit(all_lights, kind):
-    """Shadow rays toward an infinite light: o, d, li and ok as the JAX
-    package builds them from the same hit records, and max_t exactly
-    the no-limit 1e30 on every lane in both."""
+@pytest.fixture(scope="module")
+def all_hits(all_lights):
+    """Hit records of 4096 rays from above into terrain-all, made by both
+    packages from the same closest hits (the JAX brute force), once for
+    the light kinds' cases; and the importance weights."""
     ours, ref, _, u = all_lights
     g = np.random.default_rng(22)
     n = u.shape[0]
@@ -406,6 +404,19 @@ def test_nee_shadow_rays_no_limit(all_lights, kind):
                          jnp.asarray(prim))
     hp = PS.compute_hits(ours, T(o), T(d), T(t), T(prim))
     imp = g.uniform(0.2, 1.0, (n, 3)).astype(np.float32)
+    return hj, hp, imp
+
+
+@pytest.mark.parametrize("kind", [LIGHT_DIRECTIONAL, LIGHT_HEMISPHERE,
+                                  LIGHT_ENV],
+                         ids=["directional", "hemisphere", "environment"])
+def test_nee_shadow_rays_no_limit(all_lights, all_hits, kind):
+    """Shadow rays toward an infinite light: o, d, li and ok as the JAX
+    package builds them from the same hit records, and max_t exactly
+    the no-limit 1e30 on every lane in both."""
+    ours, ref, _, u = all_lights
+    hj, hp, imp = all_hits
+    n = u.shape[0]
     li = list(ours.light_kinds).index(kind)
     got = PS.nee_shadow_rays(ours, hp, T(imp), li, T(u), 1.0)
     want = JS.nee_shadow_rays(ref, hj, jnp.asarray(imp), li, jnp.asarray(u),

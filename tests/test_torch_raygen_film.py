@@ -8,16 +8,24 @@ ops/csrc/film.cu) and their dispatch, on the CPU.
   ``inv_order``, both median modes) are their plain versions and agree
   with the JAX package's functions within rtol 1e-5 / atol 1e-6 (the
   median bit for bit).
-* The kernel sources built for the host (g++: the CUDA qualifiers as
-  macros, one loop over the threads) are held against the plain
-  versions on every branch: d within rtol 1e-5 / atol 1e-6, the draws
-  through their effect on d; the film within rtol 1e-5 / atol 1e-6; the
-  median bit-equal, with NaN, +-0 and ties in the image.
+* The kernel sources built for the host (g++: the CUDA qualifiers and
+  intrinsics as macros and functions, a kernel's phases between its
+  barriers each a loop over a block's threads, block by block over its
+  grid) are held against the plain versions on every branch: d within
+  rtol 1e-5 / atol 1e-6 in every sample order and an index table, at
+  shapes whose divisors are not powers of two, the draws through their
+  effect on d; the film within rtol 1e-5 / atol 1e-6; the median
+  bit-equal in both modes on images from 1x1 to 37x29 with NaN (two
+  payloads), +-0, +-inf and ties.  The median's selection alone: its
+  networks by the 0-1 principle, its pick against numpy's stable
+  argsort on sets with many ties.  raygen's magic divisors against //
+  and % for every lane of an 800x600 frame of 32 spp.
 * A CUDA device or tensor reaches the kernel's wrapper, never the plain
   version; another device is refused; a library that fails to build
   raises.  Each wrapper's argument block (key and camera pointers,
-  order, layouts, flags) is read through a recording launcher; no
-  launch for no lanes; the engine's film launches the median only in a
+  order and its divisors, layouts, flags) is read through a recording
+  launcher; a tile order at a width off its tile is refused; no launch
+  for no lanes; the engine's film launches the median only in a
   ``with_median`` program.
 * The counters are in ``render/graphs.COUNTERS`` and chip_smoke.py's
   table, and the calls of small CPU frames (the engine's, fast and
@@ -90,11 +98,27 @@ RAYS = {
 }
 
 
+#: more raygen cases for the host-built kernel, every divisor of the
+#: order not a power of two: spp 3 or 5; W 40 (tiles8: 5 tiles a row);
+#: tiles32s at W 96 (3 tiles, 3,072 slots a tile row) over 44 rows (a
+#: partial row of 12: 384 slots a tile), and a 22-row slab with no full
+#: tile row (704 slots a tile) at row_offset 33 of 77
+KERNEL_RAYS = dict(RAYS, **{
+    "pinhole raster, odd": ("pinhole", 40, 12, 3, None, 0, None),
+    "pinhole tiles8, odd": ("pinhole", 40, 24, 3, "tiles8", 0, None),
+    "pinhole tiles32s, odd partial row": ("pinhole", 96, 44, 3, "tiles32s",
+                                          0, None),
+    "pinhole tiles32s slab, partial row only": ("pinhole", 96, 22, 5,
+                                                "tiles32s", 33, 77),
+    "cutracer tiles8, odd": ("cutracer", 40, 24, 3, "tiles8", 0, None),
+})
+
+
 def _rays(fn, case, key, order=None):
     """``fn`` (a port function of generate_camera_rays' or the cutracer's
     signature) on case's arguments, with ``order`` (an index table) in
     place of the case's order where given."""
-    cam, w, h, spp, pix, ro, fh = RAYS[case]
+    cam, w, h, spp, pix, ro, fh = KERNEL_RAYS[case]
     pix = pix if order is None else order
     if cam == "cutracer":
         return fn(key, w, h, spp, *CUT, pix_order=pix, device="cpu")
@@ -192,8 +216,10 @@ def test_cpu_film_is_the_plain_version_and_the_jax_function(case,
 # the kernel sources, built for the host, against the plain versions
 # ---------------------------------------------------------------------------
 
-#: the CUDA qualifiers and intrinsics the two sources use, for g++
-_HOST_PRELUDE = r'''
+#: the CUDA qualifiers, built-ins and intrinsics the two sources use, for
+#: g++: a kernel's shared arrays become statics and its barrier nothing,
+#: since the harness runs a kernel as its phases (``_kernel``)
+_HOST_PRELUDE = r"""
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
@@ -201,13 +227,19 @@ _HOST_PRELUDE = r'''
 #define __global__
 #define __forceinline__ inline
 #define __launch_bounds__(x)
-struct Dim { unsigned x; };
-static Dim blockIdx, threadIdx;
+#define __shared__ static
+#define __syncthreads()
+struct Dim { unsigned x, y, z; };
+static Dim blockIdx, threadIdx, blockDim, gridDim;
+static inline uint32_t min(uint32_t a, uint32_t b) { return a < b ? a : b; }
+static inline uint32_t max(uint32_t a, uint32_t b) { return a < b ? b : a; }
+static inline unsigned __umulhi(unsigned a, unsigned b) {
+  return (unsigned)(((unsigned long long)a * b) >> 32); }
 static inline float __uint_as_float(uint32_t i) { float f; memcpy(&f, &i, 4); return f; }
 static inline uint32_t __float_as_uint(float f) { uint32_t i; memcpy(&i, &f, 4); return i; }
 static inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, int r) {
   return (hi << r) | (lo >> (32 - r)); }
-'''
+"""
 
 
 def _source(name):
@@ -223,25 +255,52 @@ def _source(name):
     return src.replace("#include <cuda_runtime.h>", "")
 
 
-def _loop(fn, args, n, block, call):
+def _kernel(fn, args, grid, block, phases, shared=""):
+    """A kernel as host C++ behind its C name ``fn``: block by block over
+    ``grid`` (x, y), each of its ``phases`` (the code between two
+    barriers) a loop over the block's threads (``block`` x, y), the
+    block's ``shared`` arrays declared once.  Grid and block are C
+    expressions of the argument block ``p``."""
+    loops = "".join(
+        "    for (unsigned ty = 0; ty < blockDim.y; ++ty)\n"
+        "      for (unsigned tx = 0; tx < blockDim.x; ++tx) {\n"
+        f"        threadIdx = {{tx, ty, 0}};\n        {phase};\n      }}\n"
+        for phase in phases)
     return (f'extern "C" int {fn}(const {args}* p, void* s) {{\n'
-            f"  for (long long i = 0; i < {n}; ++i) {{\n"
-            f"    blockIdx.x = (unsigned)(i / {block});\n"
-            f"    threadIdx.x = (unsigned)(i % {block});\n"
-            f"    {call};\n  }}\n  return 0;\n}}\n")
+            f"  {shared}\n"
+            f"  gridDim = {{(unsigned)({grid[0]}), (unsigned)({grid[1]}), "
+            f"1}};\n"
+            f"  blockDim = {{{block[0]}, {block[1]}, 1}};\n"
+            "  for (unsigned by = 0; by < gridDim.y; ++by)\n"
+            "  for (unsigned bx = 0; bx < gridDim.x; ++bx) {\n"
+            "    blockIdx = {bx, by, 0};\n"
+            f"{loops}  }}\n  return 0;\n}}\n")
 
 
 def _host_source():
     """raygen.cu's and film.cu's kernels as host C++ behind their C
-    names, each kernel run by a loop over its threads."""
+    names, each run by ``_kernel``; and the median's selection alone
+    (``host_pick9``: the picked neighbour's number, and the key the
+    network selects)."""
+    med = "p->compat ? median_{0}<true>(*p, t) : median_{0}<false>(*p, t)"
     return (_HOST_PRELUDE + _source("raygen") + _source("film")
-            + _loop("raygen", "RaygenArgs", "p->n", "GBLOCK",
-                    "raygen_kernel(*p)")
-            + _loop("film", "FilmArgs", "p->n_pix", "FBLOCK",
-                    "film_kernel(*p)")
-            + _loop("median3x3", "MedianArgs", "(long long)p->h * p->w",
-                    "FBLOCK", "p->compat ? median3x3_kernel<true>(*p) : "
-                    "median3x3_kernel<false>(*p)")
+            + _kernel("raygen", "RaygenArgs",
+                      ("(p->n + GBLOCK - 1) / GBLOCK", 1), ("GBLOCK", 1),
+                      ("raygen_kernel(*p)",))
+            + _kernel("film", "FilmArgs",
+                      ("(p->n_pix + FBLOCK - 1) / FBLOCK", 1), ("FBLOCK", 1),
+                      ("film_kernel(*p)",))
+            + _kernel("median3x3", "MedianArgs",
+                      ("(p->w + MW - 1) / MW", "(p->h + MH - 1) / MH"),
+                      ("MW", "MH"), (med.format("load"), med.format("pixel")),
+                      "static MedianTile t;")
+            + 'extern "C" int host_pick9(const uint32_t* key, int compat,\n'
+              "                          uint32_t* m) {\n"
+              "  uint32_t k[9];\n"
+              "  for (int i = 0; i < 9; ++i) k[i] = key[i];\n"
+              "  *m = compat ? select9<5>(k) : select9<4>(k);\n"
+              "  return compat ? stable_pick9<5>(key) : stable_pick9<4>(key);"
+              "\n}\n"
             + 'extern "C" long long raygen_args_size(void) {\n'
               "  return sizeof(RaygenArgs);\n}\n"
             + 'extern "C" long long film_args_size(int w) {\n'
@@ -289,11 +348,11 @@ def on_host(host_lib, monkeypatch):
     return host_lib
 
 
-@pytest.mark.parametrize("case", list(RAYS))
+@pytest.mark.parametrize("case", list(KERNEL_RAYS))
 @pytest.mark.parametrize("key_kind", ["int key", "KeyTable key"])
 def test_host_raygen_kernel_against_the_plain_version(on_host, case,
                                                       key_kind):
-    cam = RAYS[case][0]
+    cam = KERNEL_RAYS[case][0]
     _, kp = _key()
     key = kp
     if key_kind == "KeyTable key":
@@ -303,7 +362,7 @@ def test_host_raygen_kernel_against_the_plain_version(on_host, case,
     suffix = "_cutracer" if cam == "cutracer" else ""
     fk = getattr(S, f"generate_camera_rays{suffix}_cuda")
     fp = getattr(S, f"generate_camera_rays{suffix}_plain")
-    w, h = RAYS[case][1:3]
+    w, h = KERNEL_RAYS[case][1:3]
     # the case's order, and an index table (the tiles32s rank's inverse:
     # slot -> pixel)
     table = torch.as_tensor(np.argsort(S.tiles32s_rank(w, h)))
@@ -318,32 +377,73 @@ def test_host_raygen_kernel_against_the_plain_version(on_host, case,
         assert float((d - d2).abs().max()) < 1e-5
 
 
-def _image_with_ties(h=24, w=20, seed=4):
-    """An image with NaN, +-0, infinities and runs of equal values."""
-    g = np.random.default_rng(seed)
-    img = g.integers(-3, 4, (h, w, 3)).astype(np.float32) * 0.5
-    img[g.random((h, w, 3)) < 0.15] = -0.0
-    img[g.random((h, w, 3)) < 0.1] = np.nan
-    img[g.random((h, w, 3)) < 0.03] = -np.inf
-    img[g.random((h, w, 3)) < 0.03] = np.inf
-    bits = img.view(np.uint32)
-    # a negative NaN and another payload among the NaNs
-    nan = np.isnan(img)
-    bits[nan & (g.random((h, w, 3)) < 0.5)] = 0xFFC00001
-    return img
+#: divisors of the frames' layouts (800x600 at 32 spp: spp, W, W / 8,
+#: 25 tile columns' 25,600 slots, a 24-row partial tile row's 768, W * H)
+#: and of the odd cases, 1, and the largest the kernel can meet
+DIVISORS = (1, 2, 3, 5, 7, 32, 100, 384, 704, 768, 800, 3072, 25_600,
+            480_000, 15_360_000, (1 << 30) + 1, (1 << 31) - 1)
+
+
+@pytest.mark.parametrize("d", DIVISORS)
+def test_magic_division_is_exact(d):
+    """raygen.cu's quotient __umulhi(2n, m) >> s (``_div``'s pair), and
+    the remainder n - q * d, against // and % for every n of run A's
+    15,360,000 lanes and the last 2^20 below 2^31."""
+    v = S._div(d)
+    assert v.d == d and v.m < 1 << 32 and v.s <= 31
+    m, s, du = np.uint64(v.m), np.uint64(v.s), np.uint64(d)
+    for lo, hi in ((0, 15_360_000), ((1 << 31) - (1 << 20), 1 << 31)):
+        for start in range(lo, hi, 1 << 17):
+            n = np.arange(start, min(start + (1 << 17), hi), dtype=np.uint64)
+            q = (((n + n) * m) >> np.uint64(32)) >> s
+            # q * d <= n (else the u64 difference wraps) and n - q * d < d:
+            # q is n // d and n - q * d is n % d
+            assert (n - q * du < du).all()
+
+
+#: median images (h, w): one pixel, a row, a column, 2x2, odd sizes across
+#: 32 x 8 tiles, each with NaN (two payloads), +-0, +-inf and runs
+MEDIAN_IMAGES = ((1, 1), (1, 5), (5, 1), (2, 2), (29, 37), (37, 29),
+                 (24, 20))
 
 
 @pytest.mark.parametrize("compat", [False, True])
 def test_host_median_kernel_is_bit_equal(on_host, compat):
-    for img in (_image_with_ties(), _image_with_ties(1, 7, 5),
-                np.random.default_rng(6).random((5, 1, 3)).astype(
-                    np.float32)):
+    for h, w in MEDIAN_IMAGES:
+        img = chip_smoke.tie_image(h, w, seed=100 * h + w)
         before = F.median_launches
         got = F.median_filter_3x3_cuda(T(img), compat)
         want = F.median_filter_3x3_plain(T(img), compat)
         assert F.median_launches == before + 1
         np.testing.assert_array_equal(got.numpy().view(np.uint32),
-                                      want.numpy().view(np.uint32))
+                                      want.numpy().view(np.uint32),
+                                      err_msg=f"{h}x{w}")
+
+
+def _pick9(lib, keys, compat):
+    m = ctypes.c_uint32()
+    arr = (ctypes.c_uint32 * 9)(*(int(k) for k in keys))
+    return lib.host_pick9(arr, int(compat), ctypes.byref(m)), m.value
+
+
+@pytest.mark.parametrize("compat", [False, True])
+def test_host_median_selection(host_lib, compat):
+    """The median's selection alone: the network's key is the K-th
+    smallest for every 0-1 input (so for every input, by the 0-1
+    principle), and the picked neighbour is the stable sort's K-th, on
+    random 9-key sets with many ties."""
+    k = 5 if compat else 4
+    for bits in range(512):
+        keys = [(bits >> i) & 1 for i in range(9)]
+        pick, m = _pick9(host_lib, keys, compat)
+        assert m == sorted(keys)[k]
+        assert pick == int(np.argsort(keys, kind="stable")[k])
+    g = np.random.default_rng(16)
+    for _ in range(2000):
+        keys = g.integers(0, g.integers(1, 5), 9) * 0x3F800000
+        pick, m = _pick9(host_lib, keys, compat)
+        assert pick == int(np.argsort(keys, kind="stable")[k])
+        assert m == np.sort(keys)[k]
 
 
 @pytest.mark.parametrize("case", list(FILMS))
@@ -485,11 +585,28 @@ def test_raygen_arguments(recorded):
     assert (a.order, a.row_offset, a.full_height) == (2, 16, 48)
     assert (a.tan_h, a.tan_v) == tuple(float(np.float32(t)) for t in TAN)
     assert (a.width, a.height, a.spp) == (32, 16, 2)
+    # the order's divisors from the static shape: W * H lanes a sample,
+    # one 1,024-slot tile a tile row, no full tile row (16 of 32 rows): a
+    # partial row of 16 x 32 slots a tile from slot 0, row 0
+    divs = [(v.d, v.m, v.s) for v in (a.lane_div, a.pix_div, a.part_div)]
+    assert divs == [(512, 1 << 31, 9), (1024, 1 << 31, 10),
+                    (512, 1 << 31, 9)]
+    assert (a.q_full_end, a.part_y0) == (0, 0)
     S.generate_camera_rays_cuda(kp, 32, 16, 1, POS, C2W, *TAN,
                                 pix_order="tiles8")
     a = recorded[-1][1]
     assert (a.kp0, a.kp1, a.h0, a.h1) == (None, None) + kp
     assert (a.order, a.full_height, a.spp) == (1, 16, 1)
+    # spp 1, 4 tiles a row
+    assert [(v.d, v.s) for v in (a.lane_div, a.pix_div, a.part_div)] == [
+        (1, 0), (4, 2), (0, 0)]
+    S.generate_camera_rays_cuda(kp, 96, 44, 3, POS, C2W, *TAN,
+                                pix_order="tiles32s")
+    a = recorded[-1][1]
+    assert [v.d for v in (a.lane_div, a.pix_div, a.part_div)] == [
+        96 * 44, 3 * 1024, 12 * 32]
+    assert (a.q_full_end, a.part_y0) == (3 * 1024, 32)
+    assert a.lane_div.m == -(-(1 << (31 + 13)) // (96 * 44))
     inv = torch.arange(32 * 16, dtype=torch.int64).flip(0)
     S.generate_camera_rays_cutracer_cuda(kp, 32, 16, 1, *(
         cam[3 * i:3 * i + 3] for i in range(4)), pix_order=inv)
@@ -498,15 +615,22 @@ def test_raygen_arguments(recorded):
     assert a.cutracer == 1 and (a.order, a.table) == (3, inv.data_ptr())
     assert (a.cam0, a.cam1, a.cam2) == tuple(
         cam[i:].data_ptr() for i in (9, 6, 3))
+    # a table and raster order: spp lanes a slot, W pixels a row
+    assert [v.d for v in (a.lane_div, a.pix_div, a.part_div)] == [1, 32, 0]
     # no launch for no lanes; refused: a table of another type, an
     # unknown order, a camera of another shape or dtype
     before = S.raygen_launches
     o, d = S.generate_camera_rays_cuda(kp, 32, 16, 0, POS, C2W, *TAN)
-    assert d.shape == (0, 3) and len(recorded) == 3
+    assert d.shape == (0, 3) and len(recorded) == 4
     assert S.raygen_launches == before
     with pytest.raises(ValueError, match="pix_order"):
         S.generate_camera_rays_cuda(kp, 32, 16, 1, POS, C2W, *TAN,
                                     pix_order=inv.int())
+    # the tile orders' closed forms need whole tiles across
+    for order, w, tile in (("tiles32s", 48, 32), ("tiles8", 36, 8)):
+        with pytest.raises(ValueError, match=f"multiple of {tile}, not {w}"):
+            S.generate_camera_rays_cuda(kp, w, 16, 1, POS, C2W, *TAN,
+                                        pix_order=order)
     with pytest.raises(ValueError, match="unknown pix_order"):
         S.generate_camera_rays_cuda(kp, 32, 16, 1, POS, C2W, *TAN,
                                     pix_order="tiles16")

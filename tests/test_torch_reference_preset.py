@@ -150,12 +150,10 @@ def _check(got, want, what):
     assert bad.mean() <= MAX_BAD, what
 
 
-def _render(r, load, view, frames):
+def _loaded(r, load, view):
     load(r)
     if view is not None:
         r.set_viewpoint(*view)
-    for _ in range(frames):
-        r.render()
     return r
 
 
@@ -163,14 +161,31 @@ def _hold(case, port_load, jax_load, view, what, frames=FRAMES, **over):
     """Render the case in both engines and hold the port's frames and
     traces: every trace through the DFS at the config's width (the
     torch traversal above 8), as many as the NEE schedule gives, shadow
-    traces bounded by their t_limit but under --reference-compat."""
+    traces bounded by their t_limit but under --reference-compat.
+    ``frames`` is a frame count, or counts at which to hold the frames
+    rendered so far.  Returns the port's renderer."""
     cfg, jcfg, mode = configs(case, **over)
-    ref = _render(jax_engine.WavefrontRenderer(jcfg, camera_mode=mode),
-                  jax_load, view, frames)
-    with pytest.MonkeyPatch.context() as mp:
-        dfs, xla = _count_traces(mp)
-        r = _render(WavefrontRenderer(cfg, camera_mode=mode, device="cpu"),
-                    port_load, view, frames)
+    ref = _loaded(jax_engine.WavefrontRenderer(jcfg, camera_mode=mode),
+                  jax_load, view)
+    r = _loaded(WavefrontRenderer(cfg, camera_mode=mode, device="cpu"),
+                port_load, view)
+    done = 0
+    for upto in (frames,) if isinstance(frames, int) else frames:
+        with pytest.MonkeyPatch.context() as mp:
+            dfs, xla = _count_traces(mp)
+            for _ in range(upto - done):
+                r.render()
+        for _ in range(upto - done):
+            ref.render()
+        _hold_frames(r, ref, cfg, dfs, xla, upto - done,
+                     f"{what}, {upto} frames")
+        done = upto
+    return r
+
+
+def _hold_frames(r, ref, cfg, dfs, xla, frames, what):
+    """The checks of ``_hold`` on ``frames`` frames just rendered, whose
+    traces ``dfs`` and ``xla`` counted."""
     assert r.dropped == 0 and r.scene.bvh.width == cfg.tree_width
     shadow = frames * sum(n * r.scene.num_lights
                           for n, _ in cfg.nee_schedule)
@@ -187,12 +202,26 @@ def _hold(case, port_load, jax_load, view, what, frames=FRAMES, **over):
     assert raw.mean() > 0.01
     _check(raw, ref.get_raw_image(), f"{what}: raw image")
     _check(r.get_image(), ref.get_image(), f"{what}: median-filtered image")
-    return r
+
+
+@pytest.fixture(scope="module")
+def default_cornell():
+    """The default case on the Cornell box in both engines, held after
+    FRAMES frames and after 17 (34 spp, past post_process_threshold):
+    one render serves test_frames_match_jax_engine's case and
+    test_median_stops_at_threshold.  The port's renderer."""
+    port_scene, jax_scene, view, over = SCENES["cornell"]
+    return _hold("default", lambda r: r.load_static_scene(port_scene()),
+                 lambda r: r.load_static_scene(jax_scene()), view,
+                 "default, cornell", frames=(FRAMES, 17), **over)
 
 
 @pytest.mark.parametrize("scene", list(SCENES))
 @pytest.mark.parametrize("case", [c for c in CASES if c != "compat-cutracer"])
-def test_frames_match_jax_engine(case, scene):
+def test_frames_match_jax_engine(case, scene, request):
+    if (case, scene) == ("default", "cornell"):
+        request.getfixturevalue("default_cornell")  # held at FRAMES there
+        return
     port_scene, jax_scene, view, over = SCENES[scene]
     _hold(case, lambda r: r.load_static_scene(port_scene()),
           lambda r: r.load_static_scene(jax_scene()), view,
@@ -214,14 +243,11 @@ def test_compat_cutracer_matches_jax_engine(doc_path):
     _hold("compat-cutracer", load, load, None, "compat, cutracer, document")
 
 
-def test_median_stops_at_threshold():
+def test_median_stops_at_threshold(default_cornell):
     """17 passes of 2 spp on the Cornell box: the 17th starts at 32
     accumulated samples (post_process_threshold), so the film skips the
     median there, in both engines."""
-    port_scene, jax_scene, view, over = SCENES["cornell"]
-    r = _hold("default", lambda r: r.load_static_scene(port_scene()),
-              lambda r: r.load_static_scene(jax_scene()), view,
-              "default, cornell, 34 spp", frames=17, **over)
+    r = default_cornell
     assert r.image_samples == 34 > r.config.post_process_threshold
     assert np.array_equal(r.get_image(), r.get_raw_image())
 
