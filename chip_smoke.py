@@ -2574,8 +2574,10 @@ def _device_busy(render, frame_ms):
                              ProfilerActivity.CUDA]) as prof:
         render()
         torch.cuda.synchronize()
+    # the renderer's crt.* host ranges show on the device's timeline too
     rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith("crt.")]
     dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
     return dev_ms, dev_ms / frame_ms, sum(e.count for e in rows)
 

@@ -24,6 +24,7 @@ package's compacted frame.
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 
 import torch
@@ -32,6 +33,7 @@ from .. import rng
 from ..config import RenderConfig
 from ..ops import shade_stages as SS
 from ..render.flatscene import FlatScene
+from ..utils.timing import span
 from .backends import make_trace_fn
 
 
@@ -146,16 +148,15 @@ def initial_carry(o, d, valid=None):
 
 
 def run_bounce_loop(J, cfg: RenderConfig, scene: FlatScene, o, d, keys,
-                    valid=None, after_depth=None):
+                    valid=None, spans=None):
     """Trace and shade the camera rays through the full depth/NEE
     schedule, drawing from ``keys`` (frame_keys).  Returns (light
-    [N, 3], dropped).  ``after_depth(depth, carry)``, when given, is
-    called after each depth (the engine's per-depth laps)."""
+    [N, 3], dropped).  ``spans``, when given, names each depth's host
+    range (utils/timing.span; the engine's ``crt.frame.depth{i}``)."""
     carry = initial_carry(o, d, valid)
     for depth in range(cfg.max_depth):
-        carry = run_depth(J, cfg, scene, carry, keys, depth)
-        if after_depth is not None:
-            after_depth(depth, carry)
+        with span(spans[depth]) if spans else contextlib.nullcontext():
+            carry = run_depth(J, cfg, scene, carry, keys, depth)
     return carry[4], carry[6]
 
 

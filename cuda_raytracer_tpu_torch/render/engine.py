@@ -38,11 +38,21 @@ device count.
 
 ``stage_times`` holds host seconds, as the JAX engine's does: ``frame``
 (each render(), up to a device sync), ``bvh_build``, ``flatten`` and
-``upload`` (each scene load, flatten_scene's steps), and, with the
-environment variable ``CRT_TIME_DEPTHS`` set, ``depth{i}`` per depth
-and, under compaction, ``partition`` (the first) and
-``partition{depth}`` (after a compacted depth), each behind a device
-sync, between the programs.
+``upload`` (each scene load, flatten_scene's steps).
+
+While a ``torch.profiler`` session records, a frame opens named host
+ranges (utils/timing.span; with no profiler they are null contexts, so
+nothing syncs and every graph key is the same), one after another:
+``crt.frame.inputs`` from render()'s entry to the first program (the
+frame's key and its key table, the camera, the sample count, the film's
+input; an eager frame's host keys), then one per program call, a graph
+replay, a capture or an eager call: ``crt.frame.raygen``,
+``crt.frame.depth{i}``, under compaction ``crt.frame.partition{d}``
+(the path state's partition after depth d), and ``crt.frame.film``;
+then ``crt.frame.copy_out`` (a fused frame's copies out of the graphs'
+pool) and ``crt.frame.wait`` (the dropped count's read-back and the
+device sync).  ``get_image`` and ``get_raw_image`` copy inside
+``crt.image.copy``.  A warm-up frame opens its programs' ranges too.
 
 ``load_scene`` reads a COLLADA document (scene/collada.py) into the
 dynamic scene, flattens its static form and places the camera.  Camera
@@ -55,7 +65,6 @@ renderer's basis with its fixed frustum; needs a .dae camera).
 from __future__ import annotations
 
 import math
-import os
 import time
 import warnings
 from typing import Dict, Optional
@@ -72,7 +81,7 @@ from ..scene import static_scene as st
 from ..scene.camera import Camera, CutracerCamera
 from ..scene.collada import load_scene_info
 from ..scene.dynamic_scene import load_from_scene_info
-from ..utils.timing import LapTimer, block_until_ready
+from ..utils.timing import block_until_ready, span
 from ..ops.partition import compact_live_payload
 from .backends import xla_passes
 from .bounce import (
@@ -93,11 +102,19 @@ from .graphs import FrameGraphs
 #: its fixed frustum
 CAMERA_MODES = ("canonical", "collada", "cutracer")
 
+#: the frame's host ranges (see the module's docstring); the per-depth
+#: names are built in setup()
+INPUTS, RAYGEN, FILM = ("crt.frame.inputs", "crt.frame.raygen",
+                        "crt.frame.film")
+COPY_OUT, WAIT, IMAGE_COPY = ("crt.frame.copy_out", "crt.frame.wait",
+                              "crt.image.copy")
+
 
 def _host_copy(img: torch.Tensor) -> np.ndarray:
     """A copy of ``img`` on the host, on the CPU too: the fused frame
     accumulates in buffers that the next frame rewrites."""
-    return img.to("cpu", copy=True).numpy()
+    with span(IMAGE_COPY):
+        return img.to("cpu", copy=True).numpy()
 
 
 class WavefrontRenderer:
@@ -209,13 +226,22 @@ class WavefrontRenderer:
                            torch.as_tensor(rank, device=self.device))
         self._stages = make_stage_fns(cfg)
         self._depth_buckets = {}
+        self._span_depth = tuple(f"crt.frame.depth{i}"
+                                 for i in range(cfg.max_depth))
+        self._span_partition = tuple(f"crt.frame.partition{i}"
+                                     for i in range(cfg.max_depth))
         # the fused frame's static inputs: its keys, the camera (pos and
         # c2w, or the cutracer origin, look_at, up and left), the sample
         # count, and the accumulated and filtered images
         dev = self.device
         self._keys = rng.KeyTable(
             frame_keys(cfg, self.scene.num_lights, (0, 0)), dev)
-        self._cam = torch.zeros((12,), dtype=torch.float32, device=dev)
+        cam = self._cam = torch.zeros((12,), dtype=torch.float32,
+                                      device=dev)
+        #: raygen's camera arrays, views of the buffer
+        self._cam_views = ((cam[0:3], cam[3:6], cam[6:9], cam[9:12])
+                           if self.camera_mode == "cutracer"
+                           else (cam[0:3], cam[3:12].view(3, 3)))
         self._samples = torch.zeros((), dtype=torch.float32, device=dev)
         shape = (cfg.height, cfg.width, 3)
         self._film_in = torch.zeros(shape, dtype=torch.float32, device=dev)
@@ -270,7 +296,7 @@ class WavefrontRenderer:
         self._depth_buckets[depth] = m
         return m
 
-    def _run_compacted(self, run, carry, lap):
+    def _run_compacted(self, run, carry):
         """The fused frame's depths from rr_start_depth on, over the live
         lanes (``carry``: the state after the dense depths), each program
         through ``run(key, program)``.  Adds their radiance and drops to
@@ -283,10 +309,12 @@ class WavefrontRenderer:
             return compact_live_payload(
                 pack_state(o, d, valid, importance, ce, ids))
 
-        packed, n_live = run(("pack",), pack)
-        nl = int(n_live)
+        # the live count's read-back waits on the partition: inside its
+        # range
+        with span(self._span_partition[cfg.rr_start_depth - 1]):
+            packed, n_live = run(("pack",), pack)
+            nl = int(n_live)
         self.live_counts = [nl]
-        lap("partition", packed)
         # a program reads the outputs of the programs before it, which
         # depend on their buckets: its key holds them all
         buckets = ()
@@ -302,15 +330,15 @@ class WavefrontRenderer:
                 dropped.add_(dr)
                 return packed_m
 
-            packed_m = run(("depth", depth, buckets), compacted)
-            lap(f"depth{depth}", light)
+            with span(self._span_depth[depth]):
+                packed_m = run(("depth", depth, buckets), compacted)
             if depth + 1 < cfg.max_depth:
-                packed, n_live = run(
-                    ("partition", depth, buckets),
-                    lambda p=packed_m: compact_live_payload(p))
-                nl = int(n_live)
+                with span(self._span_partition[depth]):
+                    packed, n_live = run(
+                        ("partition", depth, buckets),
+                        lambda p=packed_m: compact_live_payload(p))
+                    nl = int(n_live)
                 self.live_counts.append(nl)
-                lap(f"partition{depth}", packed)
 
     def _raygen(self, key, camera=None):
         """Camera rays from ``key``; ``camera``: the camera's arrays as
@@ -359,37 +387,17 @@ class WavefrontRenderer:
         self._post_image = None
         self.image_samples = 0
 
-    def _laps(self):
-        """lap(name, fence) for CRT_TIME_DEPTHS (else a no-op): the host
-        seconds since the last lap, behind a device sync, into
-        stage_times[name]; lap(None, fence) starts the clock."""
-        if not os.environ.get("CRT_TIME_DEPTHS"):
-            return lambda name, fence: None
-        timer = LapTimer()
-
-        def lap(name, fence):
-            if name is None:
-                block_until_ready(fence)
-                timer.start()
-            else:
-                self.stage_times[name] = timer.lap(name, fence)
-
-        return lap
-
-    def _eager_frame(self, key, with_median):
-        """fuse_frame="no": the frame stage by stage, keys from the host.
-        Returns (final, post, dropped)."""
+    def _eager_frame(self, keys, with_median):
+        """fuse_frame="no": the frame stage by stage, from the host keys
+        ``keys`` (frame_keys).  Returns (final, post, dropped)."""
         cfg = self.config
-        keys = frame_keys(cfg, self.scene.num_lights, key)
-        o, d = self._raygen(keys["raygen"])
-        lap = self._laps()
-        lap(None, (o, d))
-        light, dropped = run_bounce_loop(
-            self._stages, cfg, self.scene, o, d, keys,
-            after_depth=lambda depth, carry: lap(f"depth{depth}", carry),
-        )
-        final, post = self._film(light, with_median, self._final_image,
-                                 float(self.image_samples))
+        with span(RAYGEN):
+            o, d = self._raygen(keys["raygen"])
+        light, dropped = run_bounce_loop(self._stages, cfg, self.scene, o, d,
+                                         keys, spans=self._span_depth)
+        with span(FILM):
+            final, post = self._film(light, with_median, self._final_image,
+                                     float(self.image_samples))
         return final, post, dropped
 
     def _fused_programs(self, run, with_median):
@@ -397,28 +405,31 @@ class WavefrontRenderer:
         program through ``run(key, program)``.  Returns (final, post,
         dropped)."""
         cfg, J, scene, keys = self.config, self._stages, self.scene, self._keys
-        lap = self._laps()
-        cam = self._cam
-        camera = ((cam[0:3], cam[3:6], cam[6:9], cam[9:12])
-                  if self.camera_mode == "cutracer"
-                  else (cam[0:3], cam[3:12].view(3, 3)))
-        carry = run(("raygen",), lambda: initial_carry(
-            *self._raygen(keys["raygen"], camera)))
-        lap(None, carry)
+        with span(RAYGEN):
+            carry = run(("raygen",), lambda: initial_carry(
+                *self._raygen(keys["raygen"], self._cam_views)))
         n_dense = cfg.rr_start_depth if self.compacting else cfg.max_depth
         for depth in range(n_dense):
-            carry = run(("depth", depth), lambda c=carry, i=depth: run_depth(
-                J, cfg, scene, c, keys, i))
-            lap(f"depth{depth}", carry)
+            with span(self._span_depth[depth]):
+                carry = run(("depth", depth),
+                            lambda c=carry, i=depth: run_depth(
+                                J, cfg, scene, c, keys, i))
         if self.compacting:
-            self._run_compacted(run, carry, lap)
+            self._run_compacted(run, carry)
         light, dropped = carry[4], carry[6]
-        final, post = run(("film", with_median), lambda: self._film(
-            light, with_median, self._film_in, self._samples))
+        with span(FILM):
+            final, post = run(("film", with_median), lambda: self._film(
+                light, with_median, self._film_in, self._samples))
         return final, post, dropped
 
     def _load_inputs(self, key) -> None:
-        """Refresh the fused frame's static inputs for frame ``key``."""
+        """Refresh the fused frame's static inputs for frame ``key`` (and
+        drop the graphs when the field of view, which raygen bakes in,
+        changed)."""
+        fov = None if self.camera_mode == "cutracer" else self._tan_half()
+        if fov != self._graph_fov:
+            self.graphs.reset()
+            self._graph_fov = fov
         self._keys.load(frame_keys(self.config, self.scene.num_lights, key))
         if self.camera_mode == "cutracer":
             arrays = self._cutracer_arrays()
@@ -430,17 +441,11 @@ class WavefrontRenderer:
         if self._final_image is not self._film_in:
             self._film_in.copy_(self._final_image)
 
-    def _fused_frame(self, key, with_median):
-        """A fused frame: the programs as graphs (warm-up and capture
-        first where there are none) or called directly.  Returns (final,
-        post, dropped), final and post in buffers that outlive the
-        frame."""
-        fov = None if self.camera_mode == "cutracer" else self._tan_half()
-        if fov != self._graph_fov:
-            # the field of view is baked into raygen
-            self.graphs.reset()
-            self._graph_fov = fov
-        self._load_inputs(key)
+    def _fused_frame(self, with_median):
+        """A fused frame from the static inputs (_load_inputs): the
+        programs as graphs (warm-up and capture first where there are
+        none) or called directly.  Returns (final, post, dropped), final
+        and post in buffers that outlive the frame."""
         if not self.graphed:
             final, post, dropped = self._fused_programs(
                 lambda k, fn: fn(), with_median)
@@ -452,10 +457,11 @@ class WavefrontRenderer:
             final, post, dropped = self._fused_programs(
                 lambda k, fn: self.graphs.run(k, fn, dev), with_median)
         # out of the graphs' pool, which the next frame's programs reuse
-        self._film_in.copy_(final)
-        if not with_median:
-            return self._film_in, self._film_in, dropped
-        self._post_out.copy_(post)
+        with span(COPY_OUT):
+            self._film_in.copy_(final)
+            if not with_median:
+                return self._film_in, self._film_in, dropped
+            self._post_out.copy_(post)
         return self._film_in, self._post_out, dropped
 
     def render(self) -> None:
@@ -464,12 +470,18 @@ class WavefrontRenderer:
             self.setup()
         cfg = self.config
         t0 = time.perf_counter()
-        key = rng.fold_in(rng.PRNGKey(cfg.seed), self.frame_index)
         with_median = self.image_samples < cfg.post_process_threshold
-        frame = self._fused_frame if self.fused else self._eager_frame
-        final, post, dropped = frame(key, with_median)
-        self._dropped = int(dropped)
-        block_until_ready((final, post))
+        with span(INPUTS):
+            key = rng.fold_in(rng.PRNGKey(cfg.seed), self.frame_index)
+            if self.fused:
+                self._load_inputs(key)
+            else:
+                keys = frame_keys(cfg, self.scene.num_lights, key)
+        final, post, dropped = (self._fused_frame(with_median) if self.fused
+                                else self._eager_frame(keys, with_median))
+        with span(WAIT):
+            self._dropped = int(dropped)
+            block_until_ready((final, post))
         self.stage_times["frame"] = time.perf_counter() - t0
         self._final_image = final
         self._post_image = post

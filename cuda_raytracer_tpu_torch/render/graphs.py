@@ -33,8 +33,10 @@ What a caller keeps to:
 * **Launch counts.**  The kernel wrappers count launches in Python,
   which a replay does not run.  A capture records how far each counter
   moved (the launches it recorded) and sets it back; each replay adds
-  that much.  The warm-up's launches are real and stay counted; they are
-  also added up in ``warmup_launches``.
+  that much, inside the caller's host range of the program (the
+  engine's ``crt.frame.*``), so a profile charges it to the launch.  The
+  warm-up's launches are real and stay counted; they are also added up
+  in ``warmup_launches``.
 
 On the CPU, or with ``enabled`` False, ``run`` calls the program.
 """

@@ -1,19 +1,35 @@
-"""Timing and throughput instrumentation.
+"""The port's instrumentation: named host ranges on the profiler's clock,
+and the device fence.
 
-The port of ``cuda_raytracer_tpu/utils/timing.py``: wall-clock lap
-timers with device fencing, per-stage accumulation, and Mrays/s
-accounting.  Where the JAX module waits with ``jax.block_until_ready``,
-this one synchronises the CUDA devices its fence tensors live on;
-tensors on the CPU need no fence.
+``span(name)`` is a host range that a running ``torch.profiler`` session
+records (``record_function``), on the same clock as the device trace it
+takes, so the device's idle stretches can be put down to the range the
+host was in.  With no profiler running it is one shared null context:
+a range then costs a flag read and a ``with``, and changes nothing that
+runs (no sync, no allocation).  The renderer's ranges
+(render/engine.py) are named ``crt.*``.
+
+``block_until_ready`` is ``jax.block_until_ready``'s counterpart: it
+synchronises the CUDA devices its tensors live on; tensors on the CPU
+need no fence.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
-from typing import Dict, Optional
 
 import torch
+from torch.autograd import profiler as _profiler
+
+_NULL = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A host range named ``name`` while a profiler records, else the
+    shared null context."""
+    if _profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NULL
 
 
 def block_until_ready(tree) -> None:
@@ -36,75 +52,3 @@ def block_until_ready(tree) -> None:
     walk(tree)
     for dev in devices:
         torch.cuda.synchronize(dev)
-
-
-class LapTimer:
-    """Per-stage lap timer (startTimer/lapTimer equivalent).
-
-    >>> timer = LapTimer(verbose=True)
-    >>> timer.start()
-    >>> ... run stage ...
-    >>> timer.lap("trace", out)   # prints "[LapTimer] trace : 12.3 ms"
-    """
-
-    def __init__(self, verbose: bool = False, sync: bool = True):
-        self.verbose = verbose
-        #: fence device work before reading the clock (CUDA launches are
-        #: asynchronous; without this, laps measure enqueue time)
-        self.sync = sync
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-        self._t0: Optional[float] = None
-
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
-
-    def lap(self, name: str, fence=None) -> float:
-        if fence is not None and self.sync:
-            block_until_ready(fence)
-        now = time.perf_counter()
-        dt = now - (self._t0 if self._t0 is not None else now)
-        self._t0 = now
-        self.totals[name] = self.totals.get(name, 0.0) + dt
-        self.counts[name] = self.counts.get(name, 0) + 1
-        if self.verbose:
-            print(f"[LapTimer] {name} : {dt * 1e3:.3f} ms")
-        return dt
-
-    @contextlib.contextmanager
-    def stage(self, name: str, fence_value=None):
-        self.start()
-        holder = {}
-        try:
-            yield holder
-        finally:
-            self.lap(name, holder.get("fence", fence_value))
-
-    def report(self) -> str:
-        lines = ["stage                     total_ms    calls   avg_ms"]
-        for name, total in sorted(self.totals.items(), key=lambda kv: -kv[1]):
-            c = self.counts[name]
-            lines.append(
-                f"{name:24s} {total * 1e3:9.2f} {c:8d} {total / c * 1e3:8.2f}"
-            )
-        return "\n".join(lines)
-
-    def reset(self) -> None:
-        self.totals.clear()
-        self.counts.clear()
-
-
-class RayThroughput:
-    """Mrays/s accounting across frames."""
-
-    def __init__(self):
-        self.rays = 0.0
-        self.seconds = 0.0
-
-    def add(self, rays: float, seconds: float) -> None:
-        self.rays += rays
-        self.seconds += seconds
-
-    @property
-    def mrays_per_s(self) -> float:
-        return self.rays / self.seconds / 1e6 if self.seconds > 0 else 0.0

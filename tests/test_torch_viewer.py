@@ -1,5 +1,5 @@
 """The port's headless progressive viewer (apps/viewer.py) on the CPU,
-against the JAX package's viewer; and the port's timing helpers.
+against the JAX package's viewer.
 
 * tests/test_viewer.py's cases on the port (48x36, 2 spp per frame);
 * the camera state (pos, c2w, r, phi, theta) after a fixed key sequence,
@@ -11,8 +11,7 @@ against the JAX package's viewer; and the port's timing helpers.
 * the W/L + digit session keys on a document the test writes: the
   reloaded scene's tables equal those before the save, but for the BSDF
   table (the session's COLLADA writer keeps no materials, in both
-  packages);
-* LapTimer and RayThroughput.
+  packages).
 """
 
 import dataclasses
@@ -33,7 +32,6 @@ from cuda_raytracer_tpu_torch.config import RenderConfig
 from cuda_raytracer_tpu_torch.models.cornell import cornell_box_scene
 from cuda_raytracer_tpu_torch.render.engine import WavefrontRenderer
 from cuda_raytracer_tpu_torch.render.flatscene import BSDF_DIFFUSE
-from cuda_raytracer_tpu_torch.utils.timing import LapTimer, RayThroughput
 
 from test_torch_collada import document
 from torch_threads import _one_torch_thread  # noqa: F401
@@ -187,37 +185,3 @@ def test_main_writes_png_and_needs_a_device(tmp_path, monkeypatch):
         viewer_app.main([str(path), "--frames", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         InteractiveViewer(RenderConfig(), scene_path=str(path))
-
-
-def test_lap_timer_and_throughput(capsys):
-    timer = LapTimer(verbose=True)
-    x = torch.ones(8)
-    with timer.stage("a", x):
-        x = x * 2
-    timer.start()
-    timer.lap("b", {"x": [x, (x,)]})
-    timer.start()
-    timer.lap("a")
-    assert timer.counts == {"a": 2, "b": 1}
-    assert all(v >= 0 for v in timer.totals.values())
-    assert "[LapTimer] b :" in capsys.readouterr().out
-    report = timer.report().splitlines()
-    assert report[0].startswith("stage") and len(report) == 3
-    timer.reset()
-    assert timer.totals == {} and timer.counts == {}
-    t = RayThroughput()
-    assert t.mrays_per_s == 0.0
-    t.add(3e6, 1.5)
-    t.add(1e6, 0.5)
-    assert t.mrays_per_s == pytest.approx(2.0)
-
-
-def test_engine_depth_laps(monkeypatch):
-    """CRT_TIME_DEPTHS adds one lap per depth to stage_times."""
-    monkeypatch.setenv("CRT_TIME_DEPTHS", "1")
-    v = make_viewer(16, 12)
-    v.frame()
-    r = v.renderer
-    laps = sorted(k for k in r.stage_times if k.startswith("depth"))
-    assert laps == [f"depth{i}" for i in range(r.config.max_depth)]
-    assert {"frame", "bvh_build", "flatten", "upload"} <= set(r.stage_times)

@@ -40,9 +40,13 @@ needs a fused frame, the per-depth programs called without capture).
 Last, the frame as the engine runs it on the card, as CUDA graphs
 (render/graphs.py): a first frame (warm-up, capture, replay), a later
 frame on the host clock, the first frame of an accumulation (the
-median's film) after a reset, one with the depth laps (``CRT_TIME_DEPTHS``, taken
-between the graphs) and one under torch.profiler (device time, busy
-share, device launches).  Prints the card's name and power limit first.
+median's film) after a reset, then eight frames, each with its image's
+host copy (``get_image``), under torch.profiler, read by the renderer's
+named host ranges (``crt.*``, render/engine.py; ``crt_report``): per
+frame, each range's host ms, the device ms of the work launched inside
+it (by the profiler's correlation ids, a graph launch covering its
+graph's kernels) and the device-idle ms while it was the innermost range
+open on the host.  Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -56,6 +60,8 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
+# the benchmark's interval arithmetic (rtbench/rtb/stats.py)
+sys.path.insert(0, os.path.join(HERE, "rtbench"))
 
 #: the kernels of a stage row: the shading stages' (ops/csrc/shade.cu),
 #: raygen's (raygen.cu) and the film's (film.cu: reconstruct + accumulate,
@@ -232,9 +238,11 @@ def main() -> int:
         with profile(activities=acts) as prof:
             r.render()
             torch.cuda.synchronize()
-        # kernel rows only (operator rows repeat their kernels' time)
+        # kernel rows only (operator rows repeat their kernels' time;
+        # the renderer's crt.* ranges show on the device's timeline too)
         rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
+                if e.device_type == DeviceType.CUDA
+                and not e.key.startswith("crt.")]
         dev_total = sum(e.self_device_time_total for e in rows) / 1e3
         print(f"[profiler] {label}: {dev_total:.1f} ms of device kernel "
               f"time in {sum(e.count for e in rows)} launches; busy share "
@@ -287,12 +295,12 @@ def _stage_table(label, events, frame_ms, live):
     return stage_ms
 
 
-def graphed(r, eager_ms):
+def graphed(r, eager_ms, frames=8):
     """The frame as CUDA graphs: first frame, a later one on the host
-    clock, the first frame of an accumulation (the median's film), the
-    depth laps, a profiled one (device time, busy share, launches)."""
+    clock, the first frame of an accumulation (the median's film), then
+    ``frames`` frames, each with its image's host copy, under
+    torch.profiler: the renderer's ``crt.*`` ranges (crt_report)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def frame():
@@ -308,32 +316,90 @@ def graphed(r, eager_ms):
     # the first frame of an accumulation: its film runs the median
     r._reset_accumulation()
     median_ms = frame()
-    os.environ["CRT_TIME_DEPTHS"] = "1"
-    try:
-        lap_ms = frame()
-    finally:
-        del os.environ["CRT_TIME_DEPTHS"]
-    laps = {k: v * 1e3 for k, v in r.stage_times.items()
-            if k.startswith(("depth", "partition"))}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        r.render()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    dev = sum(e.self_device_time_total for e in rows) / 1e3
     print(f"[graphed] the frame as CUDA graphs ({r.graphs.captures} "
           f"captured, {len(r.graphs)} keys): first frame {first:.1f} ms "
           f"(warm-up {r.graphs.warmup_s * 1e3:.1f} ms and captures "
           f"{r.graphs.capture_s * 1e3:.1f} ms of it), "
           f"then {ms:.1f} ms on the host clock (eager {eager_ms:.1f}), "
           f"{median_ms:.1f} ms for the first frame of an accumulation (the "
-          f"median's film) after a reset; with "
-          f"depth laps {lap_ms:.1f} ms: "
-          + ", ".join(f"{k} {v:.2f}" for k, v in laps.items())
-          + f"; profiled: {dev:.1f} ms of device kernel time in "
-          f"{sum(e.count for e in rows)} launches, busy share "
-          f"{dev / ms:.3f}")
+          f"median's film) after a reset")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            r.render()
+            r.get_image()
+        torch.cuda.synchronize()
+    crt_report(prof.events(), frames, f"[graphed] {frames} frames, each "
+               "with get_image()")
+
+
+#: host events of the CUDA runtime or driver that launch device work
+_RUNTIME = ("cu",)
+
+
+def crt_report(events, frames, label):
+    """Print, per frame, each ``crt.`` range's host ms, the device ms of
+    the work launched inside it (a kernel, copy or fill counts under the
+    innermost ``crt.`` range open when the host made the runtime call
+    that launched it: its profiler correlation id is the call's; a graph
+    launch covers its graph's kernels) and the device-idle ms in which
+    it was the innermost ``crt.`` range open on the host.  ``events``:
+    a torch.profiler session's ``events()`` over ``frames`` frames."""
+    from torch.autograd import DeviceType
+    from rtb import stats
+
+    crt, calls, device = [], {}, []
+    for e in events:
+        t = (e.time_range.start * 1e-3, e.time_range.end * 1e-3)
+        if e.device_type == DeviceType.CPU:
+            if e.name.startswith("crt."):
+                crt.append((e.name, *t))
+            elif e.name.startswith(_RUNTIME):
+                calls[e.id] = t[0]
+        elif (e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and not e.name.startswith(("crt.", "rtbench."))):
+            device.append((e.id, *t))
+    if not crt:
+        print(f"{label}: no crt. range recorded")
+        return
+
+    def innermost(at):
+        open_ = [c for c in crt if c[1] <= at <= c[2]]
+        return (min(open_, key=lambda c: c[2] - c[1])[0] if open_
+                else "(no crt. range)")
+
+    host = collections.defaultdict(float)
+    for name, s, e in crt:
+        host[name] += e - s
+    dev = collections.defaultdict(float)
+    unmatched = 0
+    for cid, s, e in device:
+        if cid in calls:
+            dev[innermost(calls[cid])] += e - s
+        else:
+            unmatched += 1
+            dev["(launch not found)"] += e - s
+    lo = min(c[1] for c in crt)
+    hi = max(c[2] for c in crt)
+    idle = collections.defaultdict(float)
+    for gs, ge in stats.gaps([(s, e) for _, s, e in device], lo, hi):
+        # the gap, cut where a crt. range starts or ends
+        cuts = sorted({gs, ge} | {x for _, a, b in crt for x in (a, b)
+                                  if gs < x < ge})
+        for a, b in zip(cuts, cuts[1:]):
+            idle[innermost((a + b) / 2)] += b - a
+    print(f"{label}: {len(device)} device operations, {unmatched} with no "
+          f"runtime call found; window {(hi - lo) / frames:.3f} ms a frame "
+          f"(first crt. range to last), device idle "
+          f"{sum(idle.values()) / frames:.3f} ms of it")
+    print(f"  {'ms per frame':36s} {'host':>8s} {'device':>8s} {'idle':>8s}")
+    names = sorted(set(host) | set(dev) | set(idle),
+                   key=lambda n: min([c[1] for c in crt if c[0] == n]
+                                     or [hi]))
+    for name in names:
+        print(f"  {name:36s} {host[name] / frames:8.3f} "
+              f"{dev[name] / frames:8.3f} {idle[name] / frames:8.3f}")
 
 
 if __name__ == "__main__":
