@@ -166,23 +166,29 @@ prints one JSON line for the kernels and, last, the device line.  Phases:
    repeated 1,024 times), at [15,360,000, 2] (the per-lane draw;
    raygen's own is hashed in raygen.cu) and at 15,360,001, with an int
    key and a KeyTable key, bit for bit, timed beside its bound;
-14. run K, the shading kernels (ops/csrc/shade.cu: shade_hit, nee_prep,
-   nee_accum, scatter with its roulette; every stage of every frame on
-   the card): what ptxas says of them; every stage call of seven eager
-   frames (run A; run C's document under the fast preset: mirror and
-   glass; a refractive sphere, a point and a spot light under the
-   default preset; run G's --hemisphere cosine and --reference-compat;
-   run H's directional light and sky map; the lightless document's
-   hemisphere) held against its plain version on the same inputs, within
+14. run K, the shading kernels (ops/csrc/shade.cu: the four stages
+   shade_hit, nee_prep, nee_accum, scatter with its roulette, and the
+   fused chain a frame runs on the card, one gap kernel after each
+   trace): what ptxas says of them; every stage call of eight eager
+   frames shaded stage by stage (run A; run C's document under the fast
+   preset: mirror and glass; a refractive sphere, a point and a spot
+   light under the default preset, and with NEE at depth 0 only; run G's
+   --hemisphere cosine and --reference-compat; run H's directional light
+   and sky map; the lightless document's hemisphere), then every gap of
+   the same frames shaded by the chain (the plain chain started from the
+   stage kernel's hit record; the stage kernels chained, to the bit),
+   held against its plain version on the same inputs, within
    rtol 1e-5 / atol 1e-6 per float field (scatter's importance on a
    diffuse lane whose weight is ill-conditioned: rtol 1e-5 plus the
    weight's conditioning, from the inputs), bool and index fields exact,
-   every lane that differs near a threshold, every branch and lobe
-   reached; each kernel timed at run A's shapes beside the bytes its
-   call needs and its plain version; and runs A, B, B under
-   compact_depths, G's pass and H's reference pass, graphed, shaded by
-   the kernels and again by the plain stages (the script swaps the stage
-   functions; the package has no switch) in one process: pixels within
+   every lane that differs near a threshold, every branch, lobe and gap
+   variant reached; each stage kernel timed at run A's shapes beside the
+   bytes its call needs and its plain version, each gap variant beside
+   the bytes it needs and moves and the stage kernels it replaces; and
+   runs A, B, B under compact_depths, G's pass and H's reference pass,
+   graphed, shaded by the chain and again by the plain stages (the
+   script swaps the stage functions; the package has no switch) in one
+   process: pixels within
    the card-vs-CPU gate, launches as the schedule gives, times in turns
    and a profiled frame each;
 15. run L, the frame's two ends (ops/csrc/raygen.cu: the camera rays with
@@ -333,6 +339,9 @@ def fast_config(**over):
                         max_depth=4, nee_schedule=((1, 1.0),) * 4, **kw)
 
 
+#: the fused shading chain's variants (ops/shade_stages.py GAPS)
+GAP_VARIANTS = ("open_nee", "open_nee_store", "open_scatter", "open",
+                "step", "step_store", "close_scatter", "close_stored")
 #: the kernels and their bf16 forms: name -> (module of its wrapper, its
 #: launch counter there)
 COUNTERS = {
@@ -352,6 +361,7 @@ COUNTERS = {
     "nee_prep": ("shade_stages", "nee_prep_launches"),
     "nee_accum": ("shade_stages", "nee_accum_launches"),
     "scatter": ("shade_stages", "scatter_launches"),
+    **{f"gap_{g}": ("shade_stages", f"{g}_launches") for g in GAP_VARIANTS},
     "raygen": ("shade", "raygen_launches"),
     "film": ("filters", "film_launches"),
     "median3x3": ("filters", "median_launches"),
@@ -361,9 +371,14 @@ COUNTERS = {
 WF_STAGE_PRIMS = 128
 #: kernels and forms the shipped preset does not launch: the partition's
 #: payload form (whole-depth compaction) and the bf16 forms (slab_bf16),
-#: which phase 7 drives, and pack's dyn_alloc forms, which phase 9 drives
+#: which phase 7 drives, pack's dyn_alloc forms, which phase 9 drives,
+#: and the four shading stages and the fused chain's variants for more
+#: than one sample and light at a depth or for none (the preset's one
+#: sample of one light at every depth), which phase 14 drives
 OFF_PATH = ("partition", "packet_dfs_bf16", "wf2_count_bf16",
-            "wf2_pack_bf16", "wf2_pack_dyn", "wf2_pack_dyn_bf16")
+            "wf2_pack_bf16", "wf2_pack_dyn", "wf2_pack_dyn_bf16",
+            "shade_hit", "nee_prep", "nee_accum", "scatter",
+            "gap_open_scatter", "gap_open", "gap_step", "gap_step_store")
 
 
 def _ops_module(name):
@@ -650,16 +665,52 @@ def draws_per_frame(cfg, num_lights):
     return n
 
 
-def stage_launches(cfg, num_lights):
-    """Launches of each shading kernel (ops/csrc/shade.cu) in one frame of
-    ``cfg`` over ``num_lights`` lights: shade_hit once per depth,
-    nee_prep and nee_accum once per NEE sample and light, scatter (with
-    its roulette) once per depth below max depth.  Compacted depths
-    launch the same over their bucket."""
+def stage_calls(cfg, num_lights):
+    """Calls of each shading stage in one frame of ``cfg`` over
+    ``num_lights`` lights shaded stage by stage (the CPU's plain stages):
+    shade_hit once per depth, nee_prep and nee_accum once per NEE sample
+    and light, scatter (with its roulette) once per depth below max
+    depth.  Compacted depths call the same over their bucket."""
     nee = sum(cfg.nee_schedule[depth][0] * num_lights
               for depth in range(min(cfg.max_depth, len(cfg.nee_schedule))))
     return dict(shade_hit=cfg.max_depth, nee_prep=nee, nee_accum=nee,
                 scatter=cfg.max_depth - 1)
+
+
+def gap_schedule(cfg, num_lights):
+    """Launches of each variant of the fused chain (shade_stages.GAPS) in
+    one frame of ``cfg`` over ``num_lights`` lights: one after each trace
+    of a depth.  A depth with k = samples x lights > 0: open_nee (its
+    _store form where k is 1 and the depth does not scatter), k - 1
+    steps (the last a step_store where it does not scatter), then
+    close_scatter, or close_stored at the last depth; with k = 0,
+    open_scatter, or open at the last depth.  Together they are the
+    frame's traces."""
+    want = dict.fromkeys(GAP_VARIANTS, 0)
+    for depth in range(cfg.max_depth):
+        k = (cfg.nee_schedule[depth][0] * num_lights
+             if depth < len(cfg.nee_schedule) else 0)
+        scatters = depth + 1 < cfg.max_depth
+        if k == 0:
+            want["open_scatter" if scatters else "open"] += 1
+            continue
+        want["open_nee_store" if k == 1 and not scatters else "open_nee"] += 1
+        if k > 1:
+            want["step"] += k - 1 - (not scatters)
+            want["step_store"] += not scatters
+        want["close_scatter" if scatters else "close_stored"] += 1
+    return want
+
+
+def stage_launches(cfg, num_lights):
+    """Launches of each shading kernel (ops/csrc/shade.cu) in one frame of
+    ``cfg`` over ``num_lights`` lights on the card: the fused chain's by
+    variant (``gap_schedule``, as ``gap_<variant>``), none of the four
+    stage kernels.  Compacted depths launch the same over their
+    bucket."""
+    return dict(dict.fromkeys(SHADE_KERNELS, 0),
+                **{f"gap_{g}": v
+                   for g, v in gap_schedule(cfg, num_lights).items()})
 
 
 def expected_launches(r, frames, medians=None):
@@ -4308,6 +4359,19 @@ SHADE_BRANCHES = {
 SHADE_LOBES = {0, 1, 2, 3, 4}
 LIGHT_NAMES = {0: "area", 1: "point", 2: "directional", 3: "hemisphere",
                4: "spot", 5: "environment"}
+#: the shading kernels' launch counters (COUNTERS): the four stages' and
+#: the fused chain's, by variant
+SHADING = (*SHADE_KERNELS, *(f"gap_{g}" for g in GAP_VARIANTS))
+#: what the fused chain's calls in phase 14's frames must meet (the parts
+#: of ``_gap_branch``): every variant, the emission's branches, the
+#: light of every kind drawn and accumulated (recomputed), the two-sided
+#: area light, the shadow test's prim_s, scatter's sampling modes
+CHAIN_BRANCHES = {
+    *GAP_VARIANTS, "emission", "emission + env miss", "no emission",
+    "prim_s >= 0", "fold", "fold + roulette", "uniform", "cosine",
+    *(f"{what} {k}" for what in ("draws", "accumulates")
+      for k in SHADE_BRANCHES["nee_prep"]),
+}
 #: run K: the frames shaded by the kernels and again by the plain stages
 #: (label, how the renderer is made (``_run_i_make``))
 RUN_K = (
@@ -4321,14 +4385,16 @@ RUN_K = (
 
 @contextlib.contextmanager
 def _plain_stages():
-    """A context in which the four shading stages are their plain
-    versions (torch ops on the card): a frame's twin shaded without the
-    kernels.  The package has no such switch; only this script swaps."""
+    """A context in which a depth is shaded stage by stage (not by the
+    fused chain) and the four stages are their plain versions (torch ops
+    on the card): a frame's twin shaded without the kernels.  The
+    package has no such switch; only this script swaps."""
     from cuda_raytracer_tpu_torch.ops import shade_stages as SS
 
-    kernel = {k: getattr(SS, k) for k in SHADE_KERNELS}
+    kernel = {k: getattr(SS, k) for k in (*SHADE_KERNELS, "chained")}
     for k in SHADE_KERNELS:
         setattr(SS, k, getattr(SS, f"{k}_plain"))
+    SS.chained = lambda x: False
     try:
         yield
     finally:
@@ -4410,22 +4476,110 @@ def _dot3(a, b):
     return (a * b).sum(-1)
 
 
-@contextlib.contextmanager
-def _probe_stages(log, kept=None, lobes=None):
-    """A context in which every call of a shading stage runs its kernel
-    and its plain version on the same inputs (the same draws: the plain
-    scatter draws from the keys the kernel's draws came from), holds them
-    together (``_stage_compare``) and returns the kernel's outputs.
-    ``kept``, a dict, receives each stage's first call (scatter: its
-    first with roulette) as (kernel function, its arguments, plain
-    function, its arguments); ``lobes``, a set, the BSDF codes of
-    scatter's live lanes."""
+def _near_hit(hit, d):
+    """Lanes whose hit record (the plain version's) lies near a branch:
+    backface, the frame's guide."""
+    ny = hit.n[:, 1]
+    return ((_dot3(hit.n, d).abs() <= NEAR) | ((ny - 1e-4).abs() <= NEAR)
+            | ((ny + 0.999).abs() <= NEAR))
+
+
+def _near_nee(scene, hit, li, out):
+    """Lanes whose NEE sample toward light ``li`` (nee_prep's plain
+    outputs ``out``) lies near a branch: ok's distance and cosine, the
+    area light's side, the spot's cone."""
+    import torch
+
+    kind = scene.light_kinds[li]
+    wi = out[1]
+    cos_surf = _dot3(hit.n, wi).abs()
+    near = (((out[2] - 1e-2).abs() <= NEAR)
+            | ((cos_surf - 1e-2).abs() <= NEAR))
+    ldir = scene.light_direction[li]
+    if kind == 0:
+        near |= _dot3(wi, ldir).abs() <= NEAR
+    if kind == 4:
+        cone = torch.cos(scene.light_area[li] / 2)
+        near |= (_dot3(-wi, ldir) - cone).abs() <= NEAR
+    return near
+
+
+def _near_scatter(scene, hit, imp, keys, u, fold, rr_key, eps, hs, drawn,
+                  out_p):
+    """Lanes of scatter's call (its plain outputs ``out_p``, its uniforms
+    ``drawn`` = (u, u_fresnel, u_rr)) near a branch (tir, the Fresnel
+    pick, a diffuse weight's 0, the fold's sign, roulette), and the
+    per-lane relative tolerance of importance from the diffuse weight's
+    conditioning.  Returns (near, importance's rtol, what a far lane's
+    report prints)."""
     import torch
 
     from cuda_raytracer_tpu_torch.ops import shade as S
     from cuda_raytracer_tpu_torch.ops import shade_stages as SS
 
-    real = {k: getattr(SS, k) for k in SHADE_KERNELS}
+    uu, u_f, u_rr = drawn
+    # the deciding quantities, from the same inputs
+    wo, ior = hit.wo_local, scene.bsdf_ior[hit.bsdf]
+    cos_o = torch.clamp(wo[:, 2], 1e-6, 1.0)
+    eta = torch.where(hit.backface, ior, 1.0 / ior)
+    sin2_t = eta * eta * torch.clamp_min(1.0 - cos_o * cos_o, 0.0)
+    r0 = ((1.0 - ior) / (1.0 + ior)) ** 2
+    fres = r0 + (1.0 - r0) * (1.0 - cos_o) ** 5
+    near = ((sin2_t - 1.0).abs() <= NEAR) | ((u_f - fres).abs() <= NEAR)
+    # a diffuse lane's weight 2|dot(d, n)| (uniform and fold sampling;
+    # cosine sampling's is the albedo): each version rounds the dot
+    # three times, so the two differ by at most
+    # 2 gamma_3 sum|d_i n_i| (the plain version's d and the hit's n);
+    # over |dot| that is the weight's conditioning, which carries
+    # into importance (roulette's 1/p with it).  The weight's
+    # threshold is 0 (valid needs importance > 0).
+    dp = out_p[1]
+    dn = _dot3(dp, hit.n).abs()
+    diffuse = (scene.bsdf_fn[hit.bsdf] == 0) & (hs != "cosine" or fold)
+    near |= diffuse & (dn <= NEAR)
+    if fold:
+        near |= _dot3(S._spherical_sample(uu), hit.n).abs() <= NEAR
+    cond = torch.where(diffuse & (dn > NEAR),
+                       2 * GAMMA_3 * (dp * hit.n).abs().sum(-1) / dn, 0.0)
+    cond = torch.where(cond > 0.5 * STAGE_RTOL, cond, 0.0)
+    p = None
+    if u_rr is not None:
+        # p from the plain version's importance before the roulette;
+        # where the weight is ill-conditioned, p is no closer than
+        # its conditioning
+        pre = SS.scatter_plain(scene, hit, imp, keys, u, fold, None, eps,
+                               hs)[2]
+        p = torch.clamp(pre.amax(-1), 0.05, 1.0)
+        near |= (u_rr - p).abs() <= NEAR + cond * p
+
+    def report(i):
+        return (f"bsdf {int(scene.bsdf_fn[hit.bsdf[i]])}, backface "
+                f"{bool(hit.backface[i])}, sin2_t {float(sin2_t[i])}, "
+                f"u_f - fres {float(u_f[i] - fres[i])}, dot(d, n) "
+                f"{float(_dot3(dp[i], hit.n[i]))}, importance in "
+                f"{imp[i].tolist()}"
+                + (f", u_rr - p {float(u_rr[i] - p[i])}" if p is not None
+                   else ""))
+
+    return near, STAGE_RTOL + cond, report
+
+
+@contextlib.contextmanager
+def _probe_stages(log, kept=None, lobes=None):
+    """A context in which the frame is shaded stage by stage on the card
+    (``shade_stages.chained`` off) and every call of a shading stage runs
+    its kernel and its plain version on the same inputs (the same draws:
+    the plain scatter draws from the keys the kernel's draws came from),
+    holds them together (``_stage_compare``) and returns the kernel's
+    outputs.  ``kept``, a dict, receives each stage's first call
+    (scatter: its first with roulette) as (kernel function, its
+    arguments, plain function, its arguments); ``lobes``, a set, the
+    BSDF codes of scatter's live lanes."""
+    import torch
+
+    from cuda_raytracer_tpu_torch.ops import shade_stages as SS
+
+    real = {k: getattr(SS, k) for k in (*SHADE_KERNELS, "chained")}
     hit_fields = ("valid", "pt", "n", "dpdu", "dpdv", "wo_local", "bsdf",
                   "t", "backface")
 
@@ -4441,10 +4595,7 @@ def _probe_stages(log, kept=None, lobes=None):
                   "emission + env miss" if scene.has_env else "emission")
         got = dict(zip(hit_fields, hk), light=lk)
         want = dict(zip(hit_fields, hp), light=lp)
-        ny = hp.n[:, 1]
-        near = ((_dot3(hp.n, d).abs() <= NEAR) | ((ny - 1e-4).abs() <= NEAR)
-                | ((ny + 0.999).abs() <= NEAR))
-        _stage_compare(log, "shade_hit", branch, got, want, near)
+        _stage_compare(log, "shade_hit", branch, got, want, _near_hit(hp, d))
         keep("shade_hit", SS.shade_hit_cuda, args, SS.shade_hit_plain, args)
         return hk, lk
 
@@ -4456,18 +4607,8 @@ def _probe_stages(log, kept=None, lobes=None):
         branch = LIGHT_NAMES[kind] + (" two-sided" if compat_two_sided
                                       and kind == 0 else "")
         names = ("o", "wi", "max_t", "li", "ok")
-        wi = ok_p[1]
-        cos_surf = _dot3(hit.n, wi).abs()
-        near = (((ok_p[2] - 1e-2).abs() <= NEAR)
-                | ((cos_surf - 1e-2).abs() <= NEAR))
-        ldir = scene.light_direction[li]
-        if kind == 0:
-            near |= _dot3(wi, ldir).abs() <= NEAR
-        if kind == 4:
-            cone = torch.cos(scene.light_area[li] / 2)
-            near |= (_dot3(-wi, ldir) - cone).abs() <= NEAR
         _stage_compare(log, "nee_prep", branch, dict(zip(names, ok_k)),
-                       dict(zip(names, ok_p)), near)
+                       dict(zip(names, ok_p)), _near_nee(scene, hit, li, ok_p))
         keep("nee_prep", SS.nee_prep_cuda, args, SS.nee_prep_plain, args)
         return ok_k
 
@@ -4492,51 +4633,15 @@ def _probe_stages(log, kept=None, lobes=None):
         out_p = SS.scatter_plain(*args_p)
         branch = ("fold" if fold else hs) + (" + roulette" if rr_key
                                              is not None else "")
-        # the deciding quantities, from the same inputs
-        wo, ior = hit.wo_local, scene.bsdf_ior[hit.bsdf]
-        cos_o = torch.clamp(wo[:, 2], 1e-6, 1.0)
-        eta = torch.where(hit.backface, ior, 1.0 / ior)
-        sin2_t = eta * eta * torch.clamp_min(1.0 - cos_o * cos_o, 0.0)
-        r0 = ((1.0 - ior) / (1.0 + ior)) ** 2
-        fres = r0 + (1.0 - r0) * (1.0 - cos_o) ** 5
-        near = ((sin2_t - 1.0).abs() <= NEAR) | ((u_f - fres).abs() <= NEAR)
-        # a diffuse lane's weight 2|dot(d, n)| (uniform and fold sampling;
-        # cosine sampling's is the albedo): each version rounds the dot
-        # three times, so the two differ by at most
-        # 2 gamma_3 sum|d_i n_i| (the plain version's d and the hit's n);
-        # over |dot| that is the weight's conditioning, which carries
-        # into importance (roulette's 1/p with it).  The weight's
-        # threshold is 0 (valid needs importance > 0).
-        dp = out_p[1]
-        dn = _dot3(dp, hit.n).abs()
-        diffuse = (scene.bsdf_fn[hit.bsdf] == 0) & (hs != "cosine" or fold)
-        near |= diffuse & (dn <= NEAR)
-        if fold:
-            near |= _dot3(S._spherical_sample(uu), hit.n).abs() <= NEAR
-        cond = torch.where(diffuse & (dn > NEAR),
-                           2 * GAMMA_3 * (dp * hit.n).abs().sum(-1) / dn, 0.0)
-        cond = torch.where(cond > 0.5 * STAGE_RTOL, cond, 0.0)
-        if u_rr is not None:
-            # p from the plain version's importance before the roulette;
-            # where the weight is ill-conditioned, p is no closer than
-            # its conditioning
-            pre = SS.scatter_plain(scene, hit, imp, keys, u, fold, None,
-                                   eps, hs)[2]
-            p = torch.clamp(pre.amax(-1), 0.05, 1.0)
-            near |= (u_rr - p).abs() <= NEAR + cond * p
+        near, rtol, report = _near_scatter(scene, hit, imp, keys, u, fold,
+                                           rr_key, eps, hs, (uu, u_f, u_rr),
+                                           out_p)
         names = ("o", "d", "importance", "valid", "count_emission")
         far = _stage_compare(log, "scatter", branch, dict(zip(names, out_k)),
                              dict(zip(names, out_p)), near,
-                             rtol=dict(importance=STAGE_RTOL + cond))
+                             rtol=dict(importance=rtol))
         for i in far:
-            dn = float(_dot3(out_p[1][i], hit.n[i]))
-            print(f"[shade] scatter ({branch}): lane {i}: bsdf "
-                  f"{int(scene.bsdf_fn[hit.bsdf[i]])}, backface "
-                  f"{bool(hit.backface[i])}, sin2_t {float(sin2_t[i])}, "
-                  f"u_f - fres {float(u_f[i] - fres[i])}, dot(d, n) {dn}, "
-                  f"importance in {imp[i].tolist()}"
-                  + (f", u_rr - p {float(u_rr[i] - p[i])}"
-                     if u_rr is not None else ""))
+            print(f"[shade] scatter ({branch}): lane {i}: {report(i)}")
         if lobes is not None:
             fn = scene.bsdf_fn[hit.bsdf][hit.valid]
             lobes.update(int(x) for x in torch.unique(fn).tolist())
@@ -4546,7 +4651,8 @@ def _probe_stages(log, kept=None, lobes=None):
         return out_k
 
     probes = dict(shade_hit=shade_hit, nee_prep=nee_prep,
-                  nee_accum=nee_accum, scatter=scatter)
+                  nee_accum=nee_accum, scatter=scatter,
+                  chained=lambda x: False)
     for k, fn in probes.items():
         setattr(SS, k, fn)
     try:
@@ -4554,6 +4660,146 @@ def _probe_stages(log, kept=None, lobes=None):
     finally:
         for k, fn in real.items():
             setattr(SS, k, fn)
+
+
+def _gap_fields(res):
+    """A gap's outputs by name: light, the shadow ray's fields (o only
+    where the gap wrote it: the first sample of a depth), the next
+    segment's."""
+    light, shadow, path = res
+    out = dict(light=light)
+    if shadow is not None:
+        out.update({f"shadow.{k}": v for k, v in shadow._asdict().items()
+                    if v is not None})
+    if path is not None:
+        out.update(zip(("o", "d", "importance", "valid", "count_emission"),
+                       path))
+    return out
+
+
+def _gap_branch(scene, kw):
+    """A gap call's branch: its variant, then what it met (emission, the
+    lights of the samples it accumulates and draws, reference_compat's
+    two-sided area light and shadow test, scatter's sampling and
+    roulette)."""
+    from cuda_raytracer_tpu_torch.ops import shade_stages as SS
+
+    opened, accum, sample = kw["opened"], kw["accum"], kw["sample"]
+    compat = kw["reference_compat"]
+    parts = [SS.gap_variant(opened is not None, accum, sample is not None,
+                            kw["store"], kw["scatter"] is not None)]
+    if opened is not None:
+        parts.append("no emission" if compat else "emission + env miss"
+                     if scene.has_env else "emission")
+    for what, nee in (("accumulates", accum and accum[0]),
+                      ("draws", sample)):
+        if nee:
+            kind = scene.light_kinds[nee.light]
+            parts.append(f"{what} {LIGHT_NAMES[kind]}" + (
+                " two-sided" if compat and kind == 0 else ""))
+    if accum is not None and compat:
+        parts.append("prim_s >= 0")
+    if kw["scatter"] is not None:
+        _, _, fold, rr_key = kw["scatter"]
+        parts.append(("fold" if fold else kw["hemisphere_sampling"])
+                     + (" + roulette" if rr_key is not None else ""))
+    return "; ".join(parts)
+
+
+@contextlib.contextmanager
+def _probe_chain(log, kept=None, plain_hit=True):
+    """A context in which every call of the fused chain (``shade_gap``)
+    runs its kernel, the plain stages and the stage kernels chained the
+    same way (``shade_stages.gap_by_stages``), all on the same inputs
+    and draws; holds the kernel against the plain chain
+    (``_stage_compare`` under "gap", a lane off only near a branch of
+    any stage the gap runs, from the plain chain's own intermediates)
+    and against the stage kernels to the bit (under "gap = stages"); and
+    returns the kernel's outputs.  With ``plain_hit`` False the plain
+    chain starts from the hit record of shade_hit's kernel (its light
+    still the plain version's), as the stage probe hands the plain
+    nee_prep and scatter the kernel's record: torch's ops on the card
+    round a hit differently within STAGE_RTOL, and a mirror or glass
+    lane's direction, built on the hit's frame, carries that to above
+    STAGE_ATOL in a component near 0.  ``kept``, a dict, receives each
+    variant's first call as (its arguments, its keywords, its keywords
+    with scatter's uniforms drawn: shade_gap_drawn's)."""
+    import torch
+
+    from cuda_raytracer_tpu_torch.ops import shade_stages as SS
+
+    real = SS.shade_gap
+    kernels = (SS.shade_hit_cuda, SS.nee_prep_cuda, SS.nee_accum_cuda,
+               SS.scatter_cuda)
+
+    def kernel_hit(scene, o, d, t, prim, valid, imp, light, ce, eps,
+                   compat):
+        hk = SS.shade_hit_cuda(scene, o, d, t, prim, valid, imp, light, ce,
+                               eps, True)[0]
+        return hk, SS.shade_hit_plain(scene, o, d, t, prim, valid, imp,
+                                      light, ce, eps, compat)[1]
+
+    plain = (SS.shade_hit_plain if plain_hit else kernel_hit,
+             SS.nee_prep_plain, SS.nee_accum_plain, SS.scatter_plain)
+
+    def gap(scene, o, d, t, prim, imp, light, **kw):
+        args = (scene, o, d, t, prim, imp, light)
+        got = SS.shade_gap_cuda(*args, **kw)
+        want = SS.gap_by_stages(plain, *args, **kw)
+        twin = SS.gap_by_stages(kernels, *args, **kw)
+        branch = _gap_branch(scene, kw)
+        variant = branch.split(";")[0]
+        compat, eps = kw["reference_compat"], kw["origin_eps"]
+        near = torch.zeros_like(t, dtype=torch.bool)
+        rtol = None
+        accum, sample, sc = kw["accum"], kw["sample"], kw["scatter"]
+        if variant != "close_stored":
+            hp = plain[0](scene, o, d, t, prim, None, imp, light, None, eps,
+                          True)[0]
+            near |= _near_hit(hp, d)
+        if accum is not None and accum[1].li is None:
+            nee, _, t_s, _ = accum
+            out = SS.nee_prep_plain(scene, hp, imp, nee.light, nee.u,
+                                    nee.weight, compat)
+            near |= _near_nee(scene, hp, nee.light, out)
+            # the pass test on a recomputed max_t
+            max_t = out[2]
+            near |= ((t_s - (max_t - kw["shadow_eps"])).abs()
+                     <= NEAR * max_t.abs() + STAGE_ATOL)
+        if sample is not None:
+            near |= _near_nee(scene, hp, sample.light, (None, *want[1][1:]))
+        if sc is not None:
+            keys, u, fold, rr_key = sc
+            drawn = SS.scatter_draws(keys, u, rr_key, t.shape[0], t.device)
+            n_s, rt, _ = _near_scatter(
+                scene, hp, imp, keys, u, fold, rr_key, eps,
+                kw["hemisphere_sampling"], drawn, want[2])
+            near |= n_s
+            rtol = dict(importance=rt)
+        g, w, tw = _gap_fields(got), _gap_fields(want), _gap_fields(twin)
+        _stage_compare(log, "gap", branch, g, w, near, rtol=rtol)
+        _stage_compare(log, "gap = stages", branch, g, tw,
+                       torch.zeros_like(near))
+        for k in tw:
+            e = log["gap = stages", branch]
+            same = torch.equal(g[k], tw[k]) or (
+                g[k].dtype.is_floating_point
+                and torch.equal(torch.isnan(g[k]), torch.isnan(tw[k]))
+                and torch.equal(torch.nan_to_num(g[k]),
+                                torch.nan_to_num(tw[k])))
+            e["unequal"] = e.get("unequal", 0) + (not same)
+        if kept is not None and variant not in kept:
+            kk = dict(kw)
+            if sc is not None:
+                kk["scatter"] = (*drawn, sc[2])
+            kept[variant] = (args, kw, kk)
+        return got
+
+    SS.shade_gap = gap
+    try:
+        yield
+    finally:
+        SS.shade_gap = real
 
 
 def refraction_scene():
@@ -4609,6 +4855,8 @@ def _shade_branch_settings(docs, sky, n):
          cli(["--preset", "fast"])),
         ("refraction sphere, point and spot light (default preset)",
          refraction()),
+        ("refraction sphere, NEE at depth 0 only (no sample past it)",
+         refraction(nee_schedule=((1, 1.0),))),
         ("run G --hemisphere cosine", cli(["--hemisphere", "cosine"])),
         ("run G --reference-compat (two-sided)",
          cli(["--reference-compat", "--camera-mode", "cutracer"])),
@@ -4749,6 +4997,150 @@ def measure_stage(name, kept):
     return dict(ms=ms, plain_ms=plain_ms, lanes=lanes, nbytes=nbytes, **b)
 
 
+def gap_reads(args, kw, out):
+    """(tensor, lanes) of what a fused gap's call must read in this call's
+    data (``args``, ``kw``: shade_gap_drawn's, scatter's uniforms drawn;
+    ``out`` its outputs), as ``stage_reads`` counts a stage's: each
+    input on the lanes whose outputs need it.  The hit record, and a
+    sample it accumulates but did not store, are not inputs: the gap
+    recomputes them from o, d, t, prim (one shade_packed row per prim
+    hit) and the sample's uniforms."""
+    import torch
+
+    from cuda_raytracer_tpu_torch.ops import shade_stages as SS
+    from cuda_raytracer_tpu_torch.render import flatscene as F
+    from cuda_raytracer_tpu_torch.scene import bsdf as B
+
+    scene, o, d, t, prim, imp, light = args
+    opened, accum, sample = kw["opened"], kw["accum"], kw["sample"]
+    compat, eps = kw["reference_compat"], kw["shadow_eps"]
+    sampled = (F.LIGHT_AREA, F.LIGHT_HEMISPHERE, F.LIGHT_ENV)
+    reads = []
+    if accum is not None and accum[1].li is not None:
+        _, sh, t_s, prim_s = accum
+        passes = sh.ok & (t_s > sh.max_t - eps)
+        reads += [(light, None), (sh.ok, None), (t_s, sh.ok),
+                  (sh.max_t, sh.ok)]
+        if compat:
+            reads.append((prim_s, passes))
+            passes = passes & (prim_s >= 0)
+        return reads + [(sh.li, passes)]
+    hp = SS.shade_hit_plain(scene, o, d, t, prim, None, imp, light, None,
+                            kw["origin_eps"], True)[0]
+    hit = prim >= 0
+    rows = torch.zeros(scene.shade_packed.shape[0], dtype=torch.bool,
+                       device=prim.device)
+    rows[prim[hit].long()] = True
+    reads += [(o, None), (d, None), (prim, None), (t, hit),
+              (scene.shade_packed, rows)]
+    fn = scene.bsdf_fn[hp.bsdf]
+    need_imp = torch.zeros_like(hit)
+    if accum is not None or (opened is not None and not compat):
+        reads.append((light, None))
+    if opened is not None and not compat:
+        valid, ce = opened
+        emitter = hit & (fn == B.BSDF_EMISSION)
+        miss = torch.zeros_like(hit)
+        if scene.has_env:
+            reads.append((valid, ~hit))
+            miss = ~hit & valid
+        reads.append((ce, emitter | miss))
+        need_imp |= (emitter | miss) & ce
+    if accum is not None:
+        nee, _, t_s, prim_s = accum
+        ok = SS.nee_prep_plain(scene, hp, imp, nee.light, nee.u, nee.weight,
+                               compat)[4]
+        need_imp |= ok
+        reads.append((t_s, ok))
+        if scene.light_kinds[nee.light] in sampled:
+            reads.append((nee.u, None))
+        if compat:
+            _, _, max_t, _, _ = SS.nee_prep_plain(
+                scene, hp, imp, nee.light, nee.u, nee.weight, compat)
+            reads.append((prim_s, ok & (t_s > max_t - eps)))
+    if sample is not None:
+        need_imp |= out[1].ok
+        if scene.light_kinds[sample.light] in sampled:
+            reads.append((sample.u, None))
+    if kw["scatter"] is not None:
+        u, u_f, u_rr, _ = kw["scatter"]
+        diffuse, emit = fn == B.BSDF_DIFFUSE, fn == B.BSDF_EMISSION
+        glassy = (fn == B.BSDF_GLASS) | emit
+        need_imp |= ~emit
+        reads += [(u, diffuse), (u_f, glassy)]
+        if u_rr is not None:
+            lives = hp.valid & ~emit & (out[2][2].amax(-1) > 0)
+            reads.append((u_rr, lives))
+    return reads + [(imp, need_imp)]
+
+
+def _gap_flops(variant):
+    """Float operations per lane of a gap: its stages' bodies'
+    (SHADE_FLOPS; a recomputed hit costs shade_hit's, a recomputed
+    sample nee_prep's)."""
+    f = SHADE_FLOPS
+    if variant == "close_stored":
+        return f["nee_accum"]
+    n = f["shade_hit"]
+    n += (f["nee_prep"] + f["nee_accum"]) * (variant.startswith("step")
+                                             or variant == "close_scatter")
+    n += f["nee_prep"] * (variant.startswith(("open_nee", "step")))
+    return n + f["scatter"] * variant.endswith("scatter")
+
+
+def measure_gap(variant, kept):
+    """A fused gap's kernel at the shapes its first call met (run A's
+    where run A has the variant; ``kept``: (arguments, keywords,
+    keywords with scatter's uniforms drawn)): kernel ms, the stage
+    kernels chained on the same inputs and uniforms (``gap_by_stages``:
+    the launches the gap replaces) and the plain chain (its draws
+    included), each call after a write of L2_FLUSH_BYTES; the bound
+    from the bytes the call must move (``gap_reads`` once, each output
+    written once) and the bytes the kernel moves (every lane of each
+    input it loads)."""
+    import torch
+
+    from cuda_raytracer_tpu_torch.ops import shade_stages as SS
+
+    args, kw, drawn = kept
+    res = SS.shade_gap_drawn(*args, **drawn)
+    inputs = _tensors((args, drawn))
+    out = [x for x in _tensors(res) if not any(x is y for y in inputs)]
+    reads = gap_reads(args, drawn, res)
+    written = sum(_rows_bytes(x) for x in out)
+    need = sum(_rows_bytes(x, lanes) for x, lanes in reads) + written
+    moved = sum(_rows_bytes(x) for x, _ in reads) + written
+    lanes = args[3].shape[0]
+    _, u_f, u_rr, _ = drawn["scatter"] or (None,) * 4
+
+    def scatter_drawn(scene, hit, imp, keys, u, fold, rr_key, eps, hs):
+        return SS.scatter_drawn(scene, hit, imp, drawn["scatter"][0], u_f,
+                                u_rr, fold, eps, hs)
+
+    kernels = (SS.shade_hit_cuda, SS.nee_prep_cuda, SS.nee_accum_cuda,
+               scatter_drawn)
+    plain = (SS.shade_hit_plain, SS.nee_prep_plain, SS.nee_accum_plain,
+             SS.scatter_plain)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                        device=args[3].device)
+    ms = cuda_time_ms(lambda: SS.shade_gap_drawn(*args, **drawn), 10,
+                      prep=flush.zero_)
+    stages_ms = cuda_time_ms(lambda: SS.gap_by_stages(kernels, *args, **kw),
+                             10, prep=flush.zero_)
+    plain_ms = cuda_time_ms(lambda: SS.gap_by_stages(plain, *args, **kw), 3,
+                            prep=flush.zero_)
+    b = _bound(need, _gap_flops(variant) * lanes)
+    print(f"[shade] gap {variant} kernel ({lanes:,} lanes; {need / lanes:.1f}"
+          f" B a lane needed, {moved / lanes:.1f} B moved): {ms:.4f} ms "
+          f"({moved / ms / 1e9:.3f} TB/s moved), the stage kernels' chain "
+          f"{stages_ms:.4f} ms, plain {plain_ms:.3f} ms ({plain_ms / ms:.1f}x)"
+          f", bound {b['bound_ms']:.5f} ms by {b['bound_by']} (bytes "
+          f"{b['bytes_ms']:.5f}, ops {b['ops_ms']:.5f}): "
+          f"{b['bound_ms'] / ms:.1%} of the bound [{smi_line()}]")
+    return dict(ms=ms, plain_ms=plain_ms, stages_ms=stages_ms, lanes=lanes,
+                nbytes=need, moved=moved, **b)
+
+
 def _run_k_setting(label, kind, frames, docs, sky, n):
     """One run-K setting, graphed: frames shaded by the kernels and frames
     shaded by the plain stages, each renderer made and driven under its
@@ -4770,7 +5162,7 @@ def _run_k_setting(label, kind, frames, docs, sky, n):
             launches[plain] = read_launches()
         want = _run_i_want(r, frames)
         if plain:
-            want.update(dict.fromkeys(SHADE_KERNELS, 0))
+            want.update(dict.fromkeys(SHADING, 0))
         check(launches[plain] == want, f"run K {label} "
               f"({'plain' if plain else 'kernel'} stages): launches "
               f"{launches[plain]} != the schedule's {want}")
@@ -4798,7 +5190,8 @@ def _run_k_setting(label, kind, frames, docs, sky, n):
     for plain in (False, True):
         with _plain_stages() if plain else contextlib.nullcontext():
             busy[plain] = _device_busy(rs[plain].render, min(turns[plain]))
-    per_frame = {k: launches[False][k] // frames for k in SHADE_KERNELS}
+    per_frame = {k: launches[False][k] // frames for k in SHADING
+                 if launches[False][k]}
     print(f"[run K] {label}: {frames} graphed frames (the last after a "
           f"camera move) shaded by the kernels against the plain stages: "
           f"pixels within rtol={PIXEL_RTOL} atol={PIXEL_ATOL} "
@@ -4820,16 +5213,44 @@ def _run_k_setting(label, kind, frames, docs, sky, n):
     return res
 
 
+def _print_shade_log(log):
+    """Phase 14's comparisons, one line per (stage, branch), and the
+    check that every lane off lies near a threshold."""
+    for (stage, branch), e in sorted(log.items()):
+        print(f"[shade] {stage} ({branch}): {e['calls']} call(s), "
+              f"{e['lanes']:,} lanes; max abs err {e['err']:.3g}, max "
+              f"rel err {e['rel']:.3g} (rtol={STAGE_RTOL}, "
+              f"atol={STAGE_ATOL}); lanes off {e['off']} (by field "
+              f"{e['flips']}), all near a threshold: {e['far'] == 0} "
+              f"({e['near']:,} such lanes); importance held to a "
+              f"tolerance from its conditioning on {e['wide']:,} lanes, "
+              f"{e['used']} of them beyond rtol={STAGE_RTOL}"
+              + (f"; calls not bit-equal {e['unequal']}" if "unequal" in e
+                 else ""))
+    for (stage, branch), e in log.items():
+        check(e["far"] == 0, f"{stage} ({branch}): {e['far']} lanes "
+              f"differ from the {'stage kernels' if '=' in stage else 'plain version'}"
+              f" away from any threshold")
+        check(e.get("unequal", 0) == 0, f"{stage} ({branch}): "
+              f"{e.get('unequal')} calls not bit-equal to the stage kernels")
+
+
 def phase_shade(n=121, frames=2):
     """Phase 14 (run K): the shading kernels (ops/csrc/shade.cu).  What
-    ptxas says of them; every call of every stage in seven eager frames
+    ptxas says of them; every call of every stage in eight eager frames
     (_shade_branch_settings: the fast and default presets, mirror, glass
-    and refraction, cosine and two-sided, all six light kinds) held
-    against its plain version on the same inputs, every branch of
-    SHADE_BRANCHES and every lobe reached; each kernel timed against its
-    bound and its plain version at run A's shapes; then RUN_K's frames,
-    graphed, shaded by the kernels and by the plain stages in one process
-    (_run_k_setting).  Returns the four kernels' JSON rows."""
+    and refraction, cosine and two-sided, all six light kinds, depths
+    with no NEE sample) shaded stage by stage, held against its plain
+    version on the same inputs, every branch of SHADE_BRANCHES and every
+    lobe reached; then the same frames shaded by the fused chain, every
+    gap held against the plain chain and, to the bit, the stage kernels
+    chained (_probe_chain), every part of CHAIN_BRANCHES reached; each
+    stage kernel timed against its bound and its plain version at run
+    A's shapes, each gap variant at its first call's (run A's where it
+    has it) against its bound, the stage kernels' chain and the plain
+    chain; then RUN_K's frames, graphed, shaded by the fused chain and by
+    the plain stages in one process (_run_k_setting).  Returns the JSON
+    rows of the four stage kernels and of the eight gap variants."""
     import gc
     import tempfile
 
@@ -4842,53 +5263,54 @@ def phase_shade(n=121, frames=2):
         print(f"[shade] ptxas, shade.cu: {line}")
     sky = sky_map()
     log, kept, lobes = {}, {}, set()
+    chain_log, chain_kept = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         docs = {}
         for lights in (("area",), ("area", "directional"), ()):
             docs[lights] = os.path.join(tmp, f"run_k_{len(lights)}.dae")
             with open(docs[lights], "w") as f:
                 f.write(run_c_document(n, lights))
-        for i, (label, make) in enumerate(_shade_branch_settings(docs, sky,
-                                                                 n)):
-            r = make()
-            with _probe_stages(log, kept if i == 0 else None, lobes):
-                r.render()
-            check(r.dropped == 0, f"phase 14 {label}: dropped rays")
-            del r
-            gc.collect()
-            torch.cuda.empty_cache()
+        settings = _shade_branch_settings(docs, sky, n)
+        for chain in (False, True):
+            for i, (label, make) in enumerate(settings):
+                r = make()
+                with (_probe_chain(chain_log, chain_kept, plain_hit=False)
+                      if chain else
+                      _probe_stages(log, kept if i == 0 else None, lobes)):
+                    r.render()
+                check(r.dropped == 0, f"phase 14 {label}: dropped rays")
+                del r
+                gc.collect()
+                torch.cuda.empty_cache()
         t_probe = time.perf_counter() - t0
-        for (stage, branch), e in sorted(log.items()):
-            print(f"[shade] {stage} ({branch}): {e['calls']} call(s), "
-                  f"{e['lanes']:,} lanes; max abs err {e['err']:.3g}, max "
-                  f"rel err {e['rel']:.3g} (rtol={STAGE_RTOL}, "
-                  f"atol={STAGE_ATOL}); lanes off {e['off']} (by field "
-                  f"{e['flips']}), all near a threshold: {e['far'] == 0} "
-                  f"({e['near']:,} such lanes); importance held to a "
-                  f"tolerance from its conditioning on {e['wide']:,} lanes, "
-                  f"{e['used']} of them beyond rtol={STAGE_RTOL}")
-        for (stage, branch), e in log.items():
-            check(e["far"] == 0, f"{stage} ({branch}): {e['far']} lanes "
-                  f"differ from the plain version away from any threshold")
+        _print_shade_log(log)
+        _print_shade_log(chain_log)
         for stage, want in SHADE_BRANCHES.items():
             got = {b for s, b in log if s == stage}
             check(want <= got, f"phase 14: {stage} never ran "
                   f"{sorted(want - got)}")
         check(SHADE_LOBES <= lobes, f"phase 14: scatter never met lobes "
               f"{sorted(SHADE_LOBES - lobes)}")
+        met = {p for _, b in chain_log for p in b.split("; ")}
+        check(CHAIN_BRANCHES <= met, f"phase 14: the fused chain never met "
+              f"{sorted(CHAIN_BRANCHES - met)}")
         print(f"[shade] every branch reached ({sum(e['calls'] for e in log.values())} "
-              f"stage calls), scatter's lobes {sorted(lobes)}; probe frames "
+              f"stage calls, {sum(e['calls'] for (s, _), e in chain_log.items() if s == 'gap')}"
+              f" gap calls), scatter's lobes {sorted(lobes)}; probe frames "
               f"{t_probe:.1f} s")
         measured = {k: measure_stage(k, kept[k]) for k in SHADE_KERNELS}
+        gaps = {g: measure_gap(g, chain_kept[g]) for g in GAP_VARIANTS}
         kept.clear()
+        chain_kept.clear()
         gc.collect()
         torch.cuda.empty_cache()
         results = [_run_k_setting(label, kind, frames, docs, sky, n)
                    for label, kind in RUN_K]
     run_a = results[0]
-    check(all(run_a["launches"][k] > 0 for k in SHADE_KERNELS),
-          f"run K: run A never launched a shading kernel "
-          f"{run_a['launches']}")
+    want = stage_launches(fast_config(), 1)
+    got = {k: run_a["launches"][k] // frames for k in SHADING}
+    check(got == want, f"run K: run A's shading launches a frame {got}, "
+          f"the fused schedule's {want}")
     print(f"[shade] phase 14 took {time.perf_counter() - t0:.1f} s")
     rows = []
     for k in SHADE_KERNELS:
@@ -4896,6 +5318,13 @@ def phase_shade(n=121, frames=2):
         rows.append(dict(kernel_row(k, "shade.cu", "",
                                     run_a["launches"][k], measured[k], err),
                          replaces=SHADE_KERNELS[k]))
+    err = max(e["err"] for (s, _), e in chain_log.items() if s == "gap")
+    for g in GAP_VARIANTS:
+        rows.append(dict(kernel_row(f"gap_{g}", "shade.cu", "",
+                                    run_a["launches"][f"gap_{g}"], gaps[g],
+                                    err),
+                         replaces="the stage kernels it chains",
+                         stages_ms=gaps[g]["stages_ms"]))
     return rows
 
 

@@ -1,5 +1,6 @@
-"""The shading stages of a depth as kernels: shade_hit, nee_prep,
-nee_accum and scatter (+ Russian roulette).
+"""The shading of a depth as kernels: the four stages (shade_hit,
+nee_prep, nee_accum and scatter + Russian roulette), and the fused chain
+of one kernel between two traces that a frame runs on the card.
 
 The JAX engine compiles every stage (its per-depth jit, or one jit per
 stage), and XLA fuses each stage's elementwise chain into a few loop
@@ -11,11 +12,20 @@ launches its kernel or raises; on CPU tensors it runs its plain version
 any other device is refused.  A configuration a kernel does not cover
 raises on the card, naming it.
 
-The draws are not part of a kernel: ``nee_prep`` takes its uniforms,
-and ``scatter`` draws the hemisphere (where not given), Fresnel and
-roulette uniforms through ``rng.uniform`` before its launch, with the
-keys and shapes the plain version draws with, so both see the same
-bits.  Each wrapper counts its launches (``*_launches``, in
+On the card a depth does not run the stages one by one: it runs
+``shade_gap`` after each of its traces (``chained``; render/bounce.py
+``run_depth``), one kernel that recomputes the hit record, and the NEE
+sample it accumulates, in registers from what the traces read and wrote,
+so neither reaches device memory.  Its variants (``GAPS``) are the
+stages' bodies (the same ``__device__`` functions) chained as the gap
+needs them; ``shade_gap_plain`` chains the plain stages the same way.
+
+The draws are not part of a kernel: ``nee_prep`` and a gap take their
+NEE uniforms, and ``scatter`` (and a scattering gap) draws the
+hemisphere (where not given), Fresnel and roulette uniforms through
+``rng.uniform`` before its launch, with the keys and shapes the plain
+version draws with, so both see the same bits.  Each wrapper counts its
+launches (``*_launches``, a gap's by variant, in
 ``render/graphs.COUNTERS``).
 """
 
@@ -23,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -43,6 +54,24 @@ shade_hit_launches = 0
 nee_prep_launches = 0
 nee_accum_launches = 0
 scatter_launches = 0
+
+#: the fused chain's variants (GAP_VARIANTS in shade.cu, by index): after
+#: the closest-hit trace ("open": emission) drawing the first sample, the
+#: same storing its li, scattering (no sample at the depth), or nothing
+#: more; after a shadow trace ("step", "close": accumulate the sample)
+#: drawing the next sample, the same storing its li, scattering, or
+#: (at a depth that does not scatter) adding the stored li alone
+GAPS = ("open_nee", "open_nee_store", "open_scatter", "open", "step",
+        "step_store", "close_scatter", "close_stored")
+#: launches of each variant since the count was last set to 0
+open_nee_launches = 0
+open_nee_store_launches = 0
+open_scatter_launches = 0
+open_launches = 0
+step_launches = 0
+step_store_launches = 0
+close_scatter_launches = 0
+close_stored_launches = 0
 
 #: light kinds nee_prep's kernel samples
 LIGHT_KINDS = (LIGHT_AREA, LIGHT_POINT, LIGHT_DIRECTIONAL, LIGHT_HEMISPHERE,
@@ -175,6 +204,151 @@ def scatter_plain(scene: FlatScene, hit: S.HitRecord, importance, keys, u,
 
 
 # ---------------------------------------------------------------------------
+# the fused chain
+# ---------------------------------------------------------------------------
+
+
+class Nee(NamedTuple):
+    """One NEE sample of a depth: toward light ``light`` (its index) from
+    the uniforms ``u`` [N, 2], weighted by ``weight``."""
+    light: int
+    u: torch.Tensor
+    weight: float
+
+
+class Shadow(NamedTuple):
+    """A sample's shadow ray as its gap writes it: what the trace reads
+    (o, d, max_t, ok) and, where the gap stores it, the sample's light
+    (``li``; None: the gap that accumulates the sample recomputes it)."""
+    o: torch.Tensor
+    d: torch.Tensor
+    max_t: torch.Tensor
+    ok: torch.Tensor
+    li: Optional[torch.Tensor] = None
+
+
+def chained(x: torch.Tensor) -> bool:
+    """Whether a depth over tensors like ``x`` is shaded by the fused
+    chain (``shade_gap`` after each trace: the card) rather than by the
+    stages one by one (the plain versions: the CPU)."""
+    return _on(x) == "cuda"
+
+
+def gap_variant(opened: bool, accum, sample: bool, store: bool,
+                scatter: bool) -> str:
+    """The variant (``GAPS``) of a gap that follows the closest-hit trace
+    (``opened``) or accumulates ``accum``'s sample, then draws a sample
+    (storing its li where ``store``) or scatters."""
+    stored = accum is not None and accum[1].li is not None
+    if store and not sample:
+        raise ValueError("a gap stores the li of a sample it draws")
+    if (opened == (accum is not None)) or (sample and scatter) or (
+            stored and (sample or scatter)):
+        raise ValueError(f"no gap opens={opened} accumulates="
+                         f"{accum is not None} (stored={stored}) draws="
+                         f"{sample} scatters={scatter}")
+    if opened:
+        return ("open_nee" + "_store" * store if sample
+                else "open_scatter" if scatter else "open")
+    if sample:
+        return "step" + "_store" * store
+    if scatter:
+        return "close_scatter"
+    if not stored:
+        raise ValueError("a gap that accumulates a sample and neither draws "
+                         "nor scatters reads its stored li")
+    return "close_stored"
+
+
+def shade_gap(scene: FlatScene, o, d, t, prim, importance, light, *,
+              opened=None, accum=None, sample: Optional[Nee] = None,
+              store: bool = False, scatter=None, origin_eps: float,
+              shadow_eps: float, reference_compat: bool,
+              hemisphere_sampling: str):
+    """The shading between two traces of a depth whose rays (o, d) met
+    (t, prim) in its closest-hit trace, on paths of ``importance`` that
+    carry ``light``:
+
+    * ``opened``: (valid, count_emission), the carry's, where the gap
+      follows the closest-hit trace: shade_hit's emission and, under an
+      environment map, its miss radiance (neither under
+      ``reference_compat``);
+    * ``accum``: (nee, shadow, t_s, prim_s): the sample ``nee`` whose
+      ``Shadow`` the trace just before met at (t_s, prim_s), added where
+      it passed (nee_accum);
+    * ``sample``: the next sample to draw (nee_prep), its li kept where
+      ``store``;
+    * ``scatter``: (keys, u, fold, rr_key), as ``scatter`` takes them.
+
+    Returns (light, Shadow or None, (o, d, importance, valid,
+    count_emission) or None)."""
+    kw = dict(opened=opened, accum=accum, sample=sample, store=store,
+              scatter=scatter, origin_eps=origin_eps, shadow_eps=shadow_eps,
+              reference_compat=reference_compat,
+              hemisphere_sampling=hemisphere_sampling)
+    if _on(importance) == "cuda":
+        return shade_gap_cuda(scene, o, d, t, prim, importance, light, **kw)
+    return shade_gap_plain(scene, o, d, t, prim, importance, light, **kw)
+
+
+def shade_gap_plain(scene: FlatScene, o, d, t, prim, importance, light, *,
+                    opened=None, accum=None, sample: Optional[Nee] = None,
+                    store: bool = False, scatter=None, origin_eps: float,
+                    shadow_eps: float, reference_compat: bool,
+                    hemisphere_sampling: str):
+    """``shade_gap`` as the plain stages chain (any device)."""
+    return gap_by_stages(
+        (shade_hit_plain, nee_prep_plain, nee_accum_plain, scatter_plain),
+        scene, o, d, t, prim, importance, light, opened=opened, accum=accum,
+        sample=sample, store=store, scatter=scatter, origin_eps=origin_eps,
+        shadow_eps=shadow_eps, reference_compat=reference_compat,
+        hemisphere_sampling=hemisphere_sampling)
+
+
+def gap_by_stages(stages, scene: FlatScene, o, d, t, prim, importance,
+                  light, *, opened=None, accum=None,
+                  sample: Optional[Nee] = None, store: bool = False,
+                  scatter=None, origin_eps: float, shadow_eps: float,
+                  reference_compat: bool, hemisphere_sampling: str):
+    """``shade_gap`` as ``stages`` = (shade_hit, nee_prep, nee_accum,
+    scatter) chain: the plain versions (``shade_gap_plain``) or the stage
+    kernels' wrappers; the hit from shade_hit (without emission where
+    the gap does not follow the closest-hit trace), the accumulated
+    sample drawn again where not stored."""
+    shade_hit_, nee_prep_, nee_accum_, scatter_ = stages
+    variant = gap_variant(opened is not None, accum, sample is not None,
+                          store, scatter is not None)
+    hit = None
+    if opened is not None:
+        valid, ce = opened
+        hit, light = shade_hit_(scene, o, d, t, prim, valid, importance,
+                                light, ce, origin_eps, reference_compat)
+    elif variant != "close_stored":
+        hit = shade_hit_(scene, o, d, t, prim, None, importance, light, None,
+                         origin_eps, True)[0]
+    if accum is not None:
+        nee, sh, t_s, prim_s = accum
+        max_t, li, ok = sh.max_t, sh.li, sh.ok
+        if li is None:
+            _, _, max_t, li, ok = nee_prep_(
+                scene, hit, importance, nee.light, nee.u, nee.weight,
+                reference_compat)
+        light = nee_accum_(light, t_s, prim_s, max_t, li, ok, shadow_eps,
+                           reference_compat)
+    shadow = path = None
+    if sample is not None:
+        pt, wi, max_t, li, ok = nee_prep_(
+            scene, hit, importance, sample.light, sample.u, sample.weight,
+            reference_compat)
+        shadow = Shadow(pt if opened is not None else accum[1].o, wi, max_t,
+                        ok, li if store else None)
+    if scatter is not None:
+        keys, u, fold, rr_key = scatter
+        path = scatter_(scene, hit, importance, keys, u, fold, rr_key,
+                        origin_eps, hemisphere_sampling)
+    return light, shadow, path
+
+# ---------------------------------------------------------------------------
 # the kernels' wrappers
 # ---------------------------------------------------------------------------
 
@@ -235,7 +409,37 @@ class _ScatterArgs(ctypes.Structure):
     ]
 
 
-_ARGS = (_ShadeHitArgs, _NeePrepArgs, _NeeAccumArgs, _ScatterArgs)
+class _NeeDraw(ctypes.Structure):
+    _fields_ = [("u", _P), ("u_stride", _L), ("light", _L), ("kind", _I),
+                ("two_sided", _I), ("weight", _F)]
+
+
+class _GapArgs(ctypes.Structure):
+    _fields_ = [
+        ("n", _L), ("o", _P), ("o_stride", _L), ("d", _P), ("d_stride", _L),
+        ("t", _P), ("prim", _P), ("valid", _P), ("importance", _P),
+        ("imp_stride", _L), ("light", _P), ("light_stride", _L),
+        ("count_emission", _P),
+        ("t_s", _P), ("prim_s", _P), ("max_t", _P), ("li", _P),
+        ("li_stride", _L), ("ok", _P), ("acc", _NeeDraw), ("smp", _NeeDraw),
+        ("u", _P), ("u_stride", _L), ("u_fresnel", _P), ("u_rr", _P),
+        ("shade_packed", _P), ("num_prims", _L), ("bsdf_fn", _P),
+        ("bsdf_albedo", _P), ("bsdf_radiance", _P), ("bsdf_ior", _P),
+        ("light_radiance", _P), ("light_position", _P),
+        ("light_direction", _P), ("light_dim_x", _P), ("light_dim_y", _P),
+        ("light_area", _P), ("env_map", _P), ("env_cdf", _P),
+        ("env_pdf", _P), ("env_h", _L), ("env_w", _L),
+        ("light_out", _P), ("s_o", _P), ("s_d", _P), ("s_max_t", _P),
+        ("s_li", _P), ("s_ok", _P), ("o_out", _P), ("d_out", _P),
+        ("imp_out", _P), ("valid_out", _P), ("ce_out", _P),
+        ("variant", _I), ("emission", _I), ("has_env", _I),
+        ("reference_compat", _I), ("mode", _I), ("origin_eps", _F),
+        ("shadow_eps", _F), ("env_solid", _F),
+    ]
+
+
+_ARGS = (_ShadeHitArgs, _NeePrepArgs, _NeeAccumArgs, _ScatterArgs,
+         _GapArgs)
 
 
 def _load_library():
@@ -253,7 +457,7 @@ def _load_library():
                                    f"bytes, its ctypes mirror "
                                    f"{ctypes.sizeof(args)}")
         for name, args in zip(("shade_hit", "nee_prep", "nee_accum",
-                               "scatter"), _ARGS):
+                               "scatter", "shade_gap"), _ARGS):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -332,7 +536,6 @@ def shade_hit_cuda(scene: FlatScene, o, d, t, prim, valid, importance, light,
     a.d, a.d_stride = _rows(d, "d", dev, n)
     a.t = _flat(t, "t", dev, n, _F32)
     a.prim = _flat(prim, "prim", dev, n, _I32)
-    a.valid = _flat(valid, "valid", dev, n, _BOOL)
     a.shade_packed = _table(scene.shade_packed, "shade_packed", dev)
     a.num_prims = scene.shade_packed.shape[0]
     f3 = dict(dtype=torch.float32, device=dev)
@@ -358,6 +561,7 @@ def shade_hit_cuda(scene: FlatScene, o, d, t, prim, valid, importance, light,
         light_out = torch.empty((n, 3), **f3)
         a.light_out = light_out.data_ptr()
     if has_env:
+        a.valid = _flat(valid, "valid", dev, n, _BOOL)
         a.env_map = _table(scene.env_map, "env_map", dev)
         a.env_h, a.env_w = scene.env_map.shape[:2]
     if _launch("shade_hit", a, dev):
@@ -372,9 +576,7 @@ def nee_prep_cuda(scene: FlatScene, hit: S.HitRecord, importance,
     global nee_prep_launches
     dev = _device(importance)
     n = hit.t.shape[0]
-    kind = scene.light_kinds[light_idx]
-    if kind not in LIGHT_KINDS:
-        raise ValueError(f"nee_prep kernel: no sampler for light kind {kind}")
+    kind = _light_kind(scene, light_idx)
     a = _NeePrepArgs(n=n, light=light_idx, kind=kind,
                      two_sided=int(compat_two_sided and kind == LIGHT_AREA),
                      weight=weight)
@@ -386,17 +588,7 @@ def nee_prep_cuda(scene: FlatScene, hit: S.HitRecord, importance,
     a.u, a.u_stride = _rows(u, "u", dev, n, 2)
     a.bsdf_fn = _table(scene.bsdf_fn, "bsdf_fn", dev, torch.int32)
     a.bsdf_albedo = _table(scene.bsdf_albedo, "bsdf_albedo", dev)
-    for f in ("light_radiance", "light_position", "light_direction",
-              "light_dim_x", "light_dim_y", "light_area"):
-        setattr(a, f, _table(getattr(scene, f), f, dev))
-    if kind == LIGHT_ENV:
-        h, w = scene.env_map.shape[:2]
-        a.env_map = _table(scene.env_map, "env_map", dev)
-        a.env_cdf = _table(scene.env_cdf, "env_cdf", dev)
-        a.env_pdf = _table(scene.env_pdf, "env_pdf", dev)
-        a.env_h, a.env_w = h, w
-        # folded in double, then cast, as sample_light's Python scalar
-        a.env_solid = (2.0 * math.pi / w) * (math.pi / h)
+    _light_tables(a, scene, dev, kind == LIGHT_ENV)
     f3 = dict(dtype=torch.float32, device=dev)
     wi, li = torch.empty((n, 3), **f3), torch.empty((n, 3), **f3)
     max_t = torch.empty((n,), **f3)
@@ -405,6 +597,29 @@ def nee_prep_cuda(scene: FlatScene, hit: S.HitRecord, importance,
     if _launch("nee_prep", a, dev):
         nee_prep_launches += 1
     return hit.pt, wi, max_t, li, ok
+
+
+def _light_kind(scene: FlatScene, light_idx: int) -> int:
+    kind = scene.light_kinds[light_idx]
+    if kind not in LIGHT_KINDS:
+        raise ValueError(f"nee_prep kernel: no sampler for light kind {kind}")
+    return kind
+
+
+def _light_tables(a, scene: FlatScene, dev, env: bool) -> None:
+    """The light tables into argument block ``a``, and the environment's
+    where ``env``."""
+    for f in ("light_radiance", "light_position", "light_direction",
+              "light_dim_x", "light_dim_y", "light_area"):
+        setattr(a, f, _table(getattr(scene, f), f, dev))
+    if env:
+        h, w = scene.env_map.shape[:2]
+        a.env_map = _table(scene.env_map, "env_map", dev)
+        a.env_cdf = _table(scene.env_cdf, "env_cdf", dev)
+        a.env_pdf = _table(scene.env_pdf, "env_pdf", dev)
+        a.env_h, a.env_w = h, w
+        # folded in double, then cast, as sample_light's Python scalar
+        a.env_solid = (2.0 * math.pi / w) * (math.pi / h)
 
 
 def nee_accum_cuda(light, t_s, prim_s, max_t, li_imp, ok, shadow_eps: float,
@@ -453,6 +668,17 @@ def scatter_draws(keys, u, rr_key, n: int, dev):
     return u, u_f, u_rr
 
 
+def _scatter_mode(fold: bool, hemisphere_sampling: str) -> int:
+    """The scatter kernel's SAMPLE_* mode, or a refusal."""
+    if hemisphere_sampling not in ("uniform", "cosine"):
+        raise ValueError(f"scatter kernel: no hemisphere sampling "
+                         f"{hemisphere_sampling!r}")
+    if fold and hemisphere_sampling != "uniform":
+        raise ValueError("scatter kernel: the fold of shared directions "
+                         "needs hemisphere_sampling='uniform'")
+    return _SAMPLE["fold" if fold else hemisphere_sampling]
+
+
 def scatter_drawn(scene: FlatScene, hit: S.HitRecord, importance, u, u_f,
                   u_rr, fold: bool, origin_eps: float,
                   hemisphere_sampling: str):
@@ -463,14 +689,8 @@ def scatter_drawn(scene: FlatScene, hit: S.HitRecord, importance, u, u_f,
     global scatter_launches
     dev = _device(importance)
     n = hit.t.shape[0]
-    if hemisphere_sampling not in ("uniform", "cosine"):
-        raise ValueError(f"scatter kernel: no hemisphere sampling "
-                         f"{hemisphere_sampling!r}")
-    if fold and hemisphere_sampling != "uniform":
-        raise ValueError("scatter kernel: the fold of shared directions "
-                         "needs hemisphere_sampling='uniform'")
-    mode = "fold" if fold else hemisphere_sampling
-    a = _ScatterArgs(n=n, mode=_SAMPLE[mode], origin_eps=origin_eps)
+    a = _ScatterArgs(n=n, mode=_scatter_mode(fold, hemisphere_sampling),
+                     origin_eps=origin_eps)
     a.pt, a.pt_stride = _rows(hit.pt, "hit.pt", dev, n)
     a.nrm, a.nrm_stride = _rows(hit.n, "hit.n", dev, n)
     a.dpdu, a.dpdu_stride = _rows(hit.dpdu, "hit.dpdu", dev, n)
@@ -496,3 +716,109 @@ def scatter_drawn(scene: FlatScene, hit: S.HitRecord, importance, u, u_f,
     if _launch("scatter", a, dev):
         scatter_launches += 1
     return o_new, d_new, imp, valid, ce
+
+
+def _nee_draw(scene: FlatScene, nee: Nee, dev, n: int,
+              reference_compat: bool) -> _NeeDraw:
+    kind = _light_kind(scene, nee.light)
+    k = _NeeDraw(light=nee.light, kind=kind, weight=nee.weight,
+                 two_sided=int(reference_compat and kind == LIGHT_AREA))
+    k.u, k.u_stride = _rows(nee.u, "u", dev, n, 2)
+    return k
+
+
+def shade_gap_cuda(scene: FlatScene, o, d, t, prim, importance, light, *,
+                   opened=None, accum=None, sample: Optional[Nee] = None,
+                   store: bool = False, scatter=None, origin_eps: float,
+                   shadow_eps: float, reference_compat: bool,
+                   hemisphere_sampling: str):
+    """``shade_gap`` on the card: a scattering gap's draws (as
+    ``scatter_cuda``'s), then its kernel (``shade_gap_drawn``)."""
+    if scatter is not None:
+        keys, u, fold, rr_key = scatter
+        _scatter_mode(fold, hemisphere_sampling)
+        scatter = (*scatter_draws(keys, u, rr_key, t.shape[0],
+                                  _device(importance)), fold)
+    return shade_gap_drawn(
+        scene, o, d, t, prim, importance, light, opened=opened, accum=accum,
+        sample=sample, store=store, scatter=scatter, origin_eps=origin_eps,
+        shadow_eps=shadow_eps, reference_compat=reference_compat,
+        hemisphere_sampling=hemisphere_sampling)
+
+
+def shade_gap_drawn(scene: FlatScene, o, d, t, prim, importance, light, *,
+                    opened=None, accum=None, sample: Optional[Nee] = None,
+                    store: bool = False, scatter=None, origin_eps: float,
+                    shadow_eps: float, reference_compat: bool,
+                    hemisphere_sampling: str):
+    """``shade_gap``'s kernel on the current stream, ``scatter`` given as
+    its uniforms: (u [N, 2], u_fresnel [N], u_rr [N] or None, fold)."""
+    dev = _device(importance)
+    n = t.shape[0]
+    variant = gap_variant(opened is not None, accum, sample is not None,
+                          store, scatter is not None)
+    emission = not reference_compat
+    a = _GapArgs(n=n, variant=GAPS.index(variant), emission=int(emission),
+                 has_env=int(emission and scene.has_env),
+                 reference_compat=int(reference_compat),
+                 origin_eps=origin_eps, shadow_eps=shadow_eps)
+    f3 = dict(dtype=torch.float32, device=dev)
+    if variant != "close_stored":
+        a.o, a.o_stride = _rows(o, "o", dev, n)
+        a.d, a.d_stride = _rows(d, "d", dev, n)
+        a.t = _flat(t, "t", dev, n, _F32)
+        a.prim = _flat(prim, "prim", dev, n, _I32)
+        a.importance, a.imp_stride = _rows(importance, "importance", dev, n)
+        a.shade_packed = _table(scene.shade_packed, "shade_packed", dev)
+        a.num_prims = scene.shade_packed.shape[0]
+        a.bsdf_fn = _table(scene.bsdf_fn, "bsdf_fn", dev, torch.int32)
+        for f in ("bsdf_albedo", "bsdf_radiance", "bsdf_ior"):
+            setattr(a, f, _table(getattr(scene, f), f, dev))
+        _light_tables(a, scene, dev, True)
+    light_out = light
+    if accum is not None or (opened is not None and emission):
+        a.light, a.light_stride = _rows(light, "light", dev, n)
+        light_out = torch.empty((n, 3), **f3)
+        a.light_out = light_out.data_ptr()
+    if opened is not None and emission:
+        valid, ce = opened
+        a.valid = _flat(valid, "valid", dev, n, _BOOL)
+        a.count_emission = _flat(ce, "count_emission", dev, n, _BOOL)
+    if accum is not None:
+        nee, sh, t_s, prim_s = accum
+        a.t_s = _flat(t_s, "t_s", dev, n, _F32)
+        a.prim_s = _flat(prim_s, "prim_s", dev, n, _I32)
+        if variant == "close_stored":
+            a.max_t = _flat(sh.max_t, "max_t", dev, n, _F32)
+            a.li, a.li_stride = _rows(sh.li, "li", dev, n)
+            a.ok = _flat(sh.ok, "ok", dev, n, _BOOL)
+        else:
+            a.acc = _nee_draw(scene, nee, dev, n, reference_compat)
+    shadow = path = None
+    if sample is not None:
+        a.smp = _nee_draw(scene, sample, dev, n, reference_compat)
+        s_o = torch.empty((n, 3), **f3) if opened is not None else accum[1].o
+        shadow = Shadow(s_o, torch.empty((n, 3), **f3),
+                        torch.empty((n,), **f3),
+                        torch.empty((n,), dtype=torch.bool, device=dev),
+                        torch.empty((n, 3), **f3) if store else None)
+        a.s_d, a.s_max_t, a.s_ok = (x.data_ptr() for x in shadow[1:4])
+        if opened is not None:
+            a.s_o = s_o.data_ptr()
+        if store:
+            a.s_li = shadow.li.data_ptr()
+    if scatter is not None:
+        u, u_f, u_rr, fold = scatter
+        a.mode = _scatter_mode(fold, hemisphere_sampling)
+        a.u, a.u_stride = _rows(u, "u", dev, n, 2)
+        a.u_fresnel = _flat(u_f, "u_fresnel", dev, n, _F32)
+        if u_rr is not None:
+            a.u_rr = _flat(u_rr, "u_rr", dev, n, _F32)
+        path = tuple(torch.empty((n, 3), **f3) for _ in range(3)) + tuple(
+            torch.empty((n,), dtype=torch.bool, device=dev) for _ in range(2))
+        a.o_out, a.d_out, a.imp_out, a.valid_out, a.ce_out = (
+            x.data_ptr() for x in path)
+    if _launch("shade_gap", a, dev):
+        counter = f"{variant}_launches"
+        globals()[counter] += 1
+    return light_out, shadow, path

@@ -81,19 +81,29 @@ def make_stage_fns(cfg: RenderConfig):
         return SS.nee_accum(light, t_s, prim_s, max_t, li_imp, ok,
                             cfg.shadow_eps, cfg.reference_compat)
 
-    def scatter(scene, hit, importance, keys):
-        """``keys``: (shared, hemisphere, fresnel, roulette), the depth's
-        scatter keys (frame_keys); roulette None where the depth runs
-        none."""
+    def scatter_spec(keys, n, device):
+        """scatter's (keys, u, fold, rr_key) from ``keys``: (shared,
+        hemisphere, fresnel, roulette), the depth's scatter keys
+        (frame_keys); roulette None where the depth runs none."""
         k_shared, k_hemi, k_fresnel, k_rr = keys
         u, fold = None, False
         if cfg.rng_granule > 1:
-            u = draw_u2(k_shared, hit.t.shape[0], hit.t.device)
+            u = draw_u2(k_shared, n, device)
             # antithetic fold: one uniform sphere direction per granule
             fold = cfg.rng_fold_dirs and cfg.hemisphere_sampling == "uniform"
-        return SS.scatter(scene, hit, importance, (k_hemi, k_fresnel), u,
-                          fold, k_rr, cfg.origin_eps,
+        return (k_hemi, k_fresnel), u, fold, k_rr
+
+    def scatter(scene, hit, importance, keys):
+        spec = scatter_spec(keys, hit.t.shape[0], hit.t.device)
+        return SS.scatter(scene, hit, importance, *spec, cfg.origin_eps,
                           cfg.hemisphere_sampling)
+
+    def shade_gap(scene, o, d, t, prim, importance, light, **kw):
+        return SS.shade_gap(scene, o, d, t, prim, importance, light,
+                            origin_eps=cfg.origin_eps,
+                            shadow_eps=cfg.shadow_eps,
+                            reference_compat=cfg.reference_compat,
+                            hemisphere_sampling=cfg.hemisphere_sampling, **kw)
 
     return {
         "trace": trace,
@@ -104,6 +114,9 @@ def make_stage_fns(cfg: RenderConfig):
         "nee_prep": nee_prep,
         "nee_accum": nee_accum,
         "scatter": scatter,
+        "nee_u": draw_u2,
+        "scatter_spec": scatter_spec,
+        "shade_gap": shade_gap,
     }
 
 
@@ -162,10 +175,12 @@ def run_bounce_loop(J, cfg: RenderConfig, scene: FlatScene, o, d, keys,
 
 def run_depth(J, cfg: RenderConfig, scene: FlatScene, carry, keys, depth):
     """One depth: closest-hit trace, emission, NEE shadow passes, and
-    (below max depth) BSDF scatter + optional Russian roulette, each
-    shading stage one kernel on the card (ops/shade_stages.py).
-    ``carry`` is (o, d, valid, importance, light, count_emission,
-    dropped); ``keys`` the frame's key table (frame_keys)."""
+    (below max depth) BSDF scatter + optional Russian roulette.  On the
+    card (``SS.chained``) the shading is one kernel after each trace
+    (``_shade_chain``); on the CPU each stage is its plain version
+    (ops/shade_stages.py).  ``carry`` is (o, d, valid, importance, light,
+    count_emission, dropped); ``keys`` the frame's key table
+    (frame_keys)."""
     (o, d, valid, importance, light, count_emission, dropped) = carry
     schedule = list(cfg.nee_schedule)
     if depth == 0:
@@ -177,11 +192,15 @@ def run_depth(J, cfg: RenderConfig, scene: FlatScene, carry, keys, depth):
         tr = J.get("trace_secondary", J["trace"])
     res = tr(scene, o, d, valid)
     dropped = dropped + res.dropped
+    num_nee, weight = schedule[depth] if depth < len(schedule) else (0, 0.0)
+    if SS.chained(importance):
+        return _shade_chain(J, cfg, scene, tr, (o, d, res.t, res.prim),
+                            (valid, importance, light, count_emission,
+                             dropped), keys, depth, num_nee, float(weight))
     hit, light = J["shade_hit"](
         scene, o, d, res.t, res.prim, valid, importance, light,
         count_emission,
     )
-    num_nee, weight = schedule[depth] if depth < len(schedule) else (0, 0.0)
     for s in range(num_nee):
         for li in range(scene.num_lights):
             o_s, d_s, max_t, li_imp, ok = J["nee_prep"](
@@ -202,6 +221,50 @@ def run_depth(J, cfg: RenderConfig, scene: FlatScene, carry, keys, depth):
             (keys["shared", depth], keys["hemi", depth],
              keys["fresnel", depth], keys["rr", depth] if rr else None)
         )
+    return (o, d, valid, importance, light, count_emission, dropped)
+
+
+def _shade_chain(J, cfg: RenderConfig, scene: FlatScene, tr, ray, carry,
+                 keys, depth, num_nee, weight):
+    """``run_depth``'s shading on the card after its closest-hit trace
+    ``ray`` = (o, d, t, prim): one ``shade_gap`` kernel after each trace,
+    the shadow traces between them (every NEE sample and light in
+    ``run_depth``'s order); the hit record and each sample are recomputed
+    inside the kernels, never stored, but for the li of the last sample
+    of a depth that does not scatter.  ``carry``: (valid, importance,
+    light, count_emission, dropped)."""
+    o, d, t, prim = ray
+    valid, importance, light, count_emission, dropped = carry
+    n, dev = t.shape[0], t.device
+    samples = [(s, li) for s in range(num_nee)
+               for li in range(scene.num_lights)]
+    scatters = depth + 1 < cfg.max_depth
+    acc = None
+    for k in range(len(samples) + 1):
+        nee = None
+        if k < len(samples):
+            s, li = samples[k]
+            nee = SS.Nee(li, J["nee_u"](keys["nee", depth, s, li], n, dev),
+                         weight)
+        sc = None
+        if nee is None and scatters:
+            rr = cfg.rr_start_depth and depth + 1 >= cfg.rr_start_depth
+            sc = J["scatter_spec"](
+                (keys["shared", depth], keys["hemi", depth],
+                 keys["fresnel", depth], keys["rr", depth] if rr else None),
+                n, dev)
+        light, shadow, path = J["shade_gap"](
+            scene, o, d, t, prim, importance, light,
+            opened=(valid, count_emission) if k == 0 else None, accum=acc,
+            sample=nee, store=not scatters and k == len(samples) - 1,
+            scatter=sc)
+        if nee is None:
+            break
+        res_s = tr(scene, shadow.o, shadow.d, shadow.ok, shadow.max_t)
+        dropped = dropped + res_s.dropped
+        acc = (nee, shadow, res_s.t, res_s.prim)
+    if scatters:
+        o, d, importance, valid, count_emission = path
     return (o, d, valid, importance, light, count_emission, dropped)
 
 

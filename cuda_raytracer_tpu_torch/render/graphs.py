@@ -70,6 +70,7 @@ COUNTERS = (
     (shade_stages, "nee_prep_launches"),
     (shade_stages, "nee_accum_launches"),
     (shade_stages, "scatter_launches"),
+    *((shade_stages, f"{g}_launches") for g in shade_stages.GAPS),
     (shade, "raygen_launches"),
     (filters, "film_launches"),
     (filters, "median_launches"),

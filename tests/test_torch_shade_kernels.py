@@ -10,8 +10,17 @@ the CPU.
   the folded constants), launches nothing for no lanes, counts each
   launch, and refuses what the kernel does not cover.  A library that
   fails to build raises; nothing falls back to the torch ops.
-* The counters are in ``render/graphs.COUNTERS`` and the stage calls of
-  a frame are ``chip_smoke.stage_launches``' schedule.
+* The counters are in ``render/graphs.COUNTERS``; the stage calls of a
+  frame shaded stage by stage (the CPU) are ``chip_smoke.stage_calls``'
+  schedule, and a frame on the card launches no stage kernel but one
+  fused gap (``shade_gap``) after each trace:
+  ``chip_smoke.stage_launches``, as many as the frame's traces.
+* The fused chain built for the host is held lane by lane against the
+  plain stages chained the same way (``shade_gap_plain``), and to the
+  bit against the stage kernels chained, on single depths of every
+  sample count, light kind, sampling mode, roulette and the last depth,
+  and on the small frames (``chip_smoke._probe_chain``, as phase 14
+  holds it on the card); its frames are the stage kernels' to the bit.
 * The kernel source built for the host (g++: the CUDA qualifiers as
   macros, one loop over lanes) is held against the plain stages on every
   branch of chip_smoke.py's phase 14 in small frames, lane by lane
@@ -367,11 +376,25 @@ def test_a_library_that_fails_to_build_raises(box, monkeypatch):
 
 
 def test_counters_join_the_graphs():
+    """Every shading kernel's counter is in the graphs' and chip_smoke's
+    tables; the shipped preset's frame launches the chain's variants
+    of one sample and light a depth, no stage kernel (chip_smoke's
+    OFF_PATH, which phase 14 drives)."""
     for stage in STAGES:
         assert (SS, f"{stage}_launches") in graphs.COUNTERS
         assert chip_smoke.COUNTERS[stage] == ("shade_stages",
                                               f"{stage}_launches")
-        assert stage not in chip_smoke.OFF_PATH
+        assert stage in chip_smoke.OFF_PATH
+    assert chip_smoke.GAP_VARIANTS == SS.GAPS
+    on_path = {g for g, v in chip_smoke.gap_schedule(
+        chip_smoke.fast_config(), 1).items() if v}
+    assert on_path == {"open_nee", "open_nee_store", "close_scatter",
+                       "close_stored"}
+    for g in SS.GAPS:
+        assert (SS, f"{g}_launches") in graphs.COUNTERS
+        assert chip_smoke.COUNTERS[f"gap_{g}"] == ("shade_stages",
+                                                   f"{g}_launches")
+        assert (f"gap_{g}" in chip_smoke.OFF_PATH) == (g not in on_path)
 
 
 W, H, SPF = 32, 16, 2
@@ -417,6 +440,10 @@ FRAMES = {
         lambda: cornell_box_scene(with_spheres=True), VIEW_A),
     # interpolated vertex normals, the hemisphere light
     "terrain": (lambda: _reference(max_leaf_size=4), _terrain, VIEW_B),
+    # depths with no NEE sample: one that scatters, the last that does
+    # not
+    "short schedule": (lambda: _reference(nee_schedule=((1, 1.0),)),
+                       lambda: cornell_box_scene(with_spheres=True), VIEW_A),
 }
 
 
@@ -441,7 +468,7 @@ def test_stage_calls_per_frame_are_the_schedule(case, monkeypatch):
 
         monkeypatch.setattr(SS, stage, counted)
     r.render()
-    assert calls == chip_smoke.stage_launches(r.config, r.scene.num_lights)
+    assert calls == chip_smoke.stage_calls(r.config, r.scene.num_lights)
     assert all(calls.values())
 
 
@@ -487,11 +514,18 @@ def _host_source():
         f"    {k}_kernel(*p);\n  }}\n  return 0;\n}}\n"
         for k, a in (("shade_hit", "ShadeHitArgs"), ("nee_prep", "NeePrepArgs"),
                      ("nee_accum", "NeeAccumArgs"), ("scatter", "ScatterArgs")))
+    gaps = ('#define HOST_GAP(v, f, k) case v: k<f>(*p); break;\n'
+            'extern "C" int shade_gap(const GapArgs* p, void* s) {\n'
+            "  for (long long i = 0; i < p->n; ++i) {\n"
+            "    blockIdx.x = (unsigned)(i / SBLOCK);\n"
+            "    threadIdx.x = (unsigned)(i % SBLOCK);\n"
+            "    switch (p->variant) { GAP_VARIANTS(HOST_GAP) default: "
+            "return -1; }\n  }\n  return 0;\n}\n")
     sizes = ('extern "C" long long shade_args_size(int w) {\n'
              "  return w == 0 ? sizeof(ShadeHitArgs) : w == 1 ? "
              "sizeof(NeePrepArgs) : w == 2 ? sizeof(NeeAccumArgs) : "
-             "sizeof(ScatterArgs);\n}\n")
-    return _HOST_PRELUDE + src + loops + sizes
+             "w == 3 ? sizeof(ScatterArgs) : sizeof(GapArgs);\n}\n")
+    return _HOST_PRELUDE + src + loops + gaps + sizes
 
 
 @pytest.fixture(scope="module")
@@ -715,3 +749,383 @@ def test_scatter_reads_what_the_data_needs(box, fold):
     lives = hp.valid & ~emit & (out[2].amax(-1) > 0)
     assert _same(_lanes_of(reads, u_rr), lives)
     assert int(out[3].sum()) < int(lives.sum())
+
+
+# ---------------------------------------------------------------------------
+# the fused chain: one kernel after each trace of a depth
+# ---------------------------------------------------------------------------
+
+
+def _gap_kw(**kw):
+    return dict(dict(opened=None, accum=None, sample=None, store=False,
+                     scatter=None, origin_eps=1e-3, shadow_eps=1e-3,
+                     reference_compat=False, hemisphere_sampling="uniform"),
+                **kw)
+
+
+def _gap_args(b):
+    return (b["ours"], T(b["o"]), T(b["d"]), T(b["t"]), T(b["prim"]),
+            T(b["imp"]), torch.full((N, 3), 0.25))
+
+
+def test_cpu_gap_is_the_plain_chain(box, monkeypatch):
+    def kernel(*a, **k):
+        raise AssertionError("the kernel's wrapper ran for CPU tensors")
+
+    monkeypatch.setattr(SS, "shade_gap_cuda", kernel)
+    args = _gap_args(box)
+    kw = _gap_kw(opened=(torch.ones(N, dtype=torch.bool), T(box["ce"])),
+                 sample=SS.Nee(0, T(box["u"]), 1.0))
+    got = chip_smoke._tensors(SS.shade_gap(*args, **kw))
+    want = chip_smoke._tensors(SS.shade_gap_plain(*args, **kw))
+    assert len(got) == len(want) == 5
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert not SS.chained(args[5])
+
+
+def test_cuda_gap_goes_to_the_kernel(box, monkeypatch):
+    seen = []
+
+    def kernel(*args, **kw):
+        seen.append((args, kw))
+        return "launched"
+
+    def plain(*a, **k):
+        raise AssertionError("the plain chain ran for a CUDA tensor")
+
+    monkeypatch.setattr(SS, "shade_gap_cuda", kernel)
+    monkeypatch.setattr(SS, "shade_gap_plain", plain)
+    args = list(_gap_args(box))
+    args[5] = _OnCard()
+    kw = _gap_kw(sample=SS.Nee(0, T(box["u"]), 1.0))
+    assert SS.chained(args[5])
+    assert SS.shade_gap(*args, **kw) == "launched"
+    assert len(seen) == 1 and all(a is b for a, b in zip(seen[0][0], args))
+    assert seen[0][1] == kw
+    args[5] = torch.empty((N, 3), device="meta")
+    with pytest.raises(ValueError, match="device"):
+        SS.shade_gap(*args, **kw)
+
+
+def _shadow(stored=False):
+    z = torch.zeros((N, 3))
+    return SS.Shadow(z, z, torch.zeros(N), torch.zeros(N, dtype=torch.bool),
+                     z if stored else None)
+
+
+def test_gap_variants_are_the_kernels():
+    """gap_variant names what each gap does, refuses what no gap does, and
+    its names are GAP_VARIANTS of shade.cu, in order: the flags of each,
+    and the word of the stage it opens in its kernel's name."""
+    acc = (SS.Nee(0, None, 1.0), _shadow(), None, None)
+    stored = (SS.Nee(0, None, 1.0), _shadow(True), None, None)
+    cases = {
+        "open_nee": (True, None, True, False, False),
+        "open_nee_store": (True, None, True, True, False),
+        "open_scatter": (True, None, False, False, True),
+        "open": (True, None, False, False, False),
+        "step": (False, acc, True, False, False),
+        "step_store": (False, acc, True, True, False),
+        "close_scatter": (False, acc, False, False, True),
+        "close_stored": (False, stored, False, False, False),
+    }
+    assert tuple(cases) == SS.GAPS
+    for name, c in cases.items():
+        assert SS.gap_variant(*c) == name
+    for bad in ((False, None, True, False, False),
+                (True, acc, True, False, False),
+                (True, None, True, False, True),
+                (False, stored, True, False, False),
+                (False, stored, False, False, True),
+                (True, None, False, True, True),
+                (False, acc, False, False, False)):
+        with pytest.raises(ValueError):
+            SS.gap_variant(*bad)
+    with open(_build.source_path("shade")) as f:
+        src = f.read()
+    rows = [line.strip().rstrip("\\").strip()
+            for line in src.splitlines()
+            if line.strip().startswith("X(")]
+    assert len(rows) == len(SS.GAPS)
+    for i, (name, row) in enumerate(zip(SS.GAPS, rows)):
+        index, flags, kernel = (x.strip() for x in row[2:-1].split(","))
+        flags = set(f.strip() for f in flags.split("|"))
+        assert int(index) == i
+        assert ("G_OPEN" in flags) == name.startswith("open") == (
+            kernel == "shade_hit_kernel")
+        assert kernel in ("shade_hit_kernel", "nee_accum_kernel")
+        assert ("G_SAMPLE" in flags) == name.startswith(("open_nee", "step"))
+        assert ("G_STORE" in flags) == name.endswith("_store")
+        assert ("G_SCATTER" in flags) == name.endswith("scatter")
+        assert ("G_STORED" in flags) == (name == "close_stored")
+        assert ("G_ACCUM" in flags) == (not name.startswith("open"))
+
+
+def test_gap_arguments(box, launches):
+    """A depth's gaps on the card: the camera's stride-0 origin and a
+    packed path state's importance (row stride 16), the variant, the
+    flags, the samples' lights and uniforms, the shadow ray written by
+    the first gap and its origin kept by the next, the stored li read
+    back, scatter's draws and outputs; one launch each, counted by
+    variant."""
+    ours = box["ours"]
+    o = torch.tensor([0.0, 0.75, 2.5]).expand(N, 3)
+    packed = torch.zeros((N, 16))
+    imp = packed[:, 8:11]
+    args = (ours, o, T(box["d"]), T(box["t"]), T(box["prim"]), imp,
+            torch.zeros((N, 3)))
+    before = {g: getattr(SS, f"{g}_launches") for g in SS.GAPS}
+    u0, u1 = T(box["u"]), T(box["u"][::-1].copy())
+    area = list(ours.light_kinds).index(LIGHT_AREA)
+    env = list(ours.light_kinds).index(LIGHT_ENV)
+    nee0, nee1 = SS.Nee(area, u0, 0.5), SS.Nee(env, u1, 0.5)
+    valid, ce = torch.ones(N, dtype=torch.bool), T(box["ce"])
+    light, sh0, path = SS.shade_gap_cuda(
+        *args, **_gap_kw(opened=(valid, ce), sample=nee0))
+    (name, a), = launches
+    assert name == "shade_gap" and a.variant == SS.GAPS.index("open_nee")
+    assert (a.o, a.o_stride) == (o.data_ptr(), 0)
+    assert (a.importance, a.imp_stride) == (imp.data_ptr(), 16)
+    assert (a.emission, a.has_env, a.reference_compat) == (1, 1, 0)
+    assert a.valid == valid.data_ptr() and a.count_emission == ce.data_ptr()
+    assert (a.smp.light, a.smp.kind, a.smp.two_sided) == (area, LIGHT_AREA,
+                                                          0)
+    assert (a.smp.u, a.smp.u_stride, a.smp.weight) == (u0.data_ptr(), 2, 0.5)
+    assert a.light_out == light.data_ptr() and path is None
+    assert [a.s_o, a.s_d, a.s_max_t, a.s_ok] == [
+        x.data_ptr() for x in sh0[:4]]
+    assert sh0.li is None and not a.s_li
+    assert a.env_solid == np.float32((2 * math.pi / 16) * (math.pi / 8))
+    t_s, prim_s = T(box["t"]), T(box["prim"])
+    light2, sh1, _ = SS.shade_gap_cuda(
+        *args[:6], light, **_gap_kw(accum=(nee0, sh0, t_s, prim_s),
+                                    sample=nee1, store=True))
+    a = launches[-1][1]
+    assert a.variant == SS.GAPS.index("step_store")
+    assert (a.acc.light, a.acc.kind, a.acc.u) == (area, LIGHT_AREA,
+                                                  u0.data_ptr())
+    assert (a.smp.light, a.smp.kind, a.smp.u) == (env, LIGHT_ENV,
+                                                  u1.data_ptr())
+    assert (a.t_s, a.prim_s) == (t_s.data_ptr(), prim_s.data_ptr())
+    assert a.light == light.data_ptr() and a.light_out == light2.data_ptr()
+    # the depth's shadow rays share the first one's origin
+    assert sh1.o is sh0.o and not a.s_o and a.s_li == sh1.li.data_ptr()
+    light3, sh, _ = SS.shade_gap_cuda(
+        *args[:6], light2, **_gap_kw(accum=(nee1, sh1, t_s, prim_s),
+                                     reference_compat=True))
+    a = launches[-1][1]
+    assert a.variant == SS.GAPS.index("close_stored") and sh is None
+    assert (a.li, a.li_stride) == (sh1.li.data_ptr(), 3)
+    assert (a.max_t, a.ok) == (sh1.max_t.data_ptr(), sh1.ok.data_ptr())
+    assert not a.o and not a.acc.u and a.reference_compat == 1
+    keys = rng.split(rng.fold_in(rng.PRNGKey(9), 2001))
+    rr = rng.fold_in(rng.PRNGKey(9), 3001)
+    light4, _, path = SS.shade_gap_cuda(
+        *args[:6], light3, **_gap_kw(
+            accum=(nee0, sh0, t_s, prim_s), scatter=(keys, u1, True, rr)))
+    a = launches[-1][1]
+    assert a.variant == SS.GAPS.index("close_scatter") and a.mode == 2
+    assert (a.u, a.u_stride) == (u1.data_ptr(), 2) and a.u_fresnel
+    assert a.u_rr and [a.o_out, a.d_out, a.imp_out, a.valid_out,
+                       a.ce_out] == [x.data_ptr() for x in path]
+    # reference_compat: no emission, light as it is, the two-sided area
+    light5, _, _ = SS.shade_gap_cuda(
+        *args, **_gap_kw(opened=(valid, ce), sample=nee0,
+                         reference_compat=True))
+    a = launches[-1][1]
+    assert (a.emission, a.has_env, a.smp.two_sided) == (0, 0, 1)
+    assert light5 is args[6] and not a.light_out
+    after = {g: getattr(SS, f"{g}_launches") for g in SS.GAPS}
+    assert {g: after[g] - before[g] for g in SS.GAPS if after[g] != before[g]
+            } == {"open_nee": 2, "step_store": 1, "close_stored": 1,
+                  "close_scatter": 1}
+    with pytest.raises(ValueError, match="fold"):
+        SS.shade_gap_cuda(*args[:6], light3, **_gap_kw(
+            accum=(nee0, sh0, t_s, prim_s), scatter=(keys, u1, True, rr),
+            hemisphere_sampling="cosine"))
+    assert len(launches) == 5
+
+
+def _flat_scene(scene):
+    return flatten_scene(scene, tree_width=4, max_leaf_size=4,
+                         device="cpu")[0]
+
+
+def _three_lights():
+    """The lit box under its area light, the directional light and the
+    environment map alone."""
+    box_ = lit_box()
+    keep = (st.AreaLight, st.DirectionalLight, st.EnvironmentLight)
+    lights = [x for x in box_.lights if isinstance(x, keep)]
+    assert len(lights) == 3
+    return st.Scene(box_.objects, lights)
+
+
+def _cfg(make, **over):
+    return make().replace(**over) if over else make()
+
+
+#: single depths of the fused chain on the box's rays: (config, scene,
+#: depth, packed importance rows, the variants its gaps are)
+CHAIN_CASES = {
+    "S=0, fold + roulette": (
+        lambda: _cfg(_fast, nee_schedule=((0, 0.0),) * 4), "lit", 1, False,
+        {"open_scatter"}),
+    "S=0, last depth": (
+        lambda: _cfg(_fast, nee_schedule=((0, 0.0),) * 4), "lit", 3, False,
+        {"open"}),
+    "S=1 L=1, fold": (_fast, "cornell", 0, False,
+                      {"open_nee", "close_scatter"}),
+    "S=1 L=1, last depth": (_fast, "cornell", 3, False,
+                            {"open_nee_store", "close_stored"}),
+    "S=2 L=3, uniform + roulette": (
+        lambda: _reference(rr_start_depth=1), "three", 0, False,
+        {"open_nee", "step", "close_scatter"}),
+    "S=2 L=3, last depth": (
+        lambda: _reference(nee_schedule=((2, 0.5),) * 3), "three", 2, False,
+        {"open_nee", "step", "step_store", "close_stored"}),
+    "reference_compat, cosine": (
+        lambda: _reference(reference_compat=True,
+                           hemisphere_sampling="cosine"), "cornell", 0,
+        False, {"open_nee", "step", "close_scatter"}),
+    "16-float rows (compact_depths)": (
+        lambda: _fast(compact_depths=True, fuse_frame="yes"), "cornell", 2,
+        True, {"open_nee", "close_scatter"}),
+}
+
+
+@pytest.fixture(scope="module")
+def chain_scenes(box):
+    return dict(lit=box["ours"],
+                cornell=_flat_scene(cornell_box_scene(
+                    with_spheres=True, sphere_bsdfs="classic")),
+                three=_flat_scene(_three_lights()))
+
+
+def _on_host(mp, lib):
+    """The wrappers' launches through the host-built library."""
+    def launch(name, args, dev):
+        if args.n == 0:
+            return False
+        assert getattr(lib, name)(ctypes.byref(args), None) == 0
+        return True
+
+    mp.setattr(SS, "_device", lambda x: x.device)
+    mp.setattr(SS, "_launch", launch)
+
+
+@pytest.mark.parametrize("case", CHAIN_CASES)
+def test_host_built_chain_matches_the_plain_chain(box, chain_scenes,
+                                                  host_kernels, case,
+                                                  monkeypatch):
+    """One depth of ``run_depth`` on the box's rays through the fused
+    chain built for the host, every trace by brute force: each gap held
+    lane by lane against the plain stages chained on the same inputs
+    (within rtol 1e-5 / atol 1e-6 but near a branch) and to the bit
+    against the stage kernels chained (chip_smoke._probe_chain)."""
+    from cuda_raytracer_tpu_torch.render.bounce import (frame_keys,
+                                                        make_stage_fns,
+                                                        run_depth)
+
+    make, which, depth, packed, variants = CHAIN_CASES[case]
+    cfg, scene = make(), chain_scenes[which]
+    _on_host(monkeypatch, host_kernels)
+    monkeypatch.setattr(SS, "chained", lambda x: True)
+
+    def trace(scene, o, d, valid, t_limit=None):
+        return trace_bruteforce(scene, o, d, valid)
+
+    J = dict(make_stage_fns(cfg), trace=trace, trace_secondary=trace,
+             trace_secondary_compact=trace)
+    keys = frame_keys(cfg, scene.num_lights, rng.PRNGKey(depth + 11))
+    imp = T(box["imp"])
+    if packed:
+        state = torch.zeros((N, 16))
+        state[:, 8:11] = imp
+        imp = state[:, 8:11]
+    valid = torch.arange(N) % 7 != 0
+    carry = (T(box["o"]), T(box["d"]), valid, imp, torch.full((N, 3), 0.25),
+             T(box["ce"]), torch.zeros((), dtype=torch.int64))
+    log = {}
+    with chip_smoke._probe_chain(log):
+        out = run_depth(J, cfg, scene, carry, keys, depth)
+    assert {b.split("; ")[0] for s, b in log if s == "gap"} == variants
+    for (stage, branch), e in log.items():
+        assert e["far"] == 0, (stage, branch, e)
+        assert e.get("unequal", 0) == 0, (stage, branch, e)
+        assert e["lanes"] == N * e["calls"]
+    light = out[4]
+    assert torch.isfinite(light).all() and bool((light != 0.25).any())
+    if depth + 1 < cfg.max_depth:
+        assert out[0] is not carry[0] and 0 < int(out[2].sum()) < N
+
+
+@pytest.fixture(scope="module")
+def chain_frames(host_kernels):
+    """Each small frame shaded by the host-built stage kernels stage by
+    stage and by the host-built fused chain (its launches counted by
+    variant, and the stage kernels'); and the chain's gaps probed
+    (chip_smoke._probe_chain) in a second chained render."""
+    mp = pytest.MonkeyPatch()
+    counters = [f"{g}_launches" for g in SS.GAPS] + [
+        f"{s}_launches" for s in STAGES]
+    images, launches, log = {}, {}, {}
+    try:
+        _on_host(mp, host_kernels)
+        mp.setattr(SS, "_on", lambda x: "cuda")
+        for case in FRAMES:
+            for chained in (False, True):
+                mp.setattr(SS, "chained", lambda x, c=chained: c)
+                r = _renderer(case)
+                before = {c: getattr(SS, c) for c in counters}
+                r.render()
+                images[case, chained] = r.get_raw_image()
+                if chained:
+                    launches[case] = (r, {c[:-9]: getattr(SS, c) - before[c]
+                                          for c in counters})
+            r = _renderer(case)
+            with chip_smoke._probe_chain(log):
+                r.render()
+    finally:
+        mp.undo()
+    return images, launches, log
+
+
+@pytest.mark.parametrize("case", list(FRAMES))
+def test_host_built_chain_frames_are_the_stage_kernels(chain_frames, case):
+    images = chain_frames[0]
+    assert np.array_equal(images[case, True], images[case, False])
+    assert np.isfinite(images[case, True]).all()
+
+
+@pytest.mark.parametrize("case", list(FRAMES))
+def test_chain_launches_per_frame_are_the_traces(chain_frames, case):
+    """A chained frame launches no stage kernel and one gap after each
+    trace: the variants as chip_smoke.gap_schedule gives them, as many
+    as the frame's traces (1 + samples x lights per depth)."""
+    r, got = chain_frames[1][case]
+    cfg, lights = r.config, r.scene.num_lights
+    assert all(got[s] == 0 for s in STAGES)
+    assert {g: got[g] for g in SS.GAPS} == chip_smoke.gap_schedule(cfg,
+                                                                   lights)
+    traces = sum(1 + (cfg.nee_schedule[d][0] * lights
+                      if d < len(cfg.nee_schedule) else 0)
+                 for d in range(cfg.max_depth))
+    assert sum(got[g] for g in SS.GAPS) == traces
+    want = chip_smoke.stage_launches(cfg, lights)
+    assert want == dict(dict.fromkeys(STAGES, 0),
+                        **{f"gap_{g}": got[g] for g in SS.GAPS})
+
+
+def test_host_built_chain_meets_every_branch(chain_frames):
+    """The small frames' gaps, held as phase 14 holds them on the card,
+    reach every part of chip_smoke.CHAIN_BRANCHES; no lane is off but
+    near a branch, and every gap is the stage kernels' to the bit."""
+    log = chain_frames[2]
+    met = {p for s, b in log if s == "gap" for p in b.split("; ")}
+    assert chip_smoke.CHAIN_BRANCHES <= met, sorted(
+        chip_smoke.CHAIN_BRANCHES - met)
+    for (stage, branch), e in log.items():
+        assert e["far"] == 0, (stage, branch, e)
+        assert e.get("unequal", 0) == 0, (stage, branch, e)

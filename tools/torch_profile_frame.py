@@ -14,11 +14,12 @@ lights, the camera render_cli -e leaves) configuration (the fast preset as shipp
 packet-DFS; 800x600, 32 spp per frame, depth 4, NEE 1x1.0) on one card:
 a warm-up frame, then two frames (the first of an accumulation, whose
 film runs the median, and a later one) with every bounce-loop stage
-timed by CUDA events around it (trace, shade_hit, nee_prep by light
-kind, nee_accum, scatter, plus raygen and film; each row of a stage
-with kernels names them (ops/csrc/shade.cu, raygen.cu, film.cu), and
-each profiled frame prints their device time beside the stage's, the
-rest being the stage's glue) and, inside
+timed by CUDA events around it (trace, the fused shading chain's gaps
+by variant (``shade_gap``: ops/shade_stages.py GAPS), plus raygen and
+film; each row of a stage with kernels names them (ops/csrc/shade.cu's
+gap kernels, raygen.cu, film.cu), and each profiled frame prints their
+device time beside the stage's, the rest being the stage's glue: its
+draws, the allocation of its outputs) and, inside
 the wavefront traces, the partition
 of the rays into the level-0 queue, the count kernel (with its region
 plan), the pack kernel (with the next level's counts and plan) and the
@@ -63,13 +64,12 @@ sys.path.insert(0, HERE)
 # the benchmark's interval arithmetic (rtbench/rtb/stats.py)
 sys.path.insert(0, os.path.join(HERE, "rtbench"))
 
-#: the kernels of a stage row: the shading stages' (ops/csrc/shade.cu),
-#: raygen's (raygen.cu) and the film's (film.cu: reconstruct + accumulate,
-#: and the median where the frame runs it)
-STAGE_KERNELS = {"shade_hit": ("shade_hit_kernel",),
-                 "nee_prep": ("nee_prep_kernel",),
-                 "nee_accum": ("nee_accum_kernel",),
-                 "scatter": ("scatter_kernel",),
+#: the kernels of a stage row: the fused shading chain's
+#: (ops/csrc/shade.cu: a gap after a closest-hit trace is a
+#: shade_hit_kernel<...>, after a shadow trace a nee_accum_kernel<...>),
+#: raygen's (raygen.cu) and the film's (film.cu: reconstruct +
+#: accumulate, and the median where the frame runs it)
+STAGE_KERNELS = {"shade_gap": ("shade_hit_kernel<", "nee_accum_kernel<"),
                  "raygen": ("raygen_kernel",),
                  "film": ("film_kernel", "median3x3_kernel")}
 
@@ -96,7 +96,8 @@ def main() -> int:
     from cuda_raytracer_tpu_torch.models.terrain import terrain_scene
     from cuda_raytracer_tpu_torch.ops import wavefront2 as wf
     from cuda_raytracer_tpu_torch.render import backends
-    from cuda_raytracer_tpu_torch.render import bounce, engine, flatscene
+    from cuda_raytracer_tpu_torch.ops import shade_stages as SS
+    from cuda_raytracer_tpu_torch.render import bounce, engine
     from cuda_raytracer_tpu_torch.render.engine import WavefrontRenderer
 
     if args.preset == "reference":
@@ -151,13 +152,18 @@ def main() -> int:
             return out
         return wrapped
 
-    prep = r._stages["nee_prep"]
+    gap = r._stages["shade_gap"]
     r._stages = {k: timed(k, v) for k, v in r._stages.items()}
-    # nee_prep once per light kind (flatscene's LIGHT_* codes)
-    preps = {getattr(flatscene, n): timed(f"nee_prep ({n[6:].lower()})", prep)
-             for n in dir(flatscene) if n.startswith("LIGHT_")}
-    r._stages["nee_prep"] = lambda scene, hit, imp, key, li, w: preps[
-        scene.light_kinds[li]](scene, hit, imp, key, li, w)
+    # the chain's gaps once per variant
+    gaps = {g: timed(f"shade_gap ({g})", gap) for g in SS.GAPS}
+
+    def gap_by_variant(*a, **kw):
+        g = SS.gap_variant(kw["opened"] is not None, kw["accum"],
+                           kw["sample"] is not None, kw["store"],
+                           kw["scatter"] is not None)
+        return gaps[g](*a, **kw)
+
+    r._stages["shade_gap"] = gap_by_variant
     r._raygen = timed("raygen", r._raygen)
     r._film = timed("film", r._film)
     # the module functions wrapped below, put back before the graphed
