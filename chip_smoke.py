@@ -216,6 +216,19 @@ prints one JSON line for the kernels and, last, the device line.  Phases:
    its plain version, and the film beside torch's mean over the samples
    (the reconstruct without inv_order or the accumulate).
 
+16. run M, the dragon-class mesh (terrain n=660, 868,562 triangles) on
+   the fast preset through run B's camera: the DFS kernel bit-equal to
+   its plain version on the warm-up frame's four DFS traces (camera,
+   shadow, bounce, shadow), each launch's work tally equal to the plain
+   version's count (as on every measure_kernel call), the wavefront's
+   levels on the depth-2 traces and the camera trace, the whole
+   wavefront trace against the DFS; the tally on the frame path (a
+   profiled frame's tally kernels timed from the frame, the frame after
+   it counted); then the tally's cost, dfs_kernel without a tally, with
+   it not counting (unprofiled frames) and counting in turns, on run A's
+   and run M's camera traces.  Its row: dfs_tally, launches a frame, ms
+   a launch in a profiled frame, ms counting the camera trace.
+
 Needs one CUDA card; exits non-zero (and prints no result) without one,
 or when run outside a checkout of the repository.  Imports nothing of
 JAX or of the JAX package.
@@ -347,6 +360,7 @@ GAP_VARIANTS = ("open_nee", "open_nee_store", "open_scatter", "open",
 COUNTERS = {
     "packet_dfs": ("packet_dfs", "launches"),
     "packet_dfs_bf16": ("packet_dfs", "bf16_launches"),
+    "dfs_tally": ("packet_dfs", "tally_launches"),
     "partition_rays": ("partition", "ray_launches"),
     "partition": ("partition", "launches"),
     "wf2_count": ("wavefront2", "count_launches"),
@@ -564,13 +578,20 @@ def measure_kernel(label, scene, rays, do_kill, chunk=1 << 20, bf16=False,
             1e-3, packet_dfs.stack_entries(b), do_kill, bf16)
     if max_t is None and do_kill:
         max_t = rays[3]
-    tk, pk, dropped = packet_dfs.dfs_trace_cuda(*args)
+    tally, on = dfs_tally_tensors(True)
+    tk, pk, dropped = packet_dfs.launch_trace(*args, tally, on)
+    tallied = dict(zip(packet_dfs.TALLY_KEYS, tally.sum(0).tolist()))
     stats = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tp, pp, dropped_plain = _plain_chunked(args, chunk, stats)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    want = dict(stats, **packet_dfs.launch_counts(n_rays(rays), *args[3:7]))
+    want = {k: want.get(k, 0) for k in packet_dfs.TALLY_KEYS}
+    print(f"[kernel] {label}: the launch's tally {tallied}")
+    check(tallied == want, f"{label}: the kernel's tally {tallied} is not "
+          f"the plain version's count {want}")
     hm = int(((pk < 0) != (pp < 0)).sum())
     prim_bad = int((pk != pp).sum())
     t_bad = int((tk.view(torch.int32) != tp.view(torch.int32)).sum())
@@ -594,7 +615,8 @@ def measure_kernel(label, scene, rays, do_kill, chunk=1 << 20, bf16=False,
         print(f"[kernel] {label}: shadow decisions differing: {dec_bad}")
         check(dec_bad == 0, f"{label}: shadow decisions differ")
 
-    ms = cuda_time_ms(lambda: packet_dfs.dfs_trace_cuda(*args), 5)
+    # the trace alone, with no tally kernel behind it
+    ms = cuda_time_ms(lambda: packet_dfs.launch_trace(*args), 5)
     # each input read once, each output (t, prim, dropped) written once
     nbytes = sum(x.numel() * x.element_size()
                  for x in args[:7] if x is not None) + 8 * n + 8
@@ -762,6 +784,8 @@ def expected_launches(r, frames, medians=None):
             want["wf2_pack" + bf] += traces * n_pack
             want["wf2_count" + bf] += traces * n_count
             want["wf2_decode"] += traces
+    # the work tally's kernel behind every DFS trace, f32 or bf16
+    want["dfs_tally"] = want["packet_dfs"] + want["packet_dfs_bf16"]
     want = {k: v * frames for k, v in want.items()}
     want["median3x3"] = (_median_frames.get(id(r), 0) if medians is None
                          else medians)
@@ -786,7 +810,8 @@ def run_slice(label, scene_fn, frames, viewpoint=None, **over):
     ``launches`` per kernel, the renderer ``r``, ``ms`` per frame, and
     the rays (o, d, valid, t_limit) of the warm-up frame's first DFS
     closest-hit trace (``dfs[True]``) and shadow trace (``dfs[False]``)
-    and first wavefront closest-hit and shadow trace (``wf``)."""
+    and first wavefront closest-hit and shadow trace (``wf``), and those
+    of every DFS trace of the warm-up frame in order (``dfs_all``)."""
     import numpy as np
     import torch
 
@@ -803,11 +828,12 @@ def run_slice(label, scene_fn, frames, viewpoint=None, **over):
         r.set_viewpoint(*viewpoint)
     # warm-up frame (allocator, first launches); keeps the inputs of the
     # first closest-hit and first shadow trace of each traversal
-    seen_dfs, seen_wf = {}, {}
+    seen_dfs, seen_wf, dfs_all = {}, {}, []
     launch, trace_wf = packet_dfs.dfs_trace_cuda, backends.trace_closest_wavefront
 
     def keep_dfs(*args):
         seen_dfs.setdefault(args[3] is None, args[:4])
+        dfs_all.append(args[:4])
         return launch(*args)
 
     def keep_wf(scene, o, d, valid, t_limit, *args, **kw):
@@ -856,7 +882,167 @@ def run_slice(label, scene_fn, frames, viewpoint=None, **over):
     check(launches == want, f"run {label}: kernel launches {launches} != "
           f"the schedule's {want}")
     return dict(launches=launches, r=r, ms=elapsed / frames * 1e3,
-                dfs=seen_dfs, wf=seen_wf)
+                dfs=seen_dfs, wf=seen_wf, dfs_all=dfs_all)
+
+
+def n_rays(rays):
+    return rays[0].shape[0]
+
+
+def dfs_tally_tensors(counting: bool):
+    """A DFS work tally of chip_smoke's own, apart from the renderer's
+    (utils/timing.py): zeroed counters [tally_slots(), len(TALLY_KEYS)]
+    and its flag, 1 where ``counting``."""
+    import torch
+
+    from cuda_raytracer_tpu_torch.ops import packet_dfs
+
+    tally = torch.zeros((packet_dfs.tally_slots(),
+                         len(packet_dfs.TALLY_KEYS)), dtype=torch.int64,
+                        device=DEVICE)
+    on = torch.full((1,), int(counting), dtype=torch.int64, device=DEVICE)
+    return tally, on
+
+
+def measure_tally_cost(label, scene, rays, do_kill=False, turns=2):
+    """The DFS trace alone (no tally), with its tally kernel and the
+    flag off (an unprofiled frame's launch) and with the flag on (a
+    counted frame's), on one ray set, through the library call
+    (packet_dfs.launch_trace), in turns (none, off, on, on, off, none,
+    ...): each form's cost as a share of the trace alone."""
+    from cuda_raytracer_tpu_torch.ops import packet_dfs
+
+    b = scene.bvh
+    args = (*(None if x is None else x.contiguous() for x in rays),
+            b.dfs_node_rows, b.dfs_prim_rows, b.node_meta, b.width, 1e-3,
+            packet_dfs.stack_entries(b), do_kill, False)
+    tallies = {"none": (None, None), "off": dfs_tally_tensors(False),
+               "on": dfs_tally_tensors(True)}
+    forms = tuple(tallies)
+    ms = {f: [] for f in forms}
+    for i in range(turns):
+        for form in (forms if i % 2 == 0 else forms[::-1]):
+            ms[form].append(cuda_time_ms(
+                lambda: packet_dfs.launch_trace(*args, *tallies[form]), 5))
+    mean = {f: sum(v) / turns for f, v in ms.items()}
+    cost = {f: mean[f] / mean["none"] - 1 for f in ("off", "on")}
+    print(f"[tally] {label}: {n_rays(rays)} lanes, dfs_kernel without a "
+          f"tally {[f'{x:.4f}' for x in ms['none']]} ms; with it, not "
+          f"counting {[f'{x:.4f}' for x in ms['off']]} ms "
+          f"({100 * cost['off']:+.2f}%), counting "
+          f"{[f'{x:.4f}' for x in ms['on']]} ms ({100 * cost['on']:+.2f}%) "
+          f"[{smi_line()}]")
+    return dict(ms=ms, mean=mean, cost=cost)
+
+
+def _frame_kernel_ms(render, words):
+    """Device ms and launches, per word of ``words``, of the kernels
+    whose names hold that word, in one render() under torch.profiler."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        render()
+        torch.cuda.synchronize()
+    out = {w: [0.0, 0] for w in words}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for w in words:
+            if re.search(rf"\b{w}\b", e.key):
+                out[w][0] += e.self_device_time_total / 1e3
+                out[w][1] += e.count
+    return out
+
+
+def tally_on_frames(label, r, launches):
+    """The DFS tally on run ``label``'s frame path (renderer r, warm,
+    whose frame makes ``launches`` DFS traces): one frame under the
+    profiler, whose tally kernels must return at once (their device ms
+    per launch, and dfs_kernel's, read from the frame), then one frame
+    after it, which the renderer's tally (utils/timing.py) counts: one
+    frame, ``launches`` launches.  Returns the launch's ms."""
+    import torch
+
+    from cuda_raytracer_tpu_torch.utils import timing
+
+    got = _frame_kernel_ms(r.render, ("dfs_tally_kernel", "dfs_kernel"))
+    (tally_ms, n_tally), (dfs_ms, n_dfs) = (got["dfs_tally_kernel"],
+                                            got["dfs_kernel"])
+    check(n_tally == launches and n_dfs == launches,
+          f"run {label}: the profiled frame launched dfs_kernel {n_dfs} and "
+          f"dfs_tally_kernel {n_tally} times, not {launches}")
+    r.render()
+    torch.cuda.synchronize()
+    c = timing.counters()["dfs"]
+    print(f"[tally] run {label}: a profiled frame's {n_tally} tally "
+          f"launches {tally_ms:.4f} ms ({tally_ms / n_tally * 1e3:.2f} us "
+          f"each, {100 * tally_ms / dfs_ms:.3f}% of its dfs_kernel "
+          f"{dfs_ms:.4f} ms); the frame after it counted {c}")
+    check(c["frames"] == 1 and c["launches"] == launches and c["rays"] > 0,
+          f"run {label}: the frame after the profiled one counted {c}")
+    return tally_ms / n_tally
+
+
+def phase_dragon(n=660):
+    """Phase 16 (run M): the dragon-class mesh, terrain n=660 (868,562
+    triangles, the benchmark's dragon_terrain mesh), on the fast preset
+    at 800x600x32 through run B's camera.  The DFS kernel against its
+    plain version on the warm-up frame's own DFS traces (camera, its
+    shadow pass, the depth-1 bounce and its shadow pass: bit-equal, the
+    launch's tally equal to the plain version's count), the wavefront's
+    levels against theirs on the depth-2 traces and the camera trace,
+    the whole wavefront trace against the DFS kernel; the tally on the
+    frame path (tally_on_frames); then the tally's cost on run A's camera
+    trace and on this run's.  Returns the tally kernel's row."""
+    from cuda_raytracer_tpu_torch.models.cornell import cornell_box_scene
+    from cuda_raytracer_tpu_torch.models.terrain import terrain_scene
+
+    t0 = time.perf_counter()
+    run_m = run_slice(f"M dragon terrain n={n}", lambda: terrain_scene(n=n),
+                      1, viewpoint=VIEW_B)
+    rm = run_m["r"]
+    # the warm-up frame's eager traces (its graph captures follow them)
+    names = ("camera", "depth-0 shadow", "depth-1 bounce", "depth-1 shadow")
+    check(len(run_m["dfs_all"]) >= len(names),
+          f"run M: {len(run_m['dfs_all'])} DFS traces in the warm-up frame")
+    for name, rays in zip(names, run_m["dfs_all"]):
+        measure_kernel(f"run M {name} trace", rm.scene, rays,
+                       rays[3] is not None, chunk=1 << 18)
+    closest, shadow = run_m["wf"][True], run_m["wf"][False]
+    measure_wavefront("run M depth-2 closest-hit trace", rm.scene, closest)
+    measure_wavefront("run M depth-2 shadow trace", rm.scene, shadow)
+    measure_wavefront("run M camera trace", rm.scene, run_m["dfs"][True])
+    compare_traces("run M depth-2 closest-hit", rm.scene, closest)
+    compare_traces("run M depth-2 shadow", rm.scene, shadow)
+    compare_traces("run M camera trace", rm.scene, run_m["dfs"][True])
+    per_frame = run_m["launches"]["dfs_tally"]
+    launch_ms = tally_on_frames("M", rm, per_frame)
+    cost_m = measure_tally_cost("run M camera trace", rm.scene,
+                                run_m["dfs"][True])
+    del run_m, rm
+    run_a = run_slice("A cornell", lambda: cornell_box_scene(
+        with_spheres=True), 1, viewpoint=VIEW_A)
+    cost_a = measure_tally_cost("run A camera trace", run_a["r"].scene,
+                                run_a["dfs"][True])
+    print(f"[run M] phase 16 took {time.perf_counter() - t0:.1f} s; the "
+          f"tally costs unprofiled launches "
+          f"{100 * cost_a['cost']['off']:+.2f}% (run A) and "
+          f"{100 * cost_m['cost']['off']:+.2f}% (run M) of dfs_kernel's "
+          f"time, counted ones {100 * cost_a['cost']['on']:+.2f}% and "
+          f"{100 * cost_m['cost']['on']:+.2f}%")
+    mean = cost_m["mean"]
+    return dict(name="dfs_tally", route="cuda",
+                source="cuda_raytracer_tpu_torch/ops/csrc/packet_dfs.cu",
+                replaces=None, launches=per_frame, max_abs_err=0.0,
+                ms=launch_ms, counting_ms=mean["on"] - mean["none"],
+                plain_ms=None, bound_ms=None, bound_by=None,
+                library_ms=None)
 
 
 def _host_ms(fn):
@@ -5802,6 +5988,7 @@ def main() -> int:
     row_rng = phase_rng()
     rows_shade = phase_shade()
     rows_ends = phase_raygen_film()
+    row_tally = phase_dragon()
     # the payload partition's row: its launches and times on the path that
     # runs it, whole-depth compaction (the shipped preset launches it 0
     # times)
@@ -5819,6 +6006,7 @@ def main() -> int:
     kernels.append(row_rng)
     kernels += rows_shade
     kernels += rows_ends
+    kernels.append(row_tally)
     print(f"[total] {time.perf_counter() - t_start:.1f} s from the start of "
           f"main, imports of torch and the port included")
 

@@ -30,6 +30,24 @@
 // Invalid lanes never traverse.  A ray cut off by MAX_VISITS or by an
 // overflow of its stack (never written past) adds one to *dropped.
 //
+// The work tally (ops/packet_dfs.py TALLY_KEYS, utils/timing.py) is a
+// second kernel, dfs_tally_kernel, launched after dfs_kernel on the same
+// rays when the caller passes a tally, so a CUDA graph that holds the
+// trace holds both.  It reads the tally's device flag first: off (every
+// frame but those after a profiled span, utils/timing.py, so a profile
+// never holds its walk), its few blocks return at once, and dfs_kernel
+// carries no trace of the tally (counters in its registers would take it
+// from 55 to 59 registers, a block per SM fewer: 10-13% of its time on
+// the H100, counting or not).  On, it walks every ray again as dfs_kernel
+// does, writing nothing but counts: per ray whether it traverses, its
+// node visits, its box tests (non-empty child slots of each visited node)
+// and its triangle and sphere tests, summed per thread over its rays,
+// then per warp (__reduce_add_sync), lane 0 adding the sums into slot
+// (global warp) % TALLY_SLOTS so that the atomics spread over
+// TALLY_SLOTS addresses per counter; its first thread adds the launch's
+// lanes, lanes with a start bound, one launch and the bytes of the
+// tables it was given.
+//
 // Bound on the H100: per ray it reads o, d (24 B), valid (1 B) and, with
 // one, the start bound (4 B), and writes t and prim (8 B); the node rows
 // (32 B per child) and prim records (64 B per prim) are re-read per visit
@@ -64,12 +82,53 @@
 #define STACK_CAP 64
 #endif
 
+// the tally's slots: each counter is spread over TALLY_SLOTS addresses
+#define TALLY_SLOTS 16
+
 #define MAX_VISITS (1 << 20)
 #define DFS_BLOCK 128
+// dfs_tally_kernel's blocks per SM: its grid strides over the rays
+#define TALLY_BLOCKS_PER_SM 8
+
+// the tally's counters, in ops/packet_dfs.py TALLY_KEYS order; a slot is
+// one row of TALLY_KEYS unsigned 64-bit counters
+enum TallyKey {
+  TK_RAYS,
+  TK_VISITS,
+  TK_BOXES,
+  TK_TRIS,
+  TK_SPHERES,
+  TK_LANES,
+  TK_START_LANES,
+  TK_LAUNCHES,
+  TK_TABLE_BYTES,
+  TALLY_KEYS
+};
+// the counters each thread keeps (the first five keys)
+#define TALLY_RAY_KEYS 5
+
+// A ray's box, triangle and sphere tests: counted (ON, dfs_tally_kernel)
+// or not (dfs_kernel, where the calls compile to nothing)
+template <bool ON>
+struct Counts {
+  unsigned boxes = 0, tris = 0, spheres = 0;
+  __device__ __forceinline__ void box(bool nonempty) { boxes += nonempty; }
+  __device__ __forceinline__ void prim(bool sphere) {
+    if (sphere)
+      ++spheres;
+    else
+      ++tris;
+  }
+};
+template <>
+struct Counts<false> {
+  __device__ __forceinline__ void box(bool) {}
+  __device__ __forceinline__ void prim(bool) {}
+};
 
 // the BVH as the kernel reads it: nodes [8*Nd, 8] as float4 pairs (mnx mny
 // mnz mxx)(mxy mxz grp0 ngroups); prims [8*G, 16] as float4 quads (g.xyz
-// g.w)(T1)(T2)(type orig_id pad pad); meta [4*Nd] (ibase icnt . .)
+// g.w)(T1)(T2)(type orig_id scale pad); meta [4*Nd] (ibase icnt . .)
 struct Tables {
   const float4* __restrict__ nodes;
   const float4* __restrict__ prims;
@@ -128,7 +187,8 @@ struct DfsRay {
   }
 
   // one leaf job: the prims of leaf child w of the node at `row`
-  __device__ __forceinline__ void leaf_job(const Tables& tb, int w) {
+  template <class K>
+  __device__ __forceinline__ void leaf_job(const Tables& tb, int w, K& k) {
     const float4 b = row[2 * w + 1];
     const int grp0 = (int)b.z, ngroups = (int)b.w;
     float job_t = T_NO_LIMIT, job_p = -1.0f;
@@ -143,11 +203,12 @@ struct DfsRay {
         if (TI.x < -0.5f) continue;  // pad slot: no test
         const float4 G = rec[4 * s];
         float t;
+        k.prim(TI.x > 0.5f);
         const bool ok =
             TI.x > 0.5f
                 ? sph_test(o_x, o_y, o_z, d_x, d_y, d_z, a_q, G, &t)
                 : tri_test(o_x, o_y, o_z, d_x, d_y, d_z, G, rec[4 * s + 1],
-                           rec[4 * s + 2], &t);
+                           rec[4 * s + 2], TI.z, &t);
         if (!ok) continue;
         if (t < tbest) {
           tbest = t;
@@ -171,7 +232,8 @@ struct DfsRay {
 
   // pop one node and visit it: box tests and pushes; the hit leaf children
   // are left in lmask
-  __device__ __forceinline__ void visit(const Tables& tb) {
+  template <class K>
+  __device__ __forceinline__ void visit(const Tables& tb, K& k) {
     const int node = stack[--sp];
     const int2 m = reinterpret_cast<const int2*>(tb.meta)[2 * node];
     const int ibase = m.x, icnt = m.y;
@@ -183,6 +245,7 @@ struct DfsRay {
     for (int w = 0; w < WMAX; ++w) {
       if (w < tb.width) {
         const float4 a = row[2 * w], b = row[2 * w + 1];
+        k.box(a.x <= a.w);  // a dead slot's box is inverted
         float t0x, t1x, t0y, t1y, t0z, t1z;
         if (BF16) {
           t0x = slab_bf16(a.x, o_x, inv_x);
@@ -229,13 +292,25 @@ struct DfsRay {
 
   // the leaf jobs of the last visit, in slot order.  leaf_job is inlined
   // at this one place only: its code is most of the kernel's
-  __device__ __forceinline__ void leaves(const Tables& tb) {
+  template <class K>
+  __device__ __forceinline__ void leaves(const Tables& tb, K& k) {
     while (lmask && tub >= 0.0f) {
       const int w = __ffs(lmask) - 1;
       lmask &= lmask - 1u;
-      leaf_job(tb, w);
+      leaf_job(tb, w, k);
     }
     lmask = 0;
+  }
+
+  // the traversal from start() to its end
+  template <class K>
+  __device__ __forceinline__ void walk(const Tables& tb, K& k) {
+    while (traversing()) {
+      do {
+        visit(tb, k);
+      } while (!lmask && traversing());
+      leaves(tb, k);
+    }
   }
 
   __device__ __forceinline__ void finish(int i, float* __restrict__ t_out,
@@ -263,25 +338,73 @@ dfs_kernel(const float* __restrict__ o, const float* __restrict__ d,
   int stack[STACK_CAP];
   DfsRay<WMAX, BF16> r;
   r.start(i, o, d, valid, t_start, do_kill, kill_eps, stack, stack_cap);
-  while (r.traversing()) {
-    do {
-      r.visit(tb);
-    } while (!r.lmask && r.traversing());
-    r.leaves(tb);
-  }
+  Counts<false> none;
+  r.walk(tb, none);
   r.finish(i, t_out, prim_out, dropped);
 }
 
+// The work tally of dfs_kernel's launch on the same arguments: nothing
+// where *tally_on is 0; else every ray walked again, its counts summed
+// into tally [TALLY_SLOTS, TALLY_KEYS].  A grid-stride loop over the rays.
+template <int WMAX, bool BF16>
+__global__ void __launch_bounds__(DFS_BLOCK)
+dfs_tally_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                 const bool* __restrict__ valid,
+                 const float* __restrict__ t_start, Tables tb,
+                 unsigned long long* __restrict__ tally,
+                 const long long* __restrict__ tally_on,
+                 long long table_bytes,
+                 int n, int stack_cap, float kill_eps, bool do_kill) {
+  if (*tally_on == 0) return;  // the same for every thread of the launch
+  unsigned c[TALLY_RAY_KEYS] = {0u, 0u, 0u, 0u, 0u};
+  int stack[STACK_CAP];
+  for (int i = blockIdx.x * DFS_BLOCK + threadIdx.x; i < n;
+       i += gridDim.x * DFS_BLOCK) {
+    DfsRay<WMAX, BF16> r;
+    r.start(i, o, d, valid, t_start, do_kill, kill_eps, stack, stack_cap);
+    Counts<true> k;
+    c[TK_RAYS] += r.traversing();
+    r.walk(tb, k);
+    c[TK_VISITS] += r.visits;
+    c[TK_BOXES] += k.boxes;
+    c[TK_TRIS] += k.tris;
+    c[TK_SPHERES] += k.spheres;
+  }
+  const unsigned warp = (blockIdx.x * DFS_BLOCK + threadIdx.x) >> 5;
+  unsigned long long* slot = tally + (warp % TALLY_SLOTS) * TALLY_KEYS;
+#pragma unroll
+  for (int k = 0; k < TALLY_RAY_KEYS; ++k) {
+    const unsigned sum = __reduce_add_sync(0xffffffffu, c[k]);
+    if ((threadIdx.x & 31) == 0 && sum)
+      atomicAdd(slot + k, (unsigned long long)sum);
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    atomicAdd(tally + TK_LANES, (unsigned long long)n);
+    if (t_start) atomicAdd(tally + TK_START_LANES, (unsigned long long)n);
+    atomicAdd(tally + TK_LAUNCHES, 1ull);
+    atomicAdd(tally + TK_TABLE_BYTES, (unsigned long long)table_bytes);
+  }
+}
+
+// the tally's shape, [TALLY_SLOTS, TALLY_KEYS], for its allocation
+extern "C" int packet_dfs_tally_slots(void) { return TALLY_SLOTS; }
+extern "C" int packet_dfs_tally_keys(void) { return TALLY_KEYS; }
+
 // stack_cap: entries of each ray's stack, 1..STACK_CAP.  dropped: one
-// int64, zeroed by the caller.  do_kill: shadow mode; bf16: the slab_bf16
-// box test.
+// int64, zeroed by the caller.  tally: [TALLY_SLOTS, TALLY_KEYS] int64,
+// which dfs_tally_kernel adds the launch's work to while the int64 at
+// tally_on is not 0, or null (no tally kernel); table_bytes: the bytes of
+// nodes, prims and meta.  do_kill: shadow mode; bf16: the slab_bf16 box
+// test.
 extern "C" int packet_dfs_trace(const void* o, const void* d,
                                 const void* valid, const void* t_start,
                                 const void* nodes, const void* prims,
                                 const void* meta, void* t_out,
-                                void* prim_out, void* dropped, int n,
-                                int width, int stack_cap, float kill_eps,
-                                int do_kill, int bf16, void* stream) {
+                                void* prim_out, void* dropped, void* tally,
+                                const void* tally_on, long long table_bytes,
+                                int n, int width, int stack_cap,
+                                float kill_eps, int do_kill, int bf16,
+                                void* stream) {
   if (width < 1 || width > 8 || stack_cap < 1 || stack_cap > STACK_CAP)
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
@@ -305,6 +428,30 @@ extern "C" int packet_dfs_trace(const void* o, const void* d,
         dfs_kernel<8, false><<<grid, DFS_BLOCK, 0, s>>>(DFS_ARGS);
     }
 #undef DFS_ARGS
+    if (tally) {
+      int dev = 0, sms = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      const int tgrid = grid < sms * TALLY_BLOCKS_PER_SM
+                            ? grid
+                            : sms * TALLY_BLOCKS_PER_SM;
+#define TALLY_ARGS (const float*)o, (const float*)d, (const bool*)valid, \
+                   (const float*)t_start, tb, (unsigned long long*)tally, \
+                   (const long long*)tally_on, table_bytes, n, stack_cap, \
+                   kill_eps, do_kill != 0
+      if (width <= 4) {
+        if (bf16)
+          dfs_tally_kernel<4, true><<<tgrid, DFS_BLOCK, 0, s>>>(TALLY_ARGS);
+        else
+          dfs_tally_kernel<4, false><<<tgrid, DFS_BLOCK, 0, s>>>(TALLY_ARGS);
+      } else {
+        if (bf16)
+          dfs_tally_kernel<8, true><<<tgrid, DFS_BLOCK, 0, s>>>(TALLY_ARGS);
+        else
+          dfs_tally_kernel<8, false><<<tgrid, DFS_BLOCK, 0, s>>>(TALLY_ARGS);
+      }
+#undef TALLY_ARGS
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,6 @@
 #include <cuda_runtime.h>
 
 #define T_NO_LIMIT 1e30f
-#define PRIM_EPS 1e-6f
 
 // jnp.minimum / torch.minimum: NaN if either operand is NaN
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -45,13 +44,16 @@ __device__ __forceinline__ float widen_up(float t) {
 // op order: a prim's result does not depend on which half is computed
 // for it alone or on whether the other half is computed at all.
 // Triangle: g = plane normal, g.w = plane offset, T1/T2 the barycentric
-// rows.
+// rows, g_s = ops/intersect.prim_scale(g), stored per triangle by
+// render/flatscene.py: parallel where |g.d| <= g_s, a cut on |cos| for
+// unit d that does not depend on the triangle's size (a degenerate
+// triangle, g = 0 and g_s = 0, is always parallel).
 __device__ __forceinline__ bool tri_test(float o_x, float o_y, float o_z,
                                          float d_x, float d_y, float d_z,
                                          float4 g, float4 T1, float4 T2,
-                                         float* t_out) {
+                                         float g_s, float* t_out) {
   float denom = g.x * d_x + g.y * d_y + g.z * d_z;
-  bool parallel = fabsf(denom) < PRIM_EPS;
+  bool parallel = fabsf(denom) <= g_s;
   float t_tri = (g.w - (g.x * o_x + g.y * o_y + g.z * o_z)) /
                 (parallel ? 1.0f : denom);
   float hx = o_x + t_tri * d_x;
@@ -79,20 +81,4 @@ __device__ __forceinline__ bool sph_test(float o_x, float o_y, float o_z,
   float t_sph = ts1 > 0.0f ? ts1 : ts2;
   *t_out = t_sph;
   return (disc >= 0.0f) && (t_sph > 0.0f);
-}
-
-// ops/intersect.py packed_prim_test for one prim of type ptype (0
-// triangle, 1 sphere, -1 pad, never a hit): both halves, then a select
-__device__ __forceinline__ bool packed_prim_test(
-    float o_x, float o_y, float o_z, float d_x, float d_y, float d_z,
-    float4 g, float4 T1, float4 T2, float ptype, float* t_out) {
-  float t_tri, t_sph;
-  const bool ok_tri = tri_test(o_x, o_y, o_z, d_x, d_y, d_z, g, T1, T2,
-                               &t_tri);
-  const float a_q = d_x * d_x + d_y * d_y + d_z * d_z;
-  const bool ok_sph = sph_test(o_x, o_y, o_z, d_x, d_y, d_z, a_q, g, &t_sph);
-  bool is_sph = ptype > 0.5f;
-  bool not_pad = ptype > -0.5f;
-  *t_out = is_sph ? t_sph : t_tri;
-  return ((is_sph && ok_sph) || ((!is_sph) && ok_tri)) && not_pad;
 }

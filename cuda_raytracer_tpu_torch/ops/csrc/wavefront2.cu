@@ -150,7 +150,7 @@ struct PlanArgs {
 // segment of inner child w, or -1 (not inner, or its region did not fit:
 // the plan counted it as dropped); cursor [S_next]: next free position of
 // each next-level region, absolute; prim_rows [P, 16] as float4 quads
-// (type g.xyz)(g.w T1.xyz)(T1.w T2.xyz)(T2.w 0 0 0); queue_out
+// (type g.xyz)(g.w T1.xyz)(T1.w T2.xyz)(T2.w scale 0 0); queue_out
 // [out_rows, 8]; keys [n_rays].  seg_node_next, child_next: the next
 // level's tables, read when the launch counts for it.
 struct PackArgs {
@@ -672,7 +672,7 @@ wf_pack_kernel(const LevelArgs L, const PackArgs P, const PlanArgs plan,
             ok = tri_test(o_x, o_y, o_z, d_x, d_y, d_z,
                           make_float4(r0.y, r0.z, r0.w, r1.x),
                           make_float4(r1.y, r1.z, r1.w, r2.x),
-                          make_float4(r2.y, r2.z, r2.w, r3.x), &tk);
+                          make_float4(r2.y, r2.z, r2.w, r3.x), r3.y, &tk);
           } else {
             continue;  // pad: never a hit
           }

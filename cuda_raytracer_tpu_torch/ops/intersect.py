@@ -10,6 +10,17 @@ the kernel and the plain version round alike.
 Every function broadcasts over leading batch dimensions.  Their square
 roots come from ``sqrt_rn``, which rounds as IEEE float32 ``sqrt`` on
 every host, so the plain versions are bit-equal to the JAX package's.
+
+The triangle tests call a ray parallel to a triangle's plane where
+|g.d| <= PARALLEL_EPS |g| (``prim_scale``: g the unnormalized normal,
+|g| twice the triangle's area), a cut on |cos| that does not depend on
+the triangle's size.  It assumes unit d, which every trace of the
+renderer carries: camera rays are normalized (ops/shade.py ``_norm``),
+shadow rays point along ``dvec / dist`` or a unit light direction, and
+bounces are unit local directions in an orthonormal frame.  The JAX
+package cuts at |g.d| < 1e-6 (``eps``), which on a triangle with |g|
+near 1e-5 (a mesh of a million triangles over a unit square) drops
+every hit at |cos| under 0.1.
 """
 
 from __future__ import annotations
@@ -17,6 +28,9 @@ from __future__ import annotations
 import torch
 
 MISS = -1.0
+#: the parallel cut on |cos(g, d)| for unit d (see the module docstring):
+#: about eight float32 roundings of g.d, far below any hit that counts
+PARALLEL_EPS = 1e-6
 
 
 def _dot(a, b):
@@ -46,6 +60,14 @@ def sqrt_rn(x):
     return torch.where(xd > mid_hi * mid_hi, hi, s)
 
 
+def prim_scale(g_x, g_y, g_z):
+    """PARALLEL_EPS |g| in float32, in the one op order that
+    render/flatscene.py stores for each triangle and the traversal
+    kernels read back: PARALLEL_EPS * sqrt_rn((g_x g_x + g_y g_y) + g_z
+    g_z).  A zero normal (a degenerate triangle) gives 0."""
+    return PARALLEL_EPS * sqrt_rn(g_x * g_x + g_y * g_y + g_z * g_z)
+
+
 def intersect_bbox(o, d, bmin, bmax):
     """Slab test.  o, d: [..., 3]; bmin, bmax: [..., 3] broadcastable.
 
@@ -67,12 +89,17 @@ def intersect_bbox(o, d, bmin, bmax):
     return torch.where(hit & (tmax < 0.0), MISS, t)
 
 
-def intersect_triangle(o, d, v0, v1, v2, eps: float = 1e-6):
+def intersect_triangle(o, d, v0, v1, v2, eps=None):
     """Plane + half-plane triangle test (intersectRayTriangle
-    semantics: parallel/outside/behind -> negative, else plane t)."""
+    semantics: parallel/outside/behind -> negative, else plane t).
+    Parallel where |n.d| <= prim_scale(n) (unit d), or, given ``eps``,
+    where |n.d| < eps (the JAX package's absolute cut)."""
     n = torch.linalg.cross(v1 - v0, v2 - v0)
     denom = _dot(n, d)
-    parallel = denom.abs() < eps
+    if eps is None:
+        parallel = denom.abs() <= prim_scale(n[..., 0], n[..., 1], n[..., 2])
+    else:
+        parallel = denom.abs() < eps
     t = (_dot(n, v0) - _dot(n, o)) / torch.where(parallel, 1.0, denom)
     p = o + t[..., None] * d
     inside = (
@@ -111,16 +138,19 @@ def packed_prim_test(
     o_x, o_y, o_z, d_x, d_y, d_z,
     g_x, g_y, g_z, g_w,
     t1x, t1y, t1z, t1w, t2x, t2y, t2z, t2w,
-    ptype, eps=1e-6,
+    ptype, g_s, eps=None,
 ):
     """The leaf test shared by every traversal, over the precomputed
     fields of flatten_scene (g = unnormalized plane normal | sphere
     center, g_w = plane offset n.v0 | radius, T1/T2 = affine
-    barycentric rows).  Returns (ok, t); pad rows (type -1 or all-zero)
-    never pass.  Each line matches ops/csrc/packet_dfs.cu's
-    ``packed_prim_test``: keep the two in the same op order."""
+    barycentric rows, g_s = a triangle's ``prim_scale``, 0 for spheres
+    and pads).  A triangle is parallel where |g.d| <= g_s (unit d), or,
+    given ``eps``, where |g.d| < eps (the JAX package's absolute cut).
+    Returns (ok, t); pad rows (type -1 or all-zero) never pass.  Each
+    line matches ops/csrc/rt_common.cuh's ``tri_test`` and ``sph_test``:
+    keep them in the same op order."""
     denom = g_x * d_x + g_y * d_y + g_z * d_z
-    parallel = denom.abs() < eps
+    parallel = (denom.abs() <= g_s) if eps is None else (denom.abs() < eps)
     t_tri = (g_w - (g_x * o_x + g_y * o_y + g_z * o_z)) / torch.where(
         parallel, 1.0, denom
     )
@@ -158,9 +188,9 @@ def packed_prim_test(
 def intersect_rows(o, d, rows):
     """packed_prim_test over prim_packed-layout rows.
 
-    o, d: [..., 3]; rows: [..., >=22] (broadcastable) with type at col
-    9 and the precomputed fields at cols 10:22.  Returns t, MISS (-1)
-    on a miss.
+    o, d: [..., 3]; rows: [..., >=23] (broadcastable) with type at col
+    9, the precomputed fields at cols 10:22 and the scale at col 22.
+    Returns t, MISS (-1) on a miss.
     """
     ok, t = packed_prim_test(
         o[..., 0], o[..., 1], o[..., 2],
@@ -168,6 +198,6 @@ def intersect_rows(o, d, rows):
         rows[..., 10], rows[..., 11], rows[..., 12], rows[..., 13],
         rows[..., 14], rows[..., 15], rows[..., 16], rows[..., 17],
         rows[..., 18], rows[..., 19], rows[..., 20], rows[..., 21],
-        rows[..., 9],
+        rows[..., 9], rows[..., 22],
     )
     return torch.where(ok, t, MISS)

@@ -13,10 +13,20 @@ the closest hit and, for shadow rays, the same pass/fail decision; the
   contract): launches the kernel for CUDA tensors or runs the plain
   version for CPU tensors.
 * ``dfs_trace_cuda`` — the kernel's launch; ``launches`` counts it
-  (``bf16_launches`` the bf16 instantiation's).
+  (``bf16_launches`` the bf16 instantiation's).  Behind each it launches
+  ``dfs_tally_kernel`` (``tally_launches``), which, while the device
+  tally ``"dfs"`` counts (its flag: on for the frames after a profiled
+  span, utils/timing.py), walks the same rays again and adds their work
+  to the tally (``TALLY_KEYS``): the rays that traverse, node visits,
+  box tests, triangle and sphere tests, and the launch's lanes, lanes
+  with a start bound, launches and table bytes, which a roofline bound
+  needs; otherwise it returns at once.  ``launch_trace`` is the library
+  call under it, with the tally's tensors given or none.
 * ``dfs_trace_plain`` — the same per-ray DFS as vectorized torch ops (an
   [N, stack] stack, one pop per live ray per step), in the kernel's
-  visit order and op order, so the two agree bit for bit.
+  visit order and op order, so the two agree bit for bit.  Its
+  ``stats`` count what the kernel's tally counts; the wrapper adds them
+  to the host tally while it counts.
 
 Both take the rays as they come (o, d [N, 3], valid [N]), each ray's
 start bound ``t_start`` [N] (a shadow ray's t_limit, or the bound
@@ -39,6 +49,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import timing
 from ._build import load_library
 from .intersect import packed_prim_test
 from .seeds import seeded_bound
@@ -59,6 +70,12 @@ MAX_VISITS = 1 << 20
 #: and the slab_bf16 one
 launches = 0
 bf16_launches = 0
+#: launches of the tally kernel behind them (one per trace)
+tally_launches = 0
+#: the work tally's counters, in the kernel's order (packet_dfs.cu
+#: TallyKey)
+TALLY_KEYS = ("rays", "visits", "boxes", "tris", "spheres", "lanes",
+              "start_lanes", "launches", "table_bytes")
 #: slab_bf16: relative widening (a few 2^-8 roundings) and absolute pad
 SLAB_EPS = 0.02
 SLAB_PAD = 1e-3
@@ -79,11 +96,15 @@ def _load_library():
     if _lib is None:
         lib = load_library("packet_dfs", build_defines())
         fn = lib.packet_dfs_trace
-        fn.argtypes = [ctypes.c_void_p] * 10 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        fn.argtypes = [ctypes.c_void_p] * 12 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+        keys = lib.packet_dfs_tally_keys()
+        if keys != len(TALLY_KEYS):
+            raise RuntimeError(f"packet_dfs.cu counts {keys} tally keys, "
+                               f"TALLY_KEYS names {len(TALLY_KEYS)}")
         _lib = lib
     return _lib
 
@@ -91,6 +112,27 @@ def _load_library():
 def build_defines():
     """The -D flags this module's kernel is built with."""
     return (f"STACK_CAP={STACK_CAP}",)
+
+
+def tally_slots() -> int:
+    """The slots the tally kernel spreads its atomics over (packet_dfs.cu
+    TALLY_SLOTS)."""
+    return _load_library().packet_dfs_tally_slots()
+
+
+def _table_bytes(node_rows, prim_rows, meta) -> int:
+    return sum(x.numel() * x.element_size()
+               for x in (node_rows, prim_rows, meta))
+
+
+def launch_counts(n, t_start, node_rows, prim_rows, meta):
+    """The tally's per-launch counters of a launch over ``n`` lanes (a
+    launch of 0 lanes runs nothing and counts nothing)."""
+    if not n:
+        return {}
+    return {"lanes": n, "start_lanes": 0 if t_start is None else n,
+            "launches": 1,
+            "table_bytes": _table_bytes(node_rows, prim_rows, meta)}
 
 
 def stack_entries(bvh) -> int:
@@ -148,15 +190,29 @@ def _check_inputs(o, d, valid, t_limit, node_rows, prim_rows, meta,
 def dfs_trace_cuda(o, d, valid, t_start, node_rows, prim_rows, meta,
                    width: int, kill_eps: float, stack: int,
                    do_kill: bool, bf16: bool = False):
-    """Launch the kernel on the current stream; returns (t, prim,
-    dropped).  ``t_start`` is each ray's start bound (None: 1e30);
-    ``stack`` entries per ray; ``do_kill`` the shadow mode; ``bf16`` the
-    slab_bf16 box test."""
-    global launches, bf16_launches
+    """Launch the kernel, and the tally kernel behind it, on the current
+    stream; returns (t, prim, dropped).  ``t_start`` is each ray's start
+    bound (None: 1e30); ``stack`` entries per ray; ``do_kill`` the
+    shadow mode; ``bf16`` the slab_bf16 box test."""
     _check_inputs(o, d, valid, t_start, node_rows, prim_rows, meta, width,
                   stack)
     if o.device.type != "cuda":
         raise ValueError("dfs_trace_cuda needs CUDA tensors")
+    tally = timing.tally("dfs", TALLY_KEYS, o.device, tally_slots())
+    return launch_trace(o, d, valid, t_start, node_rows, prim_rows, meta,
+                        width, kill_eps, stack, do_kill, bf16, tally.live,
+                        tally.on)
+
+
+def launch_trace(o, d, valid, t_start, node_rows, prim_rows, meta,
+                 width: int, kill_eps: float, stack: int, do_kill: bool,
+                 bf16: bool, tally=None, tally_on=None):
+    """The library call under ``dfs_trace_cuda``, on checked CUDA
+    tensors: the trace, and, where ``tally`` ([tally_slots(),
+    len(TALLY_KEYS)] int64) is given, the tally kernel, which adds into
+    it while the int64 ``tally_on`` is not 0; returns (t, prim,
+    dropped)."""
+    global launches, bf16_launches, tally_launches
     lib = _load_library()
     n = o.shape[0]
     t = torch.empty((n,), dtype=torch.float32, device=o.device)
@@ -166,7 +222,10 @@ def dfs_trace_cuda(o, d, valid, t_start, node_rows, prim_rows, meta,
         o.data_ptr(), d.data_ptr(), valid.data_ptr(),
         None if t_start is None else t_start.data_ptr(),
         node_rows.data_ptr(), prim_rows.data_ptr(), meta.data_ptr(),
-        t.data_ptr(), prim.data_ptr(), dropped.data_ptr(), n, width,
+        t.data_ptr(), prim.data_ptr(), dropped.data_ptr(),
+        None if tally is None else tally.data_ptr(),
+        None if tally is None else tally_on.data_ptr(),
+        _table_bytes(node_rows, prim_rows, meta), n, width,
         int(stack), float(kill_eps), int(bool(do_kill)), int(bool(bf16)),
         torch.cuda.current_stream(o.device).cuda_stream,
     )
@@ -177,6 +236,7 @@ def dfs_trace_cuda(o, d, valid, t_start, node_rows, prim_rows, meta,
             bf16_launches += 1
         else:
             launches += 1
+        tally_launches += tally is not None
     return t, prim, dropped
 
 
@@ -208,9 +268,12 @@ def dfs_trace_plain(o, d, valid, t_start, node_rows, prim_rows, meta,
     and folds the hit leaf children's prim groups in slot order, exactly
     as the kernel's loop body does.  Returns (t, prim, dropped) like the
     kernel.  ``stats``, if given, gets the work this data needs (the
-    counts a roofline bound needs): node ``visits``, ``boxes`` (tests of
-    non-empty child slots), and prim tests by type, ``tris`` and
-    ``spheres`` (pad slots are no test).
+    counts a roofline bound needs), as the kernel's tally counts it:
+    the ``rays`` that traverse (valid, with a start bound >= 0), node
+    ``visits``, ``boxes`` (tests of non-empty child slots), and prim
+    tests by type, ``tris`` and ``spheres`` (pad slots are no test; a
+    leaf job runs only while the ray's bound is >= 0, so a shadow ray's
+    kill skips the node's later jobs).
     """
     _check_inputs(o, d, valid, t_start, node_rows, prim_rows, meta, width,
                   stack)
@@ -231,6 +294,8 @@ def dfs_trace_plain(o, d, valid, t_start, node_rows, prim_rows, meta,
     prim = torch.full((n,), -1.0, dtype=torch.float32, device=dev)
     stk = torch.zeros((n, stack), dtype=torch.int64, device=dev)
     sp = (tub0 >= 0.0).long()  # the root, for live rays
+    if stats is not None:
+        _count(stats, "rays", sp.sum())
     visits = torch.zeros((n,), dtype=torch.int64, device=dev)
     overflow = torch.zeros((n,), dtype=torch.bool, device=dev)
     rows = node_rows.view(-1, 8, 8)[:, :W]  # [Nd, W, 8]
@@ -297,14 +362,18 @@ def dfs_trace_plain(o, d, valid, t_start, node_rows, prim_rows, meta,
             gv = g[None, :] < ngr[:, None]  # [J, Gmax]
             rec = groups[torch.where(gv, grp0[:, None] + g, 0)]  # [J,Gm,8,16]
             if stats is not None:
+                # each job's prim tests, by (ray, slot)
                 ptype = torch.where(gv[..., None], rec[..., 12], -1.0)
-                _count(stats, "tris", ((ptype > -0.5) & (ptype <= 0.5)).sum())
-                _count(stats, "spheres", (ptype > 0.5).sum())
+                n_tri = torch.zeros((idx.numel(), W), dtype=torch.int64,
+                                    device=dev)
+                n_sph = torch.zeros_like(n_tri)
+                n_tri[ja, jw] = ((ptype > -0.5) & (ptype <= 0.5)).sum((1, 2))
+                n_sph[ja, jw] = (ptype > 0.5).sum((1, 2))
             r = idx[ja]
             ok, t = packed_prim_test(
                 o_x[r, None, None], o_y[r, None, None], o_z[r, None, None],
                 d_x[r, None, None], d_y[r, None, None], d_z[r, None, None],
-                *(rec[..., k] for k in range(13)),
+                *(rec[..., k] for k in range(13)), rec[..., 14],
             )
             tmat = torch.where(ok, t, T_NO_LIMIT)
             tbest = tmat.amin(-1)  # [J, Gm]
@@ -323,6 +392,11 @@ def dfs_trace_plain(o, d, valid, t_start, node_rows, prim_rows, meta,
             job_p[ja, jw] = torch.where(upd, jp, -1.0)
             pa, ba, kl = prim[idx], best[idx], kill_lim[idx]
             for w in range(W):
+                if stats is not None:
+                    # the kernel runs a job only while the bound is >= 0
+                    ran = ta >= 0.0
+                    _count(stats, "tris", n_tri[ran, w].sum())
+                    _count(stats, "spheres", n_sph[ran, w].sum())
                 better = job_t[:, w] < ta
                 pa = torch.where(better, job_p[:, w], pa)
                 ba = torch.where(better, job_t[:, w], ba)
@@ -391,7 +465,12 @@ def trace_closest_packets(
     if o.device.type == "cuda":
         t, prim, dropped = dfs_trace_cuda(*args)
     elif o.device.type == "cpu":
-        t, prim, dropped = dfs_trace_plain(*args)
+        if timing.counting():
+            stats = launch_counts(o.shape[0], *args[3:7])
+            t, prim, dropped = dfs_trace_plain(*args, stats=stats)
+            timing.add("dfs", TALLY_KEYS, o.device, stats)
+        else:
+            t, prim, dropped = dfs_trace_plain(*args)
     else:
         raise ValueError(f"no packet-DFS path for device {o.device}")
     if seed_t is not None:

@@ -63,12 +63,13 @@ def seed_hits(scene, o, d, valid, k: int = 32) -> SeedHits:
     for i in range(k):
         r = rows[i]
         # seed rows mirror prim_packed cols 0:22, with the prim id in 22
+        # and the scale in 23
         ok, t_i = packed_prim_test(
             ox, oy, oz, dx, dy, dz,
             r[10], r[11], r[12], r[13],
             r[14], r[15], r[16], r[17],
             r[18], r[19], r[20], r[21],
-            r[9],
+            r[9], r[23],
         )
         better = ok & (t_i < best_t)
         best_p = torch.where(better, r[22], best_p)

@@ -88,7 +88,7 @@ def trace_closest(scene, o, d, valid, queue_multiplier: int = 4) -> TraceResult:
     K = bvh.max_leaf
     C = queue_multiplier * N  # per-level entry capacity
     node_rows = bvh.node_packed[:, :8 * W + 2]
-    prim_rows = scene.prim_packed[:, :22]
+    prim_rows = scene.prim_packed[:, :23]
     n_nodes = bvh.leaf_range.shape[0]
 
     # slot N of each per-ray buffer takes the entries that write nothing
@@ -110,7 +110,7 @@ def trace_closest(scene, o, d, valid, queue_multiplier: int = 4) -> TraceResult:
             pid = start[:, None] + k[None, :]  # [cc, K]
             pmask = k[None, :] < rng[:, None]
             pid_c = pid.clamp(0, P - 1)
-            prows = prim_rows[pid_c.reshape(-1).long()].reshape(cc, K, 22)
+            prows = prim_rows[pid_c.reshape(-1).long()].reshape(cc, K, 23)
             t = intersect_rows(o[c_ray][:, None, :], d[c_ray][:, None, :],
                                prows)  # [cc, K]
             t = torch.where(pmask & c_valid[:, None] & (t >= 0), t, INF)
@@ -201,7 +201,7 @@ def trace_bruteforce(scene, o, d, valid, chunk: int = 512) -> TraceResult:
     for s in range(0, P, chunk):
         e = min(s + chunk, P)
         t = intersect_rows(o[:, None, :], d[:, None, :],
-                           scene.prim_packed[None, s:e, :22])  # [N, e-s]
+                           scene.prim_packed[None, s:e, :23])  # [N, e-s]
         t = torch.where((t >= 0) & valid[:, None], t, INF)
         kk = t.argmin(1, keepdim=True)
         tmin = t.gather(1, kk)[:, 0]

@@ -715,6 +715,7 @@ def pack_plain(queue, seg_base, lv: LevelTables, route, cursor, node_rows,
                 oj[..., 0], oj[..., 1], oj[..., 2],
                 dj[..., 0], dj[..., 1], dj[..., 2],
                 *(rec[..., c] for c in range(1, 13)), rec[..., 0],
+                rec[..., 13],
             )
             tm = torch.where(ok & kv, t, inf)
             tbest = tm.amin(1)

@@ -53,6 +53,9 @@ then ``crt.frame.copy_out`` (a fused frame's copies out of the graphs'
 pool) and ``crt.frame.wait`` (the dropped count's read-back and the
 device sync).  ``get_image`` and ``get_raw_image`` copy inside
 ``crt.image.copy``.  A warm-up frame opens its programs' ranges too.
+render() starts with utils/timing.frame_start, so the device tallies
+(``timing.counters()``) count the frames rendered after a profiled
+span, and never a profiled frame.
 
 ``load_scene`` reads a COLLADA document (scene/collada.py) into the
 dynamic scene, flattens its static form and places the camera.  Camera
@@ -81,7 +84,7 @@ from ..scene import static_scene as st
 from ..scene.camera import Camera, CutracerCamera
 from ..scene.collada import load_scene_info
 from ..scene.dynamic_scene import load_from_scene_info
-from ..utils.timing import block_until_ready, span
+from ..utils.timing import block_until_ready, frame_start, span
 from ..ops.partition import compact_live_payload
 from .backends import xla_passes
 from .bounce import (
@@ -470,6 +473,7 @@ class WavefrontRenderer:
             self.setup()
         cfg = self.config
         t0 = time.perf_counter()
+        frame_start()
         with_median = self.image_samples < cfg.post_process_threshold
         with span(INPUTS):
             key = rng.fold_in(rng.PRNGKey(cfg.seed), self.frame_index)

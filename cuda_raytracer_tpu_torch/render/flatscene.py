@@ -26,6 +26,7 @@ import torch
 from ..accel.bvh import BVHAccel
 from ..accel.wide import build_flat_wide_bvh
 from ..device import resolve_device
+from ..ops.intersect import prim_scale
 from ..scene import static_scene as st
 from ..scene.bsdf import (
     BSDF_DIFFUSE,
@@ -74,7 +75,8 @@ class FlatBVH:
     #: (grp0/ngroups on leaf-child slots; dead slots carry inverted boxes)
     node_dfs: torch.Tensor  # [8*Nd, 128] f32
     #: packet-DFS prim groups: 8 prims per row, 16 f32 fields each
-    #: [g.xyz, g.w, T1.xyzw, T2.xyzw, type, orig_id, pad, pad]
+    #: [g.xyz, g.w, T1.xyzw, T2.xyzw, type, orig_id, scale, pad]
+    #: (scale: ops/intersect.prim_scale, filled by from_jax_arrays)
     prim_groups: torch.Tensor  # [G, 128] f32
     #: per node [inner_base, inner_count, leaf_grp0, leaf_count]
     node_meta: torch.Tensor  # [4*Nd] i32
@@ -157,8 +159,9 @@ class FlatScene:
     light_dim_y: torch.Tensor  # [L, 3] f32
     light_area: torch.Tensor  # [L] f32
 
-    #: [v0.xyz, v1.xyz, v2.xyz, type, g.xyz, g.w, T1.xyzw, T2.xyzw]
-    #: (22 of 128 columns), the shared precomputed intersection fields
+    #: [v0.xyz, v1.xyz, v2.xyz, type, g.xyz, g.w, T1.xyzw, T2.xyzw,
+    #: scale] (23 of 128 columns), the shared precomputed intersection
+    #: fields (scale: ops/intersect.prim_scale, filled by from_jax_arrays)
     prim_packed: torch.Tensor  # [P + max_leaf + 8, 128] f32
     #: [v0.xyz v1.xyz v2.xyz type n0.xyz n1.xyz n2.xyz bsdf pad...]
     shade_packed: torch.Tensor  # [P, 32] f32
@@ -173,7 +176,7 @@ class FlatScene:
     light_kinds: Tuple[int, ...]
     has_env: bool
 
-    #: the K largest-area prims (prim_packed cols 0:22 + orig id)
+    #: the K largest-area prims (prim_packed cols 0:22 + orig id + scale)
     seed_rows: Optional[torch.Tensor] = None  # [K, 24] f32
 
     @property
@@ -184,7 +187,7 @@ class FlatScene:
     def wf_prim_rows(self) -> torch.Tensor:
         """Columns 9:25 of prim_packed, contiguous ([P + pad, 16]): the
         intersection fields the wavefront pack kernel reads as four
-        float4, [type g.xyz | g.w T1.xyz | T1.w T2.xyz | T2.w 0 0 0]."""
+        float4, [type g.xyz | g.w T1.xyz | T1.w T2.xyz | T2.w scale 0 0]."""
         return self.prim_packed[:, 9:25].contiguous()
 
     def to(self, device) -> "FlatScene":
@@ -714,6 +717,29 @@ def flatten_tables(
     return fields, static, bvh
 
 
+#: the tables that carry each triangle's prim_scale, as (fields per
+#: prim, g's first field, the type's field, the scale's field); every
+#: other field of them is flatten_tables' (and the JAX package's), whose
+#: scale slots are 0
+SCALE_SLOTS = {
+    "prim_packed": (128, 10, 9, 22),
+    "bvh.prim_groups": (16, 0, 12, 14),
+    "seed_rows": (24, 10, 9, 23),
+}
+
+
+def fill_prim_scale(name: str, a: np.ndarray) -> np.ndarray:
+    """Write ops/intersect.prim_scale of each triangle of table ``name``
+    (a SCALE_SLOTS key) into its scale slot, in place; spheres and pad
+    prims get 0.  ``a`` is float32 and C-contiguous.  Returns ``a``."""
+    per, g0, ty, at = SCALE_SLOTS[name]
+    rows = a.reshape(-1, per)
+    g = torch.from_numpy(np.ascontiguousarray(rows[:, g0:g0 + 3]))
+    scale = prim_scale(g[:, 0], g[:, 1], g[:, 2]).numpy()
+    rows[:, at] = np.where(rows[:, ty] == PRIM_TRI, scale, 0.0)
+    return a
+
+
 def from_jax_arrays(fields: Dict[str, np.ndarray], static: Dict,
                     device=None) -> FlatScene:
     """Build the port's FlatScene from host arrays.
@@ -722,7 +748,9 @@ def from_jax_arrays(fields: Dict[str, np.ndarray], static: Dict,
     ``bvh.<name>`` for the FlatBVH leaves (``np.asarray`` of the JAX
     package's FlatScene leaves, or flatten_tables' own); ``static``
     holds the static fields under the same naming.  Arrays are taken
-    as they are, so the port then traces exactly the JAX tables."""
+    as they are, so the port then traces exactly the JAX tables, but
+    for the scale slots (SCALE_SLOTS), which are filled here from each
+    triangle's g: the JAX package keeps no such field."""
     dev = resolve_device(device)
     expect = {f.name for f in dataclasses.fields(FlatScene)} - {"bvh"}
     expect -= set(_SCENE_STATIC)
@@ -737,7 +765,10 @@ def from_jax_arrays(fields: Dict[str, np.ndarray], static: Dict,
         want = np.int32 if name in _INT_FIELDS else np.float32
         if a.dtype != want:
             raise TypeError(f"field {name}: dtype {a.dtype}, want {want}")
-        return torch.from_numpy(np.array(a, order="C")).to(dev)
+        a = np.array(a, order="C")
+        if name in SCALE_SLOTS:
+            fill_prim_scale(name, a)
+        return torch.from_numpy(a).to(dev)
 
     bvh = FlatBVH(
         **{f.name: t("bvh." + f.name) for f in dataclasses.fields(FlatBVH)

@@ -57,6 +57,7 @@ COUNTERS = (
     (rng, "launches"),
     (packet_dfs, "launches"),
     (packet_dfs, "bf16_launches"),
+    (packet_dfs, "tally_launches"),
     (partition, "launches"),
     (partition, "ray_launches"),
     (wavefront2, "count_launches"),

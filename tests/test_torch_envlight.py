@@ -69,6 +69,8 @@ from cuda_raytracer_tpu_torch.render.flatscene import (
     LIGHT_DIRECTIONAL,
     LIGHT_ENV,
     LIGHT_HEMISPHERE,
+    SCALE_SLOTS,
+    fill_prim_scale,
     flatten_scene,
 )
 from cuda_raytracer_tpu_torch.scene import bsdf as port_bsdf
@@ -259,9 +261,13 @@ def _flat_both(scene):
 @pytest.mark.parametrize("scene", list(SCENES))
 def test_flatten_tables_equal(scene):
     """Every FlatScene table equal to the JAX package's, the light
-    kinds, env_map, env_cdf, env_pdf and has_env among them."""
+    kinds, env_map, env_cdf, env_pdf and has_env among them; the tables
+    with the port's scale slots equal to the JAX ones with those slots
+    filled (fill_prim_scale)."""
     ours, ref = _flat_both(scene)
     fields, static = jax_fields(ref)
+    for name in SCALE_SLOTS:
+        fields[name] = fill_prim_scale(name, np.array(fields[name]))
     for name, want in fields.items():
         obj = ours.bvh if name.startswith("bvh.") else ours
         got = getattr(obj, name.split(".")[-1]).numpy()

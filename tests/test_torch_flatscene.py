@@ -1,7 +1,10 @@
 """The port's flatten_scene against the JAX package's, table for table.
 
 Both build the same numpy tables from the same scene, so every array
-field must be equal exactly, and so must the static metadata.
+field must be equal exactly, and so must the static metadata; but for
+the port's scale slots (``SCALE_SLOTS``: each triangle's prim_scale,
+which the JAX package's tables leave 0), which must equal
+``fill_prim_scale`` of the JAX tables.
 """
 
 import dataclasses
@@ -18,6 +21,8 @@ from cuda_raytracer_tpu.scene.bsdf import DiffuseBSDF as JaxDiffuse
 from cuda_raytracer_tpu_torch.models.cornell import cornell_box_scene
 from cuda_raytracer_tpu_torch.models.terrain import terrain_scene
 from cuda_raytracer_tpu_torch.render.flatscene import (
+    SCALE_SLOTS,
+    fill_prim_scale,
     flatten_scene,
     from_jax_arrays,
 )
@@ -76,6 +81,12 @@ def test_flatten_tables_equal(case):
                             device="cpu")
     ref, _ = jax_flatten(mk_jax(), tree_width=w, max_leaf_size=ml)
     fields, static = jax_fields(ref)
+    for name, (per, _, _, at) in SCALE_SLOTS.items():
+        # the JAX table leaves the slot free; the port fills it
+        assert not fields[name].reshape(-1, per)[:, at].any(), name
+        fields[name] = fill_prim_scale(name, np.array(fields[name]))
+    tri = fields["prim_packed"][: ours.num_prims, 9] == 0
+    assert (fields["prim_packed"][: ours.num_prims, 22][tri] > 0).all()
     for name, want in fields.items():
         obj = ours.bvh if name.startswith("bvh.") else ours
         got = getattr(obj, name.split(".")[-1]).numpy()

@@ -2,9 +2,13 @@
 numpy-seeded rays and the same flatten-table rows.
 
 packed_prim_test is the leaf test the DFS kernel runs line for line.
-Run op by op (as here) jnp and torch round every operation alike, so
-``ok`` is equal and t is bit-equal; the test reports the ulp gap and
-holds it to 0.  The reference-style tests (bbox, triangle, sphere)
+Run op by op (as here) jnp and torch round every operation alike, so,
+under the JAX package's parallel cut (``eps=1e-6``), ``ok`` is equal
+and t is bit-equal; the test reports the ulp gap and holds it to 0.
+Under the port's own cut (|g.d| <= prim_scale, relative to the
+triangle) a verdict may change only where the cut decides; the test
+counts those (ray, prim) pairs and holds each against a float64
+Moller-Trumbore (the benchmark's plain reference).  The reference-style tests (bbox, triangle, sphere)
 sum over vector axes, where the two libraries may add in a different
 order (the sphere test shows up to 8 ulp): hit decisions equal (a flip
 could only come within rounding of a boundary; none does on these
@@ -24,6 +28,8 @@ from cuda_raytracer_tpu.render.flatscene import flatten_scene as jax_flatten
 import torch
 
 from cuda_raytracer_tpu_torch.ops import intersect as PI
+from cuda_raytracer_tpu_torch.render.flatscene import fill_prim_scale
+from test_torch_parallel_cut import reference_t
 
 
 #: torch's thread count in this process, before the module fixture
@@ -66,34 +72,65 @@ def _ulp_gap(a, b):
                       - b.view(np.int32).astype(np.int64)).max())
 
 
+def _rows(fs):
+    """The JAX package's prim rows (cols 0:23) with the port's scale slot
+    (col 22) filled, as the port's flatten_scene has them."""
+    packed = fill_prim_scale("prim_packed", np.array(fs.prim_packed))
+    return packed[: fs.num_prims, :23]
+
+
 def test_packed_prim_test_matches():
     """Every prim row of cornell-with-spheres and terrain n=20 against
     256 random rays each."""
+    changed_total = 0
     for scene in (jax_cornell(with_spheres=True), jax_terrain(n=20)):
         fs, _ = jax_flatten(scene, tree_width=4, max_leaf_size=8)
-        rows = np.array(fs.prim_packed)[: fs.num_prims, :22]
+        rows = _rows(fs)
         o, d = _rays(256, 3, 1.2)
         ob, db = o[:, None, :], d[:, None, :]
         cols = [rows[None, :, c] for c in range(10, 22)] + [rows[None, :, 9]]
         args = [ob[..., 0], ob[..., 1], ob[..., 2],
                 db[..., 0], db[..., 1], db[..., 2]] + cols
         ok_j, t_j = JI.packed_prim_test(*[jnp.asarray(a) for a in args])
-        ok_p, t_p = PI.packed_prim_test(*[torch.from_numpy(
-            np.ascontiguousarray(a)) for a in args])
+        targs = [torch.from_numpy(np.ascontiguousarray(a))
+                 for a in args + [rows[None, :, 22]]]
+        ok_a, t_a = PI.packed_prim_test(*targs, eps=1e-6)
         ok_j, t_j = np.asarray(ok_j), np.asarray(t_j)
-        ok_p, t_p = ok_p.numpy(), t_p.numpy()
-        assert np.array_equal(ok_p, ok_j)
-        assert ok_p.sum() > 20
-        gap = _ulp_gap(t_p[ok_p], t_j[ok_j])
-        print(f"packed_prim_test: {ok_p.sum()} hits, max ulp gap {gap}")
+        ok_a, t_a = ok_a.numpy(), t_a.numpy()
+        assert np.array_equal(ok_a, ok_j)
+        assert ok_a.sum() > 20
+        gap = _ulp_gap(t_a[ok_a], t_j[ok_j])
+        print(f"packed_prim_test: {ok_a.sum()} hits, max ulp gap {gap}")
         assert gap == 0
 
-        # intersect_rows is the same test over whole rows
+        # the port's cut: the same t wherever both cuts pass a prim; a
+        # changed verdict is held against the float64 test
+        ok_p, t_p = PI.packed_prim_test(*targs)
+        ok_p, t_p = ok_p.numpy(), t_p.numpy()
+        both = ok_p & ok_a
+        assert np.array_equal(t_p[both].view(np.int32),
+                              t_a[both].view(np.int32))
+        changed = np.argwhere(ok_p != ok_a)
+        changed_total += len(changed)
+        print(f"verdicts the relative cut changes: {len(changed)} of "
+              f"{ok_p.size} (ray, prim) pairs")
+        for r, p in changed:
+            v = rows[p, 0:9].reshape(3, 3)
+            t64 = reference_t(o[r:r + 1], d[r:r + 1], v)[0]
+            assert np.isfinite(t64) == ok_p[r, p], (r, p, t64)
+
+        # intersect_rows is the same test over whole rows (col 22: the
+        # scale), and over cols 0:22 alone the JAX package's
         tr_j = np.asarray(JI.intersect_rows(jnp.asarray(ob), jnp.asarray(db),
-                                            jnp.asarray(rows[None])))
+                                            jnp.asarray(rows[None, :, :22])))
         tr_p = PI.intersect_rows(torch.from_numpy(ob), torch.from_numpy(db),
                                  torch.from_numpy(rows[None])).numpy()
-        assert np.array_equal(tr_p.view(np.int32), tr_j.view(np.int32))
+        same = np.ones_like(ok_p)
+        same[tuple(changed.T)] = False
+        assert np.array_equal(tr_p[same].view(np.int32),
+                              tr_j[same].view(np.int32))
+        assert np.array_equal(tr_p >= 0, ok_p)
+    print(f"changed verdicts in all: {changed_total}")
 
 
 def test_reference_tests_match():
@@ -175,7 +212,7 @@ def test_packed_prim_sphere_rows_default_threads(default_threads):
     count."""
     fs, _ = jax_flatten(jax_cornell(with_spheres=True), tree_width=4,
                         max_leaf_size=8)
-    rows = np.array(fs.prim_packed)[: fs.num_prims, :22]
+    rows = _rows(fs)
     rows = rows[rows[:, 9] > 0.5]
     assert len(rows) == 2
     o, d = _rays(1 << 16, 5, 1.0)
@@ -185,7 +222,7 @@ def test_packed_prim_sphere_rows_default_threads(default_threads):
             db[..., 0], db[..., 1], db[..., 2]] + cols
     ok_j, t_j = JI.packed_prim_test(*[jnp.asarray(a) for a in args])
     ok_p, t_p = PI.packed_prim_test(*[torch.from_numpy(
-        np.ascontiguousarray(a)) for a in args])
+        np.ascontiguousarray(a)) for a in args + [rows[None, :, 22]]])
     ok_j, t_j = np.asarray(ok_j), np.asarray(t_j)
     ok_p, t_p = ok_p.numpy(), t_p.numpy()
     assert np.array_equal(ok_p, ok_j)

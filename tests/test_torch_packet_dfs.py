@@ -279,7 +279,8 @@ def test_work_counts_root_leaf():
     """The plain version's work counts (what chip_smoke.py's bound reads)
     on a one-leaf tree of 12 triangles and 2 spheres: per live ray one
     visit, one box test (the leaf's slot only) and one test per prim of
-    its own type; pad slots and invalid lanes cost nothing."""
+    its own type; pad slots and invalid lanes cost nothing; ``rays``
+    counts the live rays (what the kernel's tally counts)."""
     ours, _ = flatten_scene(cornell_box_scene(with_spheres=True),
                             tree_width=4, max_leaf_size=32, device="cpu")
     assert ours.bvh.root_is_leaf
@@ -288,5 +289,5 @@ def test_work_counts_root_leaf():
     stats = {}
     _plain(ours, o, d, valid, stats=stats)
     live = int(valid.sum())
-    assert stats == {"visits": live, "boxes": live, "tris": 12 * live,
-                     "spheres": 2 * live}
+    assert stats == {"rays": live, "visits": live, "boxes": live,
+                     "tris": 12 * live, "spheres": 2 * live}

@@ -40,7 +40,10 @@ import torch
 from cuda_raytracer_tpu_torch.models.cornell import cornell_box_scene
 from cuda_raytracer_tpu_torch.models.terrain import terrain_scene
 from cuda_raytracer_tpu_torch.ops import wavefront2 as wf
-from cuda_raytracer_tpu_torch.render.flatscene import flatten_scene
+from cuda_raytracer_tpu_torch.render.flatscene import (
+    fill_prim_scale,
+    flatten_scene,
+)
 from cuda_raytracer_tpu_torch.scene import static_scene as st
 from cuda_raytracer_tpu_torch.scene.bsdf import DiffuseBSDF
 
@@ -507,8 +510,9 @@ def test_hit_keys_merge_rule():
 
 def test_derived_tables():
     ours, ref, _ = scenes("soup")
-    np.testing.assert_array_equal(
-        ours.wf_prim_rows.numpy(), np.asarray(ref.prim_packed)[:, 9:25])
+    # the JAX table with the port's scale slot (col 22) filled
+    packed = fill_prim_scale("prim_packed", np.array(ref.prim_packed))
+    np.testing.assert_array_equal(ours.wf_prim_rows.numpy(), packed[:, 9:25])
     np.testing.assert_array_equal(
         ours.bvh.wf_node_rows.numpy(), np.asarray(ref.bvh.node_packed)[:, :32])
     assert np.all(np.asarray(ref.prim_packed)[:, 22:] == 0.0)
